@@ -9,13 +9,25 @@ Phases (each failure exits non-zero; nothing is caught):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. builds every CUDA kernel of the port from `vitadapter_torch/ops/csrc`;
   3. holds each kernel against its plain PyTorch version on the card, fp32
-     and bf16, at the flagship's shapes, and times kernel, plain version and
-     (for attention) `F.scaled_dot_product_attention` as a yardstick;
+     and bf16, at the flagship's shapes: the forward kernels, and the
+     backward kernels reached through the autograd wrappers (so the
+     gradients of MSDA and attention on the card are checked too); the
+     auction (fp32 costs only) for equal matches and for a total cost within
+     its bound of scipy's optimum. It times each kernel beside its bound,
+     its plain version and, where one PyTorch call computes the same
+     function, that call (`scaled_dot_product_attention` and its backward,
+     `F.grid_sample` and its backward);
   4. serves a few batch-2 requests of raw uint8 512x512 images with the
      flagship ViT-Adapter-L + Mask2Former (ADE20K, 150 classes) in bf16 from
      random seeded weights, and checks the launch counts of the kernels;
   5. runs a reduced-depth, full-width model in fp32 on the card (kernels)
-     and on the CPU (plain versions) and compares the logits.
+     and on the CPU (plain versions) and compares the logits;
+  6. trains the flagship for a few steps (batch 2, 512x512, fp32 parameters
+     and bf16 compute, DropPath 0.4, the Mask2Former loss at 12544 points
+     with the auction assignment, AdamW with layer decay) and checks the
+     launch counts per step;
+  7. takes one train step of a reduced-depth, full-width model in fp32 on
+     the card and on the CPU and compares the loss and the gradient norm.
 The last two lines are a JSON object of the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -27,6 +39,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 # published H100 SXM peaks (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -38,9 +51,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores, dense
 # both rounded from fp32 sums, so they differ by at most ~1 bf16 ulp (2^-8
 # relative), allowed twice over.
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2.0 ** -7)}
+# gradients (backward kernels with fp32 atomics, or another summation
+# order): each element within 1e-5 of the reference's max |value| plus the
+# relative rounding of its dtype (1e-5 for fp32, 2^-7 for bf16)
+GRAD_TOL = 1e-5
 # reduced-depth model, card (kernels, cuDNN convs) vs CPU, fp32, TF32 off:
 # float reassociation across ~60 layers, relative to the logits' scale
 E2E_RTOL = 1e-3
+# reduced-depth train step, card vs CPU, fp32, TF32 off: besides the
+# reassociation, the loss samples bf16-rounded mask logits, where a 1e-6
+# difference can flip one rounding and move an uncertainty-selected point
+# (1.8e-5 seen on the H100)
+TRAIN_RTOL = 1e-3
 
 MSDA_GEOMETRIES = {
     # name: (spatial shapes of the value, Lq, heads, calls per forward)
@@ -50,7 +72,34 @@ MSDA_GEOMETRIES = {
 }
 ATTN_SHAPE = (2, 16, 1024, 64)   # 24 calls per forward
 ATTN_CALLS = 24
+# point sampling in one flagship train step (batch 2, 200 queries, 60 gt
+# classes, 10 decoder outputs, 12544 points):
+# name: (masks N, H, W, points per mask, points sorted by y, calls)
+POINT_GEOMETRIES = {
+    "assign_pred": (4000, 128, 128, 12544, True, 1),
+    "assign_gt": (120, 512, 512, 125440, True, 1),
+    "uncertainty": (400, 128, 128, 37632, False, 10),
+    "loss_pred": (400, 128, 128, 12544, True, 10),
+    "loss_gt": (400, 512, 512, 12544, True, 10),
+}
+POINT_BWD = "loss_pred"          # the one sampling call with a gradient
+# the assignment of one flagship train step: 10 decoder outputs x batch 2
+# cost matrices of 200 queries x 60 gts, solved in one launch
+AUCTION_SHAPE = (20, 200, 60)
 SERVE_REQUESTS = 4   # batch-2 requests of the main path (phase 4)
+TRAIN_STEPS = 6      # flagship train steps (phase 6)
+TRAIN_LAUNCHES = {   # kernel launches per train step
+    "msda_fwd": 16, "msda_bwd": 16, "attention_fwd": 24, "attention_bwd": 24,
+    "point_sample_fwd": 32, "point_sample_bwd": 10, "auction": 1}
+REPLACES = {
+    "msda_fwd": "vitadapter/ops/msda_pallas.py:316",
+    "msda_bwd": "vitadapter/ops/msda_pallas.py:1179",
+    "attention_fwd": "vitadapter/ops/attention_pallas.py:57",
+    "attention_bwd": "vitadapter/ops/attention_pallas.py:72",
+    "point_sample_fwd": "vitadapter/ops/point_sample_pallas.py:46",
+    "point_sample_bwd": "vitadapter/ops/point_sample_pallas.py:101",
+    "auction": "vitadapter/ops/auction_pallas.py:33",
+}
 
 
 def log(*a):
@@ -77,9 +126,59 @@ def time_ms(fn, flush, iters=10):
 
 def close(got, ref, dtype):
     atol, rtol = TOL[dtype]
-    err = (got.float() - ref.float()).abs()
+    err = (got.detach().float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
     return ok, float(err.max())
+
+
+def close_grad(got, ref):
+    """A gradient against the plain one (see GRAD_TOL); not None."""
+    if got is None:
+        return False, float("inf")
+    rtol = GRAD_TOL if got.dtype == torch.float32 else 2.0 ** -7
+    r = ref.float()
+    err = (got.float() - r).abs()
+    ok = bool((err <= GRAD_TOL * float(r.abs().max()) + rtol * r.abs()).all())
+    return ok and got.dtype == ref.dtype, float(err.max())
+
+
+def bound_ms(nbytes, flops, dtype):
+    """Least time for the work: bytes over HBM rate, or operations over the
+    peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def corners_in_map(x01, y01, H, W):
+    """Bilinear corners inside an (H, W) map of points (x, y) in [0, 1]."""
+    x0 = torch.floor(x01 * W - 0.5)
+    y0 = torch.floor(y01 * H - 0.5)
+    n = 0
+    for dx in (0, 1):
+        for dy in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            n += int(((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)).sum())
+    return n
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def new_row(library=True):
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                library_ms=0.0 if library else None, bound_by=set())
+
+
+def add_to_row(row, calls, err, k_ms, p_ms, b, lib_ms=None):
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["ms"] += calls * k_ms
+    row["plain_ms"] += calls * p_ms
+    row["bound_ms"] += calls * b[0]
+    row["bound_by"].add(b[1])
+    if lib_ms is not None:
+        row["library_ms"] += calls * lib_ms
 
 
 def msda_inputs(shapes, Lq, M, dtype, gen, B=2, D=32, P=4):
@@ -98,114 +197,368 @@ def msda_inputs(shapes, Lq, M, dtype, gen, B=2, D=32, P=4):
     loc = torch.where(far, loc * 7.0 - 3.0, loc)
     attn = torch.softmax(torch.randn(B, Lq, M, L * P, generator=gen,
                                      device=dev), -1).reshape(B, Lq, M, L, P)
-    return value, loc.contiguous(), attn.contiguous()
+    g = torch.randn(B, Lq, M * D, generator=gen, device=dev).to(dtype)
+    return value, loc.contiguous(), attn.contiguous(), g
 
 
-def msda_work(value, shapes, loc, attn):
-    """(bytes, flops) one call must at least move and do: each input read
-    once, the output written once; 2 flops per channel per in-map corner."""
-    B, S, M, D = value.shape
-    corners = 0
+def msda_corners(shapes, loc):
+    return sum(corners_in_map(loc[:, :, :, lvl, :, 0], loc[:, :, :, lvl, :, 1],
+                              H, W) for lvl, (H, W) in enumerate(shapes))
+
+
+def unported_msda_bounds(shapes, value, loc, attn):
+    """(bound ms, bound by) of one call at these inputs for each MSDA
+    kernel of the JAX package not ported yet (ROADMAP section 2, items
+    6-10): the per-level forwards for levels with HW > 1024 and HW <= 1024
+    (each writes an fp32 partial output), the band-matmul forward (the
+    whole forward), and the per-level backward's d value and d loc / d attn
+    kernels. The JAX dispatch takes none of them at the flagship's shapes
+    (S * D * itemsize <= 8 MiB selects the fused kernels)."""
+    B, Lq, M, _, P, _ = loc.shape
+    D = value.shape[-1]
+    f32 = torch.float32
+    per_level = {"big": [0, 0], "small": [0, 0]}
     for lvl, (H, W) in enumerate(shapes):
-        x = loc[:, :, :, lvl, :, 0] * W - 0.5
-        y = loc[:, :, :, lvl, :, 1] * H - 0.5
-        x0, y0 = torch.floor(x), torch.floor(y)
-        for dx in (0, 1):
-            for dy in (0, 1):
-                xi, yi = x0 + dx, y0 + dy
-                corners += int(((xi >= 0) & (xi < W) & (yi >= 0)
-                                & (yi < H)).sum())
-    out_bytes = B * loc.shape[1] * M * D * value.element_size()
-    nbytes = (value.numel() * value.element_size() + loc.numel() * 4
-              + attn.numel() * 4 + out_bytes)
-    return nbytes, 2 * D * corners
+        part = per_level["big" if H * W > 1024 else "small"]
+        part[0] += (B * H * W * M * D * value.element_size()
+                    + nbytes(loc[:, :, :, lvl], attn[:, :, :, lvl])
+                    + B * Lq * M * D * 4)
+        part[1] += 2 * D * corners_in_map(loc[:, :, :, lvl, :, 0],
+                                          loc[:, :, :, lvl, :, 1], H, W)
+    corners = msda_corners(shapes, loc)
+    g_bytes = B * Lq * M * D * value.element_size()
+    return {
+        "msda_pallas.py:121 _sample_kernel": bound_ms(*per_level["big"], f32),
+        "msda_pallas.py:177 _sample_kernel_onehot_pf": bound_ms(
+            *per_level["small"], f32),
+        "msda_pallas.py:514 _fwd_ml_bandmm_kernel": bound_ms(
+            nbytes(value, loc, attn) + g_bytes, 2 * D * corners, f32),
+        "msda_pallas.py:905 _dv_kernel": bound_ms(
+            nbytes(loc, attn, value) + g_bytes, 2 * D * corners, f32),
+        "msda_pallas.py:1034 _dgrid_kernel": bound_ms(
+            nbytes(value, loc, attn, loc, attn) + g_bytes, 2 * D * corners,
+            f32),
+    }
 
 
-def bound_ms(nbytes, flops, dtype):
-    """Least time for the work: bytes over HBM rate, or operations over the
-    peak rate of their type, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def auction_costs(gen, B, Q, G, contested, P=12544, K=150):
+    """Cost matrices as the loss builds them (class, point BCE and dice
+    costs with the loss's weights) for random logits against random binary
+    gt masks at P points: (B, Q, G) fp32. `contested`: the gt masks are
+    sparse (one pixel in K, as uniform labels over K classes make them) and
+    the queries' mask logits share one map and differ mostly by an offset,
+    as in an untrained model, so every gt prefers the same few queries and
+    the auction runs hundreds of rounds; otherwise every query and gt is
+    independent and a few rounds settle it."""
+    from vitadapter_torch.ops import matching as mt
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    labels = torch.randint(0, K, (B, G), generator=gen, device="cuda")
+    if contested:
+        cls = 0.3 * randn(B, Q, K + 1)
+        pred = (2 * randn(B, 1, P) + 0.5 * randn(B, Q, 1)
+                + 0.5 * randn(B, Q, P))
+        density = 1 / K
+    else:
+        cls, pred, density = 2 * randn(B, Q, K + 1), 3 * randn(B, Q, P), 0.3
+    gt = (torch.rand(B, G, P, generator=gen, device="cuda") < density).float()
+    return (mt.classification_cost(cls, labels, 2.0)
+            + mt.bce_mask_cost(pred, gt, 5.0)
+            + mt.dice_cost(pred, gt, 5.0)).contiguous()
 
 
-def check_kernels(flush):
-    """Phase 3. Returns the kernels' per-forward numbers (bf16, flagship)."""
-    from vitadapter_torch.ops.attention import attention_plain, fused_attention
-    from vitadapter_torch.ops.msda import ms_deform_attn, ms_deform_attn_plain
+def scipy_totals(cost, n_valid):
+    """Optimal total matched cost of each matrix (scipy, float64)."""
+    from scipy.optimize import linear_sum_assignment
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator("cuda").manual_seed(0)
+    c = cost.double().cpu().numpy()
+    out = []
+    for b, n in enumerate(n_valid.tolist()):
+        rows, cols = linear_sum_assignment(c[b, :, :n]) if n else ([], [])
+        out.append(float(c[b][rows, cols].sum()))
+    return out
+
+
+def check_auction(rows, flush, gen):
+    """auction: the kernel against the plain auction on the card (the same
+    matches), and its total matched cost against scipy's optimum: within
+    n_valid * eps above it (the auction's bound) plus fp32 rounding. At the
+    flagship step's shapes with every gt valid and contested costs (the
+    timed case), then on independent costs with 0 to 60 valid gts."""
+    from vitadapter_torch.ops import matching as mt
+
     ok = True
-    rows = {"msda_fwd": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                             bound_ms=0.0, library_ms=None, bound_by=set()),
-            "attention_fwd": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                  bound_ms=0.0, library_ms=0.0,
-                                  bound_by=set())}
+    B, Q, G = AUCTION_SHAPE
+    for case, nv in (("flagship", [G] * B),
+                     ("n_valid", [G, 37, 7, 1, 0, G, 12, 2])):
+        cost = auction_costs(gen, len(nv), Q, G,
+                             contested=case == "flagship")
+        n_valid = torch.tensor(nv, device="cuda")
+        owner, iters = mt._kernel_auction(cost, n_valid)
+        ref, ref_iters = mt.auction_assign_plain(cost, n_valid)
+        torch.cuda.synchronize()
+        same = bool((owner.long() == ref).all()) and bool(
+            (iters.long() == ref_iters).all())
+        err = float((owner.long() - ref).abs().max())
+        scipy_totals(cost[:1], n_valid[:1])      # import scipy untimed
+        t0 = time.perf_counter()
+        opt = scipy_totals(cost, n_valid)
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        own = owner.long()
+        got = torch.where(own >= 0, cost.gather(2, own.clamp(min=0)[..., None])
+                          [..., 0], 0.0).double().sum(1).tolist()
+        span = torch.where(torch.arange(G, device="cuda")[None, None]
+                           < n_valid[:, None, None], cost.abs(), 0.0).amax(
+            dim=(1, 2)).clamp(min=1e-6)
+        gap = [g - o for g, o in zip(got, opt)]
+        within = all(-1e-5 * abs(o) <= d <= n * float(s) / mt.EPS_DIV
+                     + 1e-5 * abs(o)
+                     for d, o, n, s in zip(gap, opt, nv, span.tolist()))
+        matched = [int((own[b] >= 0).sum()) for b in range(len(nv))]
+        good = same and within and matched == nv
+        ok &= good
+        k_ms = time_ms(lambda: mt._kernel_auction(cost, n_valid), flush)
+        p_ms = time_ms(lambda: mt.auction_assign_plain(cost, n_valid), flush,
+                       iters=3)
+        # per round, each free gt scans its Q values (a subtraction and two
+        # comparisons) and each query its G bids: 4 G Q operations at most
+        rounds = iters.long().tolist()
+        ops = sum(4 * G * Q * r for r in rounds)
+        b = bound_ms(nbytes(cost, n_valid, owner, iters), ops, torch.float32)
+        log(f"auction {case:8s} ({len(nv)}, {Q}, {G}) fp32 n_valid={nv[:8]} "
+            f"same matches as plain={same} max_abs_err={err:.1f} total - "
+            f"scipy optimum max {max(gap):.3e} within n_valid*eps={within} "
+            f"rounds min/mean/max {min(rounds)}/"
+            f"{sum(rounds) / len(rounds):.1f}/{max(rounds)} ok={good} "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"scipy_host_ms={scipy_ms:.2f} bound_ms={b[0]:.6f} ({b[1]})")
+        if case == "flagship":
+            add_to_row(rows["auction"], 1, err, k_ms, p_ms, b)
+    return ok
 
+
+def check_msda(rows, flush, gen, unported):
+    """msda_fwd and msda_bwd (through `MSDeformAttnFunction`)."""
+    from vitadapter_torch.ops import msda
+
+    ok = True
     for dtype in (torch.float32, torch.bfloat16):
         for name, (shapes, Lq, M, calls) in MSDA_GEOMETRIES.items():
-            value, loc, attn = msda_inputs(shapes, Lq, M, dtype, gen)
-            got = ms_deform_attn(value, shapes, loc, attn)
-            ref = ms_deform_attn_plain(value, shapes, loc, attn)
+            value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen)
+            ins = [t.detach().clone().requires_grad_()
+                   for t in (value, loc, attn)]
+            got = msda.ms_deform_attn(ins[0], shapes, ins[1], ins[2])
+            got.backward(g)
+            ref = msda.ms_deform_attn_plain(value, shapes, loc, attn)
+            ref_g = msda.ms_deform_attn_plain_backward(value, shapes, loc,
+                                                       attn, g)
             torch.cuda.synchronize()
             good, err = close(got, ref, dtype)
-            ok &= good
-            ref_max = float(ref.float().abs().max())
-            k_ms = time_ms(lambda: ms_deform_attn(value, shapes, loc, attn),
-                           flush)
-            p_ms = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc,
-                                                        attn), flush, iters=3)
-            nbytes, flops = msda_work(value, shapes, loc, attn)
-            # the sampling arithmetic is fp32 whatever the value dtype
-            b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-            log(f"msda_fwd {name:13s} {str(dtype):14s} B=2 Lq={Lq} M={M} "
-                f"S={value.shape[1]} max_abs_err={err:.3e} "
-                f"rel={err / ref_max:.3e} ok={good} kernel_ms={k_ms:.4f} "
-                f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}: "
-                f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-            if dtype == torch.bfloat16:
-                r = rows["msda_fwd"]
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["ms"] += calls * k_ms
-                r["plain_ms"] += calls * p_ms
-                r["bound_ms"] += calls * b_ms
-                r["bound_by"].add(b_by)
+            checks = [close_grad(t.grad, r) for t, r in zip(ins, ref_g)]
+            good_b = all(c[0] for c in checks)
+            err_b = max(c[1] for c in checks)
+            ok &= good and good_b
+            corners = msda_corners(shapes, loc)
+            D = value.shape[-1]
 
+            def fwd():
+                return msda.ms_deform_attn(value, shapes, loc, attn)
+
+            def bwd():
+                return msda._kernel_backward(value, shapes, loc, attn, g)
+
+            def plain_bwd():
+                return msda.ms_deform_attn_plain_backward(value, shapes, loc,
+                                                          attn, g)
+
+            with torch.no_grad():
+                k_ms = time_ms(fwd, flush)
+                p_ms = time_ms(lambda: msda.ms_deform_attn_plain(
+                    value, shapes, loc, attn), flush, iters=3)
+                kb_ms = time_ms(bwd, flush)
+            pb_ms = time_ms(plain_bwd, flush, iters=3)
+            # the sampling arithmetic is fp32 whatever the value dtype:
+            # forward 2 flops per channel per in-map corner, backward 4
+            # (the g.v dot and the scaled scatter into d value)
+            # the output has the size and dtype of g
+            fb = bound_ms(nbytes(value, loc, attn, g), 2 * D * corners,
+                          torch.float32)
+            bb = bound_ms(2 * nbytes(value, loc, attn) + nbytes(g),
+                          4 * D * corners, torch.float32)
+            log(f"msda_fwd {name:13s} {str(dtype):14s} B=2 Lq={Lq} M={M} "
+                f"S={value.shape[1]} max_abs_err={err:.3e} ok={good} "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"bound_ms={fb[0]:.4f} ({fb[1]})")
+            log(f"msda_bwd {name:13s} {str(dtype):14s} grads via the "
+                f"autograd wrapper: max_abs_err (value, loc, attn)="
+                f"{[f'{c[1]:.3e}' for c in checks]} ok={good_b} "
+                f"kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
+                f"bound_ms={bb[0]:.4f} ({bb[1]})")
+            if dtype == torch.bfloat16:
+                add_to_row(rows["msda_fwd"], calls, err, k_ms, p_ms, fb)
+                add_to_row(rows["msda_bwd"], calls, err_b, kb_ms, pb_ms, bb)
+                for k, (b_ms, b_by) in unported_msda_bounds(
+                        shapes, value, loc, attn).items():
+                    u = unported.setdefault(k, [0.0, set()])
+                    u[0] += calls * b_ms
+                    u[1].add(b_by)
+    return ok
+
+
+def check_attention(rows, flush, gen):
+    """attention_fwd and attention_bwd (through `FusedAttentionFunction`)."""
+    from vitadapter_torch.ops import attention as at
+
+    ok = True
+    sdpa = F.scaled_dot_product_attention
+    for dtype in (torch.float32, torch.bfloat16):
         cases = [ATTN_SHAPE, (2, 16, 1000, 64), (1, 3, 130, 32),
                  (1, 2, 77, 128)]
         for shape in cases:
-            q, k, v = (torch.randn(*shape, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(3))
-            got = fused_attention(q, k, v)
-            ref = attention_plain(q, k, v)
+            q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
+                          .to(dtype) for _ in range(4))
+            ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            got = at.fused_attention(*ins)
+            got.backward(g)
+            ref = at.attention_plain(q, k, v)
+            ref_g = at.attention_plain_backward(q, k, v, g)
             torch.cuda.synchronize()
             good, err = close(got, ref, dtype)
-            ok &= good
-            k_ms = time_ms(lambda: fused_attention(q, k, v), flush)
-            p_ms = time_ms(lambda: attention_plain(q, k, v), flush)
+            checks = [close_grad(t.grad, r) for t, r in zip(ins, ref_g)]
+            good_b = all(c[0] for c in checks)
+            err_b = max(c[1] for c in checks)
+            ok &= good and good_b
+            scale = shape[-1] ** -0.5
+            lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_out = sdpa(*lib)
+            with torch.no_grad():
+                k_ms = time_ms(lambda: at.fused_attention(q, k, v), flush)
+                p_ms = time_ms(lambda: at.attention_plain(q, k, v), flush)
+                kb_ms = time_ms(lambda: at._kernel_backward(q, k, v, g,
+                                                            scale), flush)
+                lib_ms = time_ms(lambda: sdpa(q, k, v), flush)
+            pb_ms = time_ms(lambda: at.attention_plain_backward(q, k, v, g),
+                            flush)
+            libb_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib, g, retain_graph=True), flush)
             B, H, N, D = shape
-            nbytes = 4 * q.numel() * q.element_size()
-            flops = 4 * B * H * N * N * D
-            b_ms, b_by = bound_ms(nbytes, flops, dtype)
-            lib_ms = time_ms(lambda: torch.nn.functional
-                             .scaled_dot_product_attention(q, k, v), flush)
+            fb = bound_ms(4 * nbytes(q), 4 * B * H * N * N * D, dtype)
+            # backward: q k^T again, dv = P^T dO, dP = dO v^T, dq, dk
+            bb = bound_ms(7 * nbytes(q), 10 * B * H * N * N * D, dtype)
             log(f"attention_fwd {str(shape):18s} {str(dtype):14s} "
                 f"max_abs_err={err:.3e} ok={good} kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.2f} MB, "
-                f"{flops / 1e9:.2f} GFLOP)")
+                f"bound_ms={fb[0]:.4f} ({fb[1]})")
+            log(f"attention_bwd {str(shape):18s} {str(dtype):14s} grads via "
+                f"the autograd wrapper: max_abs_err (q, k, v)="
+                f"{[f'{c[1]:.3e}' for c in checks]} ok={good_b} "
+                f"kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
+                f"sdpa_bwd_ms={libb_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]})")
             if dtype == torch.bfloat16 and shape == ATTN_SHAPE:
-                r = rows["attention_fwd"]
-                r["max_abs_err"] = err
-                r["ms"] = ATTN_CALLS * k_ms
-                r["plain_ms"] = ATTN_CALLS * p_ms
-                r["bound_ms"] = ATTN_CALLS * b_ms
-                r["library_ms"] = ATTN_CALLS * lib_ms
-                r["bound_by"].add(b_by)
+                add_to_row(rows["attention_fwd"], ATTN_CALLS, err, k_ms, p_ms,
+                           fb, lib_ms)
+                add_to_row(rows["attention_bwd"], ATTN_CALLS, err_b, kb_ms,
+                           pb_ms, bb, libb_ms)
+    return ok
+
+
+def check_point_sample(rows, flush, gen):
+    """point_sample_fwd and point_sample_bwd (through
+    `PointSampleFunction`). The yardstick is `F.grid_sample` on fp32 copies
+    of the masks, the points mapped to [-1, 1]."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (N, H, W, P, sort, calls) in POINT_GEOMETRIES.items():
+            masks = torch.randn(N, H, W, generator=gen, device="cuda") \
+                .to(dtype)
+            pts = torch.rand(N, P, 2, generator=gen, device="cuda")
+            if sort:
+                pts = ps.sort_points_by_y(pts)
+            has_grad = name == POINT_BWD
+            m_in = masks.detach().clone().requires_grad_(has_grad)
+            got = ps.point_sample(m_in, pts)
+            ref = ps.point_sample_plain(masks, pts)
+            good, err = close(got, ref, torch.float32)
+            checks = []
+            if has_grad:
+                g = torch.randn(N, P, generator=gen, device="cuda")
+                got.backward(g)
+                checks = [close_grad(m_in.grad, ps.point_sample_plain_backward(
+                    masks, pts, g))]
+            torch.cuda.synchronize()
+            good_b = all(c[0] for c in checks)
+            ok &= good and good_b
+            corners = corners_in_map(pts[..., 0], pts[..., 1], H, W)
+            m4 = masks.float()[:, None]
+            grid = (pts * 2 - 1)[:, None]
+            with torch.no_grad():
+                k_ms = time_ms(lambda: ps.point_sample(masks, pts), flush)
+                p_ms = time_ms(lambda: ps.point_sample_plain(masks, pts),
+                               flush, iters=3)
+                lib_ms = time_ms(lambda: F.grid_sample(
+                    m4, grid, mode="bilinear", padding_mode="zeros",
+                    align_corners=False), flush)
+            fb = bound_ms(nbytes(masks, pts) + N * P * 4, 2 * corners,
+                          torch.float32)
+            log(f"point_sample_fwd {name:12s} {str(dtype):14s} "
+                f"({N}, {H}, {W}) x {P} points max_abs_err={err:.3e} "
+                f"ok={good} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"grid_sample_ms={lib_ms:.4f} bound_ms={fb[0]:.4f} "
+                f"({fb[1]})")
+            if dtype == torch.bfloat16:
+                add_to_row(rows["point_sample_fwd"], calls, err, k_ms, p_ms,
+                           fb, lib_ms)
+            if not has_grad:
+                continue
+            m4r = m4.detach().clone().requires_grad_()
+            lib_out = F.grid_sample(m4r, grid, mode="bilinear",
+                                    padding_mode="zeros", align_corners=False)
+            g4 = g[:, None, None, :]
+            with torch.no_grad():
+                kb_ms = time_ms(lambda: ps._kernel_backward(masks, pts, g),
+                                flush)
+            pb_ms = time_ms(lambda: ps.point_sample_plain_backward(
+                masks, pts, g), flush, iters=3)
+            libb_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, m4r, g4, retain_graph=True), flush)
+            bb = bound_ms(nbytes(pts, g, masks), 2 * corners, torch.float32)
+            log(f"point_sample_bwd {name:12s} {str(dtype):14s} d masks via "
+                f"the autograd wrapper: max_abs_err={checks[0][1]:.3e} "
+                f"ok={good_b} kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
+                f"grid_sample_bwd_ms={libb_ms:.4f} bound_ms={bb[0]:.4f} "
+                f"({bb[1]})")
+            if dtype == torch.bfloat16:
+                add_to_row(rows["point_sample_bwd"], calls, checks[0][1],
+                           kb_ms, pb_ms, bb, libb_ms)
+    return ok
+
+
+def check_kernels(flush):
+    """Phase 3. Returns each kernel's numbers at the flagship's bf16 shapes,
+    summed over its calls in one batch-2 forward (forward kernels) or one
+    batch-2 train step (the others); one forward runs in each step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(0)
+    rows = {name: new_row(library=name not in ("msda_fwd", "msda_bwd",
+                                                 "auction"))
+            for name in REPLACES}
+    unported = {}
+    ok = check_msda(rows, flush, gen, unported)
+    ok &= check_attention(rows, flush, gen)
+    ok &= check_point_sample(rows, flush, gen)
+    ok &= check_auction(rows, flush, gen)
     if not ok:
         raise SystemExit("FAIL: a kernel disagrees with its plain version")
+    log("bounds of the TPU kernels not ported yet, ms per flagship bf16 "
+        "batch-2 forward or train step at the shapes above (none launched "
+        "by the JAX dispatch there): "
+        + json.dumps({k: [round(v[0], 6), "/".join(sorted(v[1]))]
+                      for k, v in unported.items()}))
     for r in rows.values():
         r["bound_by"] = "/".join(sorted(r["bound_by"]))
     return rows
@@ -283,19 +636,26 @@ def randomize(model, gen):
                                                      generator=gen))
 
 
+def reduced_model(gen, **kw):
+    """Depth 4 at full width on the CPU, one block per interaction."""
+    from vitadapter_torch import zoo
+
+    model = zoo.mask2former_vit_adapter(
+        "large", device="cpu", generator=gen, depth=4,
+        interaction_indexes=((0, 0), (1, 1), (2, 2), (3, 3)), **kw)
+    randomize(model, gen)
+    return model
+
+
 def card_vs_cpu():
     """Phase 5: reduced depth, full width, fp32; kernels vs plain versions."""
-    from vitadapter_torch import zoo
     from vitadapter_torch.data.preprocess import normalize
     from vitadapter_torch.ops import cuda_ext
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(2)
-    cpu = zoo.mask2former_vit_adapter(
-        "large", device="cpu", generator=gen, depth=4,
-        interaction_indexes=((0, 0), (1, 1), (2, 2), (3, 3)))
-    randomize(cpu, gen)
+    cpu = reduced_model(gen)
     card = copy.deepcopy(cpu).cuda()
     img = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
                         generator=gen)
@@ -317,6 +677,122 @@ def card_vs_cpu():
     if not ok or used.get("msda_fwd", 0) != 16 or used.get("attention_fwd",
                                                            0) != 4:
         raise SystemExit("FAIL: reduced model card vs CPU")
+
+
+def train_flagship(steps=TRAIN_STEPS):
+    """Phase 6: the flagship train step, as the JAX package's bench sets it
+    up: batch 2 at 512x512, fp32 parameters, bf16 compute, DropPath 0.4,
+    labels in [0, 150), 60 instances, 12544 points, AdamW with layer decay
+    (total 1000 steps, warmup 10, clip 0.01), the auction assignment."""
+    from vitadapter_torch import zoo
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_m2f_train_step
+
+    model = zoo.mask2former_vit_adapter(
+        "large", dtype=torch.bfloat16,
+        generator=torch.Generator("cuda").manual_seed(0))
+    opt, _ = make_optimizer(model, depth=24, total_steps=1000,
+                            warmup_steps=10, grad_clip=0.01)
+    state = TrainState.create(model, opt)
+    step = make_m2f_train_step(model, num_classes=150, max_instances=60,
+                               num_points=12544)
+    gen = torch.Generator("cuda").manual_seed(3)
+    batch = {"image": torch.randn(2, 512, 512, 3, generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+             "label": torch.randint(0, 150, (2, 512, 512), generator=gen,
+                                    device="cuda")}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.launches.clear()
+    times, losses, norms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, logs = step(state, batch, gen)
+        loss, norm = float(logs["loss"]), float(logs["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        norms.append(norm)
+    counts = dict(cuda_ext.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    n_params = len(before)
+    changed = n_params - len(still)
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    log(f"flagship train steps (s, host clock to a synchronize): "
+        f"{[round(t, 3) for t in times]}; losses {losses}; grad norms "
+        f"{norms}; last logs {({k: float(v) for k, v in logs.items()})}")
+    log(f"flagship bf16 batch-2 train step: {sum(times[1:]) / (steps - 1):.3f}"
+        f" s/step over steps 2..{steps}, first step {times[0]:.3f} s, peak "
+        f"memory {peak:.2f} GiB; {changed} of {n_params} parameter tensors "
+        f"changed (unchanged: {still})")
+    log(f"launches in {steps} train steps: {counts} (want {want})")
+    finite = all(map(lambda x: x == x and abs(x) != float("inf"),
+                     losses + norms))
+    if not finite or changed < 0.95 * n_params or state.step != steps:
+        raise SystemExit("FAIL: flagship train step (non-finite loss or "
+                         "gradient norm, or parameters did not move)")
+    if counts != want:
+        raise SystemExit("FAIL: the flagship train step did not launch each "
+                         "kernel as often as expected")
+    del model, opt, state, before
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_card_vs_cpu():
+    """Phase 7: one train step of the reduced model, fp32, TF32 off, drop
+    path 0, 1024 points, on the card (kernels) and on the CPU (plain
+    versions), with the same weights, batch and sampler draws; compares the
+    loss and the gradient norm. Each label map holds 8 classes in blocks,
+    as an ADE20K image holds about ten: the auction then matches 8 gts per
+    image, so costs that differ between the sides by float rounding have
+    few near-equal bids to flip."""
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.ops.point_sample import uniform_sampler
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_m2f_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    cpu = reduced_model(gen, drop_path_rate=0.0)
+    card = copy.deepcopy(cpu).cuda()
+    ids = torch.randint(0, 150, (2, 8), generator=gen)
+    cells = torch.randint(0, 8, (2, 16), generator=gen)
+    label = ids.gather(1, cells).reshape(2, 4, 4)
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "label": label.repeat_interleave(32, 1).repeat_interleave(32, 2)}
+    results = {}
+    for side, model in (("cpu", cpu), ("cuda", card)):
+        opt, _ = make_optimizer(model, depth=4, total_steps=1000,
+                                warmup_steps=0, grad_clip=0.01)
+        step = make_m2f_train_step(model, num_classes=150, num_points=1024)
+        b = {k: v.to(side) for k, v in batch.items()}
+        sampler = uniform_sampler(torch.Generator().manual_seed(5))
+        before = dict(cuda_ext.launches)
+        t0 = time.perf_counter()
+        _, logs = step(TrainState.create(model, opt), b,
+                       torch.Generator(side).manual_seed(6), sampler)
+        logs = {k: float(v) for k, v in logs.items()}
+        results[side] = (logs, time.perf_counter() - t0, {
+            k: v - before.get(k, 0) for k, v in cuda_ext.launches.items()
+            if v != before.get(k, 0)})
+    (ref, t_cpu, _), (got, t_card, used) = results["cpu"], results["cuda"]
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+           for k in ("loss", "grad_norm")}
+    ok = all(r <= TRAIN_RTOL for r in rel.values())
+    log(f"reduced model (depth 4, full width) fp32 train step card vs CPU: "
+        f"card {got} CPU {ref} rel {rel} (tol {TRAIN_RTOL}) ok={ok}; "
+        f"CPU step {t_cpu:.1f} s, card step {t_card:.2f} s; kernel launches "
+        f"{used}")
+    want = dict(TRAIN_LAUNCHES, attention_fwd=4, attention_bwd=4)
+    if not ok or used != want:
+        raise SystemExit("FAIL: reduced model train step card vs CPU "
+                         f"(launches {used}, want {want})")
 
 
 def main():
@@ -349,26 +825,36 @@ def main():
     del flush
 
     # phase 4: the flagship serving path
-    counts = serve_flagship()
+    serve_counts = serve_flagship()
 
     # phase 5: end to end, kernels against plain versions
     card_vs_cpu()
 
-    replaces = {"msda_fwd": "vitadapter/ops/msda_pallas.py:316",
-                "attention_fwd": "vitadapter/ops/attention_pallas.py:57"}
+    # phase 6: the flagship train step
+    train_counts = train_flagship()
+
+    # phase 7: a train step, kernels against plain versions
+    train_card_vs_cpu()
+
     kernels = []
     for name in sorted(rows):
         r = rows[name]
+        fwd = name in serve_counts
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",
-            "replaces": replaces[name], "status": "ported",
-            "launches": counts.get(name, 0),
+            "replaces": REPLACES[name], "status": "ported",
+            "launches": (serve_counts if fwd else train_counts)[name],
+            "launches_serve": serve_counts.get(name, 0),
+            "launches_train": train_counts.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "per": "times per flagship bf16 batch-2 forward; launches over "
-                   f"the {SERVE_REQUESTS} requests of the main path"})
+            "per": ("times per flagship bf16 batch-2 forward (one runs in "
+                    f"each train step); launches over the {SERVE_REQUESTS} "
+                    "served requests" if fwd else
+                    "times per flagship bf16 batch-2 train step; launches "
+                    f"over the {TRAIN_STEPS} train steps")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,6 +77,10 @@ def test_kernel_modules_import_without_nvcc(monkeypatch, tmp_path):
            if k not in ("PYTHONPATH", "CUDA_HOME")}
     env["PATH"] = str(tmp_path)        # no nvcc on PATH
     code = ("import vitadapter_torch.ops.msda, vitadapter_torch.ops.attention\n"
+            "import vitadapter_torch.ops.point_sample\n"
+            "import vitadapter_torch.ops.matching\n"
+            "import vitadapter_torch.heads.mask2former_loss\n"
+            "import vitadapter_torch.train.trainer\n"
             "from vitadapter_torch.ops import cuda_ext\n"
             "assert not cuda_ext._libs and not cuda_ext.launches\n")
     build = ROOT / "vitadapter_torch" / "_build"

@@ -63,3 +63,52 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+# the tiny model's train settings: no stochastic depth (JAX's dropout bits
+# cannot be replayed in torch), few points; the whole-step test cuts the
+# trunk to 2 blocks (one per interaction) and the decoder to 2 layers (3
+# outputs), which keeps JAX's compile of the step short
+TINY_TRAIN = dict(num_points=64, max_instances=60)
+TINY_TRAIN_BACKBONE = dict(TINY_BACKBONE, depth=2,
+                           interaction_indexes=((0, 0), (1, 1)))
+TINY_TRAIN_HEAD = dict(TINY_HEAD, num_decoder_layers=2)
+
+
+def jax_loss_draws(rng, n_layers: int, B: int, Q: int, num_points: int,
+                   oversample_ratio: float = 3.0,
+                   importance_sample_ratio: float = 0.75):
+    """The uniform draws `vitadapter.heads.mask2former_loss.mask2former_loss`
+    makes from `rng`, in the order the port's loss asks its sampler for
+    them: the assignment points of all layers (key split of
+    `mask2former_loss.py:266`), then per layer the oversampled pool and the
+    fresh points (`:160` and `point_sample.py:92-93, :109`)."""
+    import jax
+
+    rngs = jax.random.split(rng, n_layers + 1)
+    draws = [jax.random.uniform(rngs[-1], (n_layers, B, num_points, 2))]
+    n_sampled = int(num_points * oversample_ratio)
+    n_random = num_points - int(importance_sample_ratio * num_points)
+    for i in range(n_layers):
+        _, r_pts = jax.random.split(rngs[i])
+        r1, r2 = jax.random.split(r_pts)
+        draws.append(jax.random.uniform(r1, (B * Q, n_sampled, 2)))
+        if n_random > 0:
+            draws.append(jax.random.uniform(r2, (B * Q, n_random, 2)))
+    return [np.asarray(d) for d in draws]
+
+
+class ReplaySampler:
+    """A loss sampler that hands out given draws in order, checking each
+    shape, and must be used up."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def __call__(self, shape):
+        d = self.draws.pop(0)
+        assert tuple(d.shape) == tuple(shape), (d.shape, shape)
+        return torch.from_numpy(np.array(d, np.float32))
+
+    def done(self) -> bool:
+        return not self.draws

@@ -1,14 +1,16 @@
-"""Mask2Former head, eval forward (counterpart of
-`vitadapter/heads/mask2former.py`): the pixel decoder, the 9-layer post-norm
-masked-attention decoder with level-cycled memories, per-layer prediction
-heads and `semantic_inference`. Parameter names are the reference's
-(mmseg `Mask2FormerHead` with mmcv/torch `nn.MultiheadAttention`).
+"""Mask2Former head (counterpart of `vitadapter/heads/mask2former.py`): the
+pixel decoder, the 9-layer post-norm masked-attention decoder with
+level-cycled memories, per-layer prediction heads and `semantic_inference`.
+Parameter names are the reference's (mmseg `Mask2FormerHead` with
+mmcv/torch `nn.MultiheadAttention`).
 
 At eval the attention masks come from the mask feature resized ONCE to the
 three memory scales (the JAX package's eval formulation; resizing every
 layer's full-resolution mask logits instead flips masks near the sigmoid-0.5
 threshold), and only the last layer's full-resolution mask logits are
-computed unless `all_masks=True`.
+computed unless `all_masks=True`. In training mode every layer's
+full-resolution mask logits feed the losses anyway, so the attention masks
+are resized from them, as the JAX train forward does.
 """
 
 from typing import List, Optional, Sequence
@@ -21,7 +23,7 @@ from vitadapter_torch.heads.pixel_decoder import FFN, MSDeformAttnPixelDecoder
 from vitadapter_torch.layers.linear import Linear
 from vitadapter_torch.layers.norm import LayerNorm
 from vitadapter_torch.layers.positional import sine_positional_encoding
-from vitadapter_torch.utils.resize import resize_2d
+from vitadapter_torch.utils.resize import resize_2d, resize_hw
 
 NEG_INF = -1e9  # masked attention logit (fp32- and bf16-safe)
 
@@ -152,10 +154,8 @@ class Mask2FormerHead(nn.Module):
         for emb in (self.query_embed, self.query_feat, self.level_embed):
             emb.weight.normal_(0.0, 1.0, generator=generator)
 
-    def _forward_head(self, decoder_out, mask_feature, mask_feature_small,
-                      full_mask: bool):
-        """cls logits, full-resolution mask logits (or None) and the
-        attention mask (B, 1, Q, S) for the next layer."""
+    def _predict(self, decoder_out, mask_feature, full_mask: bool):
+        """cls logits, full-resolution mask logits (or None), mask embed."""
         x = self.transformer_decoder.post_norm(decoder_out)
         cls_pred = self.cls_embed(x).float()
         m = self.mask_embed(x)
@@ -163,21 +163,41 @@ class Mask2FormerHead(nn.Module):
         if full_mask:
             mask_pred = torch.einsum("bqc,bhwc->bqhw", m.float(),
                                      mask_feature.float())
-        am = torch.einsum("bqc,bhwc->bqhw", m.float(),
-                          mask_feature_small.float())
+        return cls_pred, mask_pred, m
+
+    @staticmethod
+    def _attn_mask(am: torch.Tensor) -> torch.Tensor:
+        """(B, Q, h, w) mask logits -> (B, 1, Q, h * w) bool, True = masked
+        out; all-masked rows attend everywhere instead."""
         B, Q = am.shape[:2]
         am = (torch.sigmoid(am) < 0.5).reshape(B, Q, -1)
-        # all-masked rows attend everywhere instead
         am = am & ~am.all(dim=-1, keepdim=True)
-        return cls_pred, mask_pred, am[:, None]
+        return am[:, None]
+
+    def _forward_head(self, decoder_out, mask_feature, mask_feature_small,
+                      full_mask: bool):
+        """Eval: cls logits, full-resolution mask logits (or None) and the
+        attention mask (B, 1, Q, S) for the next layer, from the mask
+        feature pre-resized to the next memory's scale."""
+        cls_pred, mask_pred, m = self._predict(decoder_out, mask_feature,
+                                               full_mask)
+        am = torch.einsum("bqc,bhwc->bqhw", m.float(),
+                          mask_feature_small.float())
+        return cls_pred, mask_pred, self._attn_mask(am)
+
+    def _forward_head_train(self, decoder_out, mask_feature, attn_size):
+        """Training: the same outputs, the attention mask from the
+        full-resolution mask logits resized to `attn_size` (no gradient)."""
+        cls_pred, mask_pred, _ = self._predict(decoder_out, mask_feature,
+                                               True)
+        am = resize_hw(mask_pred.detach(), attn_size, "bilinear")
+        return cls_pred, mask_pred, self._attn_mask(am)
 
     def forward(self, feats: Sequence[torch.Tensor], all_masks: bool = False):
         """feats: 4-scale NHWC pyramid. Returns (cls_list, mask_list), one
-        entry per decoder layer plus one. Intermediate entries of mask_list
-        are None unless `all_masks`."""
-        if self.training:
-            raise NotImplementedError("the Mask2Former training forward is "
-                                      "not ported; call .eval()")
+        entry per decoder layer plus one. At eval, intermediate entries of
+        mask_list are None unless `all_masks`; in training mode every entry
+        is the layer's full-resolution mask logits."""
         B = feats[0].shape[0]
         L = self.num_levels
         mask_feature, memories = self.pixel_decoder(feats)
@@ -195,21 +215,29 @@ class Mask2FormerHead(nn.Module):
 
         query = self.query_feat.weight[None].expand(B, -1, -1)
         query_pos = self.query_embed.weight[None].expand(B, -1, -1)
-        mf_small = [resize_2d(mask_feature, s, "bilinear") for s in sizes]
-
         layers = self.transformer_decoder.layers
+        if self.training:
+            def head(query, lvl, full):
+                return self._forward_head_train(query, mask_feature,
+                                                sizes[lvl])
+        else:
+            mf_small = [resize_2d(mask_feature, s, "bilinear")
+                        for s in sizes]
+
+            def head(query, lvl, full):
+                return self._forward_head(query, mask_feature, mf_small[lvl],
+                                          all_masks or full)
+
         cls_list: List[torch.Tensor] = []
         mask_list: List[Optional[torch.Tensor]] = []
-        cls_pred, mask_pred, attn_mask = self._forward_head(
-            query, mask_feature, mf_small[0], all_masks or not layers)
+        cls_pred, mask_pred, attn_mask = head(query, 0, not layers)
         cls_list.append(cls_pred)
         mask_list.append(mask_pred)
         for i, layer in enumerate(layers):
             query = layer(query, query_pos, dec_inputs[i % L], dec_pos[i % L],
                           attn_mask)
-            cls_pred, mask_pred, attn_mask = self._forward_head(
-                query, mask_feature, mf_small[(i + 1) % L],
-                all_masks or i == len(layers) - 1)
+            cls_pred, mask_pred, attn_mask = head(query, (i + 1) % L,
+                                                  i == len(layers) - 1)
             cls_list.append(cls_pred)
             mask_list.append(mask_pred)
         return cls_list, mask_list

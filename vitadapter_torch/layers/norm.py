@@ -44,16 +44,32 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm over NCHW with running statistics (eps 1e-5), returning the
-    input dtype. Eval only: training-mode statistics are not ported yet."""
+    """BatchNorm over NCHW (eps 1e-5), returning the input dtype. In
+    training mode it normalizes with the batch statistics, the biased
+    variance taken as E[x^2] - E[x]^2 in fp32 as the JAX package does, and
+    moves the running statistics by `momentum` (0.1) towards the batch mean
+    and the unbiased batch variance. Single device: SyncBN over several
+    cards is not ported yet."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm in training mode is not ported; call .eval()")
         c = (slice(None),) + (None,) * (x.dim() - 2)
-        y = ((x.float() - self.running_mean[c])
-             * torch.rsqrt(self.running_var[c] + self.eps))
+        xf = x.float()
+        if self.training:
+            axes = (0,) + tuple(range(2, x.dim()))
+            mean = xf.mean(axes)
+            var = xf.square().mean(axes) - mean.square()
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                unbiased = var * (n / max(n - 1, 1))
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean[c]) * torch.rsqrt(var[c] + self.eps)
         return (y * self.weight[c] + self.bias[c]).to(x.dtype)
 
 

@@ -4,7 +4,7 @@
 maps are NHWC at module boundaries and NCHW views inside convolutions.
 """
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -135,14 +135,15 @@ class Extractor(nn.Module):
 
     def forward(self, query, reference_points, feat,
                 spatial_shapes: SpatialShapes, H: int, W: int,
-                query_segments=None):
+                query_segments=None,
+                generator: Optional[torch.Generator] = None):
         attn = self.attn(self.query_norm(query), reference_points,
                          self.feat_norm(feat), spatial_shapes,
                          query_segments=query_segments)
         query = query + attn
         if self.with_cffn:
             y = self.ffn(self.ffn_norm(query), H, W)
-            query = query + self.drop_path(y)
+            query = query + self.drop_path(y, generator)
         return query
 
 
@@ -171,17 +172,18 @@ class InteractionBlock(nn.Module):
                                  if extra_extractor else None)
 
     def forward(self, x, c, blocks_fn: Callable, injector_inputs,
-                extractor_inputs, H: int, W: int):
+                extractor_inputs, H: int, W: int,
+                generator: Optional[torch.Generator] = None):
         ref1, shapes1 = injector_inputs
         ref2, shapes2 = extractor_inputs
         inj_segs = tuple(h * w for h, w in shapes2)
         ext_segs = tuple(h * w for h, w in shapes1)
         x = self.injector(x, ref1, c, shapes1, query_segments=inj_segs)
         x = blocks_fn(x)
-        c = self.extractor(c, ref2, x, shapes2, H, W, query_segments=ext_segs)
-        if self.extra_extractors is not None:
-            for ex in self.extra_extractors:
-                c = ex(c, ref2, x, shapes2, H, W, query_segments=ext_segs)
+        extractors = [self.extractor] + list(self.extra_extractors or [])
+        for ex in extractors:
+            c = ex(c, ref2, x, shapes2, H, W, query_segments=ext_segs,
+                   generator=generator)
         return x, c
 
 

@@ -1,10 +1,11 @@
 """Plain ViT trunk (counterpart of `vitadapter/models/vit.py`): the global
 `Block` with layer scale, `resample_abs_pos_embed` and
 `TIMMVisionTransformer` with `embed()` / `run_blocks()`. Windowed attention
-and `ResBottleneckBlock` are not ported yet.
+and `ResBottleneckBlock` are not ported yet. In training mode the blocks'
+DropPath draws from the `generator` passed down (JAX's "dropout" rng).
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,15 +44,16 @@ class Block(nn.Module):
             self.gamma1.fill_(1.0)
             self.gamma2.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, H: int, W: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         a = self.attn(self.norm1(x), H, W)
         if self.layer_scale:
             a = self.gamma1 * a
-        x = x + self.drop_path(a)
+        x = x + self.drop_path(a, generator)
         m = self.mlp(self.norm2(x))
         if self.layer_scale:
             m = self.gamma2 * m
-        return x + self.drop_path(m)
+        return x + self.drop_path(m, generator)
 
 
 def resample_abs_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int],
@@ -102,11 +104,13 @@ class TIMMVisionTransformer(nn.Module):
         return tokens + pe.to(tokens.dtype), H, W
 
     def run_blocks(self, x: torch.Tensor, H: int, W: int, start: int,
-                   end: int) -> torch.Tensor:
+                   end: int, generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         for blk in self.blocks[start:end]:
-            x = blk(x, H, W)
+            x = blk(x, H, W, generator)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         tokens, H, W = self.embed(x)
-        return self.run_blocks(tokens, H, W, 0, len(self.blocks))
+        return self.run_blocks(tokens, H, W, 0, len(self.blocks), generator)

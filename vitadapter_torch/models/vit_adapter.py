@@ -7,7 +7,7 @@ ViT trunk, so parameter names are the reference's (`blocks.N...`,
 `spm...`, `interactions.N...`).
 """
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -64,8 +64,11 @@ class ViTAdapter(TIMMVisionTransformer):
         super().init_weights(generator)
         self.level_embed.normal_(0.0, 1.0, generator=generator)
 
-    def forward(self, x: torch.Tensor):
-        """x: (B, H, W, 3) image, H and W divisible by 32."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, H, W, 3) image, H and W divisible by 32. In training mode
+        BatchNorm uses batch statistics and DropPath draws from
+        `generator`."""
         B, H_img, W_img, _ = x.shape
         injector_inputs, extractor_inputs = deform_inputs(H_img, W_img,
                                                           x.device)
@@ -85,10 +88,10 @@ class ViTAdapter(TIMMVisionTransformer):
         # interleaved interaction
         for (a, b), layer in zip(self.interaction_indexes, self.interactions):
             def blocks_fn(tokens, _a=a, _b=b):
-                return self.run_blocks(tokens, H, W, _a, _b + 1)
+                return self.run_blocks(tokens, H, W, _a, _b + 1, generator)
 
             t, c = layer(t, c, blocks_fn, injector_inputs, extractor_inputs,
-                         H, W)
+                         H, W, generator)
 
         # split the token pyramid back into NHWC maps
         c2 = c[:, :n2].reshape(B, H * 2, W * 2, dim)

@@ -36,7 +36,12 @@ _I = ctypes.c_int
 # C signature of each kernel's entry point (all return a cudaError_t as int)
 SIGNATURES = {
     "msda_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    "msda_bwd": [_P] * 8 + [_I] * 7 + [_P, _P, _I, _P],
     "attention_fwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
+    "attention_bwd": [_P] * 8 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    "point_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "point_sample_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "auction": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 launches: Counter = Counter()

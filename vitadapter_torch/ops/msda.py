@@ -1,8 +1,9 @@
 """Multi-scale deformable attention (MSDA): the Hopper kernel's wrapper, its
 plain version, and the `MSDeformAttn` module.
 
-Counterpart of `vitadapter/ops/msda.py`. The kernel is `csrc/msda_fwd.cu`
-(it replaces the TPU kernel `msda_pallas._fwd_ml_kernel`). Layouts follow
+Counterpart of `vitadapter/ops/msda.py`. The kernels are `csrc/msda_fwd.cu`
+(it replaces the TPU kernel `msda_pallas._fwd_ml_kernel`) and
+`csrc/msda_bwd.cu` (it replaces `msda_pallas._bwd_ml_kernel`). Layouts follow
 JAX: value (B, S, M, D), sampling locations (B, Lq, M, L, P, 2) as (x, y) in
 [0, 1], attention weights (B, Lq, M, L, P); the result is (B, Lq, M * D).
 Sampling matches `F.grid_sample(mode='bilinear', padding_mode='zeros',
@@ -127,34 +128,108 @@ def check_kernel_inputs(value: torch.Tensor, spatial_shapes: SpatialShapes,
             raise ValueError(f"{name} must be fp32, got {t.dtype}")
 
 
+def ms_deform_attn_plain_backward(value: torch.Tensor,
+                                  spatial_shapes: SpatialShapes,
+                                  sampling_locations: torch.Tensor,
+                                  attention_weights: torch.Tensor,
+                                  grad_out: torch.Tensor):
+    """(d value, d locations, d weights) of `ms_deform_attn_plain` for the
+    output gradient `grad_out` (B, Lq, M * D): autograd of the plain version
+    run on an fp32 copy of the value, so d value is summed in fp32 and then
+    rounded to the value dtype, as the kernel does."""
+    with torch.enable_grad():
+        v = value.detach().float().requires_grad_()
+        loc = sampling_locations.detach().requires_grad_()
+        attn = attention_weights.detach().requires_grad_()
+        out = ms_deform_attn_plain(v, spatial_shapes, loc, attn)
+        dv, dloc, dattn = torch.autograd.grad(out, (v, loc, attn),
+                                              grad_out.float())
+    return dv.to(value.dtype), dloc, dattn
+
+
+def _level_arrays(spatial_shapes: SpatialShapes):
+    L = len(spatial_shapes)
+    shapes = (ctypes.c_int * (2 * L))(*[n for hw in spatial_shapes
+                                        for n in hw])
+    starts = (ctypes.c_int * L)(*level_start_index(spatial_shapes))
+    return (ctypes.cast(shapes, ctypes.c_void_p),
+            ctypes.cast(starts, ctypes.c_void_p), (shapes, starts))
+
+
+def _kernel_forward(value, spatial_shapes, loc, attn) -> torch.Tensor:
+    B, S, M, D = value.shape
+    Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
+    shapes, starts, _keep = _level_arrays(spatial_shapes)
+    cuda_ext.launch("msda_fwd", value.device, value.data_ptr(),
+                    loc.data_ptr(), attn.data_ptr(), out.data_ptr(), B, S, M,
+                    D, Lq, L, P, shapes, starts,
+                    int(value.dtype == torch.bfloat16))
+    return out
+
+
+def _kernel_backward(value, spatial_shapes, loc, attn, grad_out):
+    """`msda_bwd.cu`: d value in the value dtype (summed in an fp32
+    buffer), d locations and d weights in fp32."""
+    B, S, M, D = value.shape
+    Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    if tuple(grad_out.shape) != (B, Lq, M * D) \
+            or grad_out.dtype != value.dtype:
+        raise ValueError(f"output gradient {tuple(grad_out.shape)} "
+                         f"{grad_out.dtype} must be ({B}, {Lq}, {M * D}) "
+                         f"{value.dtype}")
+    grad_out = grad_out.contiguous()
+    dvalue = torch.empty_like(value)
+    acc = dvalue if value.dtype == torch.float32 else torch.empty(
+        value.shape, dtype=torch.float32, device=value.device)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    shapes, starts, _keep = _level_arrays(spatial_shapes)
+    cuda_ext.launch("msda_bwd", value.device, value.data_ptr(),
+                    loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+                    acc.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
+                    dattn.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
+                    int(value.dtype == torch.bfloat16))
+    return dvalue, dloc, dattn
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """The kernels with their gradient: `msda_fwd.cu` forward, `msda_bwd.cu`
+    backward (counterpart of the `jax.custom_vjp` of
+    `msda_pallas.ms_deform_attn_pallas`)."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, attn):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, attn)
+        return _kernel_forward(value, spatial_shapes, loc, attn)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        dvalue, dloc, dattn = _kernel_backward(value, ctx.spatial_shapes,
+                                               loc, attn, grad_out)
+        return dvalue, None, dloc, dattn
+
+
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: SpatialShapes,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor,
                    query_segments: Optional[Tuple[int, ...]] = None
                    ) -> torch.Tensor:
-    """MSDA sampling, (B, Lq, M * D) in the value dtype. CPU tensors take the
-    plain version; CUDA tensors take the kernel, or raise if it cannot take
-    them. `query_segments` is the TPU kernel's tiling hint and is ignored."""
+    """MSDA sampling, (B, Lq, M * D) in the value dtype, differentiable in
+    the value, the locations and the weights. CPU tensors take the plain
+    version (autograd differentiates it); CUDA tensors take the kernels
+    through `MSDeformAttnFunction`, or raise if they cannot take them.
+    `query_segments` is the TPU kernel's tiling hint and is ignored."""
     del query_segments
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
                                     attention_weights)
     check_kernel_inputs(value, spatial_shapes, sampling_locations,
                         attention_weights)
-    B, S, M, D = value.shape
-    Lq, L, P = (sampling_locations.shape[1], sampling_locations.shape[3],
-                sampling_locations.shape[4])
-    out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[n for hw in spatial_shapes
-                                        for n in hw])
-    starts = (ctypes.c_int * L)(*level_start_index(spatial_shapes))
-    cuda_ext.launch("msda_fwd", value.device, value.data_ptr(),
-                    sampling_locations.data_ptr(),
-                    attention_weights.data_ptr(), out.data_ptr(), B, S, M, D,
-                    Lq, L, P, ctypes.cast(shapes, ctypes.c_void_p),
-                    ctypes.cast(starts, ctypes.c_void_p),
-                    int(value.dtype == torch.bfloat16))
-    return out
+    return MSDeformAttnFunction.apply(value, tuple(spatial_shapes),
+                                      sampling_locations, attention_weights)
 
 
 def msda_grid_init(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:

@@ -1,0 +1,87 @@
+"""Training state and the Mask2Former train step (counterpart of
+`vitadapter/train/trainer.py`).
+
+One step: the model's forward in training mode (DropPath drawing from a
+`torch.Generator`, BatchNorm on batch statistics, moving its running
+statistics), the Mask2Former loss over every decoder layer, the backward,
+and one optimizer update. The port updates the model and the optimizer in
+place, where JAX returns a new state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from vitadapter_torch.heads.mask2former_loss import mask2former_loss
+from vitadapter_torch.ops.point_sample import Sampler, uniform_sampler
+from vitadapter_torch.train.optim import LayerDecayAdamW
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer, the number of steps taken and optional
+    EMA parameters (the reference's wsdm training keeps EMA weights)."""
+    model: nn.Module
+    optimizer: LayerDecayAdamW
+    step: int = 0
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+    ema_decay: float = 0.0
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: LayerDecayAdamW,
+               ema_decay: float = 0.0) -> "TrainState":
+        ema = None
+        if ema_decay > 0:
+            ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return cls(model=model, optimizer=optimizer, ema_params=ema,
+                   ema_decay=ema_decay)
+
+    @torch.no_grad()
+    def update_ema(self) -> None:
+        if self.ema_params is None:
+            return
+        d = self.ema_decay
+        for n, p in self.model.named_parameters():
+            e = self.ema_params[n]
+            e.copy_(d * e + (1 - d) * p)
+
+
+def make_m2f_train_step(model: nn.Module, num_classes: int,
+                        max_instances: int = 60,
+                        num_points: int = 12544) -> Callable:
+    """Train step for `EncoderDecoderMask2Former`: per-layer
+    Hungarian-matched cls and point-sampled mask/dice losses (reference
+    `Mask2FormerHead.loss`).
+
+    train_step(state, batch, generator, sampler=None) -> (state, logs):
+    batch {"image": (B, H, W, 3) normalized float, "label": (B, H, W) int,
+    255 = ignore}. DropPath draws from `generator`; the loss's points from
+    `sampler` (by default uniform draws from `generator`). logs holds
+    `loss`, `grad_norm` (before clipping) and the last layer's `loss_cls`,
+    `loss_mask` and `loss_dice`, as 0-d tensors."""
+
+    def train_step(state: TrainState, batch, generator: torch.Generator,
+                   sampler: Optional[Sampler] = None):
+        if sampler is None:
+            sampler = uniform_sampler(generator)
+        model.train()
+        cls_list, mask_list = model(batch["image"], generator=generator)
+        loss, logs = mask2former_loss(
+            sampler, cls_list, mask_list, batch["label"],
+            num_classes=num_classes, max_instances=max_instances,
+            num_points=num_points)
+        state.optimizer.zero_grad()
+        loss.backward()
+        grad_norm = state.optimizer.step()
+        state.step += 1
+        state.update_ema()
+        logs = {k: v.detach() for k, v in logs.items()
+                if not k.startswith("d")}
+        logs.update(loss=loss.detach(), grad_norm=grad_norm)
+        return state, logs
+
+    return train_step

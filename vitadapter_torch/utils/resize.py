@@ -80,3 +80,17 @@ def resize_2d(x: torch.Tensor, out_hw, method: str = "bilinear") -> torch.Tensor
     y = torch.einsum("oh,...hwc->...owc", mh, x.float())
     y = torch.einsum("ow,...hwc->...hoc", mw, y)
     return y.to(x.dtype)
+
+
+def resize_hw(x: torch.Tensor, out_hw, method: str = "bilinear") -> torch.Tensor:
+    """Resize channel-free (..., H, W) maps (masks, logit fields), in fp32,
+    returning x's dtype."""
+    H, W = x.shape[-2], x.shape[-1]
+    Ho, Wo = out_hw
+    if (H, W) == (Ho, Wo):
+        return x
+    mh = _matrix(H, Ho, method, x, torch.float32)
+    mw = _matrix(W, Wo, method, x, torch.float32)
+    y = torch.einsum("oh,...hw->...ow", mh, x.float())
+    y = torch.einsum("ow,...hw->...ho", mw, y)
+    return y.to(x.dtype)

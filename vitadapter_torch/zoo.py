@@ -2,7 +2,8 @@
 and the Mask2Former + ViT-Adapter segmentor.
 
 Models are built on the meta device, then allocated on `device` and
-initialized from `generator` (seed 0 on `device` by default), in eval mode.
+initialized from `generator` (seed 0 on `device` by default), in eval mode
+(`model.train()` selects the training forward).
 `device=None` means CUDA, and raises where there is none: pass
 `device="cpu"` to run the plain versions of the kernels on the CPU.
 """
@@ -76,12 +77,16 @@ def mask2former_vit_adapter(variant: str = "large", num_classes: int = 150,
                             num_queries: Optional[int] = None, device=None,
                             dtype: torch.dtype = torch.float32,
                             generator: Optional[torch.Generator] = None,
+                            drop_path_rate: Optional[float] = None,
                             **overrides) -> EncoderDecoderMask2Former:
     """Mask2Former + ViT-Adapter segmentor. Head widths follow the reference
     flagship for "large" (1024 wide, 32 heads, FFN 4096, 200 queries) and
     the base config otherwise (256 wide, 8 heads, FFN 2048/1024, 100
-    queries)."""
+    queries). `drop_path_rate` defaults to the variant's (0.4 for "large");
+    it acts in training mode only."""
     device = resolve_device(device)
+    if drop_path_rate is not None:
+        overrides["drop_path_rate"] = drop_path_rate
     backbone = ViTAdapter(dtype=dtype, device="meta",
                           **_vit_adapter_cfg(variant, overrides))
     dim = backbone.embed_dim
