@@ -27,9 +27,24 @@ Phases (each failure exits non-zero; nothing is caught):
      with the auction assignment, AdamW with layer decay) and checks the
      launch counts per step;
   7. takes one train step of a reduced-depth, full-width model in fp32 on
-     the card and on the CPU and compares the loss and the gradient norm.
-The last two lines are a JSON object of the kernels' numbers and
-{"ok": true, "device": {...}}.
+     the card and on the CPU and compares the loss and the gradient norm;
+  8. evaluates the flagship in fp32 on one 1024x2048 image through
+     `train.loop.run_eval` (whole mode, img_scale (2048, 1024), ratios 1.0
+     and 1.5 with flip): at ratio 1.5 the injectors' and the pixel
+     decoder's values pass the 8 MiB line and take the per-level MSDA
+     kernels; checks the launch counts, finite logits and the confusion
+     matrix;
+  9. takes one fp32 train step of the reduced-depth, full-width model at
+     1792x1792, where those values pass the line too, and checks the
+     launch counts of all ten kernels;
+ 10. evaluates the reduced model in fp32 through `run_eval` on two odd-sized
+     non-square images (whole mode, ratios 0.75 and 1.0 with flip) on the
+     card and on the CPU and compares the confusion matrices.
+Phase 3 also holds the per-level MSDA kernels against their plain versions,
+and the per-level route against the fused kernels, at the shapes of every
+MSDA call that takes that route in phases 8 and 9 (and at a few thousand
+queries in fp32 and bf16). The last two lines are a JSON object of the
+kernels' numbers and {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -91,9 +106,62 @@ TRAIN_STEPS = 6      # flagship train steps (phase 6)
 TRAIN_LAUNCHES = {   # kernel launches per train step
     "msda_fwd": 16, "msda_bwd": 16, "attention_fwd": 24, "attention_bwd": 24,
     "point_sample_fwd": 32, "point_sample_bwd": 10, "auction": 1}
+# the per-level MSDA route (phase 3), batch 1, head dim 32.
+# name: (spatial shapes of the value, Lq, heads, dtypes, None or (the main
+# path, MSDA calls of these shapes per forward or step there))
+# - the calls of the main paths, in fp32 as both paths run: the flagship's
+#   forward at ratio 1.5 of a 1024x2048 image (1536x3072; phase 8) and the
+#   reduced model's step at 1792x1792 (phase 9). The pixel decoder queries
+#   all its value rows, levels coarse first; the injectors query the 1/16
+#   token grid, levels fine first. These give the kernels' table rows:
+#   msda_level_fwd per eval forward, msda_level_dv/_dgrid per train step;
+# - off the paths: a few thousand queries at the ratio-1.5 pixel-decoder
+#   levels, fp32 and bf16, and a case whose first level has H * W <= 1024
+#   (`_sample_kernel_onehot_pf`'s levels)
+F32, BF16 = torch.float32, torch.bfloat16
+R15 = ((48, 96), (96, 192), (192, 384))
+OVER = ((56, 56), (112, 112), (224, 224))
+LEVEL_GEOMETRIES = {
+    "eval_pixel_decoder": (R15, 96768, 32, (F32,), ("eval_whole", 6)),
+    "eval_injector": (R15[::-1], 18432, 16, (F32,), ("eval_whole", 4)),
+    "overline_pixel_decoder": (OVER, 65856, 32, (F32,),
+                               ("train_overline", 6)),
+    "overline_injector": (OVER[::-1], 12544, 16, (F32,),
+                          ("train_overline", 4)),
+    "pixel_decoder_r1.5": (R15, 4096, 32, (F32, BF16), None),
+    "small_level": (((32, 32), (96, 192), (192, 384)), 4096, 32, (F32, BF16),
+                    None),
+}
+# the table row of each per-level kernel comes from its main path's calls
+LEVEL_ROW_PATH = {"msda_level_fwd": "eval_whole",
+                  "msda_level_dv": "train_overline",
+                  "msda_level_dgrid": "train_overline"}
+# phase 8: the flagship in fp32, whole mode, on one Cityscapes-sized image
+EVAL_HW = (1024, 2048)
+EVAL_CFG = {"num_classes": 150,
+            "test_cfg": {"mode": "whole", "img_scale": (2048, 1024)},
+            "aug_test": {"img_ratios": [1.0, 1.5], "flip": True}}
+# 4 forwards: 16 fused MSDA calls at ratio 1.0, 6 (the extractors) at 1.5,
+# where the 4 injectors and 6 pixel-decoder layers take 3 level launches
+EVAL_LAUNCHES = {"msda_fwd": 2 * 16 + 2 * 6, "msda_level_fwd": 2 * 30,
+                 "attention_fwd": 4 * 24}
+# phase 9: S = 50176 + 12544 + 3136 rows x 32 x 4 bytes = 8.04 MiB per head
+OVERLINE_HW = 1792
+OVERLINE_QUERIES = 200
+OVERLINE_LAUNCHES = {
+    "msda_fwd": 6, "msda_bwd": 6, "msda_level_fwd": 30, "msda_level_dv": 30,
+    "msda_level_dgrid": 30, "attention_fwd": 4, "attention_bwd": 4,
+    "point_sample_fwd": 32, "point_sample_bwd": 10, "auction": 1}
+# phase 10: card vs CPU confusion matrices, at most this share of the
+# labelled pixels predicted differently (argmax flips where two classes'
+# probabilities tie within float reassociation)
+EVAL_CM_SHARE = 1e-3
 REPLACES = {
     "msda_fwd": "vitadapter/ops/msda_pallas.py:316",
     "msda_bwd": "vitadapter/ops/msda_pallas.py:1179",
+    "msda_level_fwd": "vitadapter/ops/msda_pallas.py:121",
+    "msda_level_dv": "vitadapter/ops/msda_pallas.py:905",
+    "msda_level_dgrid": "vitadapter/ops/msda_pallas.py:1034",
     "attention_fwd": "vitadapter/ops/attention_pallas.py:57",
     "attention_bwd": "vitadapter/ops/attention_pallas.py:72",
     "point_sample_fwd": "vitadapter/ops/point_sample_pallas.py:46",
@@ -162,6 +230,32 @@ def corners_in_map(x01, y01, H, W):
     return n
 
 
+def touched_rows(loc_l, H, W):
+    """Distinct (batch, head, cell) rows of one (H, W) level that the
+    in-map bilinear corners of the points loc_l (B, Lq, M, P, 2) read: the
+    value rows a sampling function must load at least once."""
+    B, _, M = loc_l.shape[:3]
+    dev = loc_l.device
+    x0 = torch.floor(loc_l[..., 0] * W - 0.5).long()
+    y0 = torch.floor(loc_l[..., 1] * H - 0.5).long()
+    bm = (torch.arange(B, device=dev)[:, None, None, None] * M
+          + torch.arange(M, device=dev)[None, None, :, None]) * (H * W)
+    seen = torch.zeros(B * M * H * W, dtype=torch.bool, device=dev)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+            seen[(bm + yi * W + xi)[inside]] = True
+    return int(seen.sum())
+
+
+def msda_touched_bytes(shapes, value, loc):
+    """Bytes of the value rows that the points of all levels read."""
+    row = value.shape[-1] * value.element_size()
+    return row * sum(touched_rows(loc[:, :, :, lvl], H, W)
+                     for lvl, (H, W) in enumerate(shapes))
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -208,37 +302,15 @@ def msda_corners(shapes, loc):
 
 def unported_msda_bounds(shapes, value, loc, attn):
     """(bound ms, bound by) of one call at these inputs for each MSDA
-    kernel of the JAX package not ported yet (ROADMAP section 2, items
-    6-10): the per-level forwards for levels with HW > 1024 and HW <= 1024
-    (each writes an fp32 partial output), the band-matmul forward (the
-    whole forward), and the per-level backward's d value and d loc / d attn
-    kernels. The JAX dispatch takes none of them at the flagship's shapes
-    (S * D * itemsize <= 8 MiB selects the fused kernels)."""
-    B, Lq, M, _, P, _ = loc.shape
+    kernel of the JAX package not ported yet (ROADMAP section 2, item 10):
+    the band-matmul forward, which computes the whole forward and which the
+    JAX dispatch takes only with VITADAPTER_MSDA_BANDMM=1."""
     D = value.shape[-1]
-    f32 = torch.float32
-    per_level = {"big": [0, 0], "small": [0, 0]}
-    for lvl, (H, W) in enumerate(shapes):
-        part = per_level["big" if H * W > 1024 else "small"]
-        part[0] += (B * H * W * M * D * value.element_size()
-                    + nbytes(loc[:, :, :, lvl], attn[:, :, :, lvl])
-                    + B * Lq * M * D * 4)
-        part[1] += 2 * D * corners_in_map(loc[:, :, :, lvl, :, 0],
-                                          loc[:, :, :, lvl, :, 1], H, W)
-    corners = msda_corners(shapes, loc)
-    g_bytes = B * Lq * M * D * value.element_size()
-    return {
-        "msda_pallas.py:121 _sample_kernel": bound_ms(*per_level["big"], f32),
-        "msda_pallas.py:177 _sample_kernel_onehot_pf": bound_ms(
-            *per_level["small"], f32),
-        "msda_pallas.py:514 _fwd_ml_bandmm_kernel": bound_ms(
-            nbytes(value, loc, attn) + g_bytes, 2 * D * corners, f32),
-        "msda_pallas.py:905 _dv_kernel": bound_ms(
-            nbytes(loc, attn, value) + g_bytes, 2 * D * corners, f32),
-        "msda_pallas.py:1034 _dgrid_kernel": bound_ms(
-            nbytes(value, loc, attn, loc, attn) + g_bytes, 2 * D * corners,
-            f32),
-    }
+    g_bytes = loc.shape[0] * loc.shape[1] * loc.shape[2] * D \
+        * value.element_size()
+    return {"msda_pallas.py:514 _fwd_ml_bandmm_kernel": bound_ms(
+        msda_touched_bytes(shapes, value, loc) + nbytes(loc, attn) + g_bytes,
+        2 * D * msda_corners(shapes, loc), torch.float32)}
 
 
 def auction_costs(gen, B, Q, G, contested, P=12544, K=150):
@@ -381,12 +453,15 @@ def check_msda(rows, flush, gen, unported):
             pb_ms = time_ms(plain_bwd, flush, iters=3)
             # the sampling arithmetic is fp32 whatever the value dtype:
             # forward 2 flops per channel per in-map corner, backward 4
-            # (the g.v dot and the scaled scatter into d value)
-            # the output has the size and dtype of g
-            fb = bound_ms(nbytes(value, loc, attn, g), 2 * D * corners,
+            # (the g.v dot and the scaled scatter into d value); bytes: the
+            # value rows the points touch, read once; the output (the size
+            # and dtype of g) written once; backward reads g and writes the
+            # whole d value, d loc and d attn
+            touched = msda_touched_bytes(shapes, value, loc)
+            fb = bound_ms(touched + nbytes(loc, attn, g), 2 * D * corners,
                           torch.float32)
-            bb = bound_ms(2 * nbytes(value, loc, attn) + nbytes(g),
-                          4 * D * corners, torch.float32)
+            bb = bound_ms(touched + nbytes(value) + 2 * nbytes(loc, attn)
+                          + nbytes(g), 4 * D * corners, torch.float32)
             log(f"msda_fwd {name:13s} {str(dtype):14s} B=2 Lq={Lq} M={M} "
                 f"S={value.shape[1]} max_abs_err={err:.3e} ok={good} "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
@@ -404,6 +479,180 @@ def check_msda(rows, flush, gen, unported):
                     u = unported.setdefault(k, [0.0, set()])
                     u[0] += calls * b_ms
                     u[1].add(b_by)
+    return ok
+
+
+def grid_sample_inputs(value_l, loc_l, H, W):
+    """One level as `F.grid_sample` takes it (the yardstick): the value as
+    fp32 (B * M, D, H, W) maps, the points as (B * M, Lq, P, 2) in [-1, 1]."""
+    B, _, M, D = value_l.shape
+    Lq, P = loc_l.shape[1], loc_l.shape[3]
+    inp = value_l.float().reshape(B, H, W, M, D).permute(0, 3, 4, 1, 2)
+    grid = (loc_l * 2 - 1).permute(0, 2, 1, 3, 4)
+    return (inp.reshape(B * M, D, H, W).contiguous(),
+            grid.reshape(B * M, Lq, P, 2).contiguous())
+
+
+def check_msda_levels(rows, flush, gen):
+    """msda_level_fwd, msda_level_dv and msda_level_dgrid: each level's
+    launch against its plain version (`_sample_one_level`, `level_dv_plain`,
+    `level_dgrid_plain`), then the whole per-level route through the
+    wrapper (`MSDeformAttnLevelFunction`) against `ms_deform_attn_plain`
+    and its autograd, and in fp32 against the fused kernels
+    (`MSDeformAttnFunction`, which takes any S): output and all three
+    gradients within 1e-5 of the fused result's largest entry. Times each
+    level's launch beside its bound, its plain version and `F.grid_sample`
+    (forward; backward to the input for d value, to the grid for d loc).
+    Bounds count the value rows the points touch, read once, and each
+    output written once: the forward's fp32 (B, Lq, M, D), d value's whole
+    level, d loc's and d attn's level slices."""
+    from vitadapter_torch.ops import msda
+
+    ok = True
+    sample = dict(mode="bilinear", padding_mode="zeros", align_corners=False)
+    for name, (shapes, Lq, M, dtypes, on_path) in LEVEL_GEOMETRIES.items():
+        for dtype in dtypes:
+            value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen, B=1)
+            B, S, _, D = value.shape
+            # the fp32 values pass the 8 MiB line; the bf16 one, half the
+            # bytes, stays under it (the route test below then applies
+            # `MSDeformAttnLevelFunction` itself)
+            route = msda.msda_route(value.shape, dtype)
+            ok &= route == ("level" if dtype == F32 else "fused")
+            g4 = g.reshape(B, Lq, M, D)
+            starts = msda.level_start_index(shapes)
+            out = torch.zeros((B, Lq, M, D), dtype=F32, device="cuda")
+            dv = torch.zeros((B, S, M, D), dtype=F32, device="cuda")
+            dloc = torch.empty_like(loc)
+            dattn = torch.empty_like(attn)
+            for lvl, (H, W) in enumerate(shapes):
+                rows_l = slice(starts[lvl], starts[lvl] + H * W)
+                value_l = value[:, rows_l]
+                loc_l, attn_l = loc[:, :, :, lvl], attn[:, :, :, lvl]
+                out.zero_()
+                msda.level_forward(value, shapes, lvl, loc, attn, out)
+                msda.level_grad_value(value, shapes, lvl, loc, attn, g, dv)
+                msda.level_grad_grid(value, shapes, lvl, loc, attn, g, dloc,
+                                     dattn)
+                ref = msda._sample_one_level(value_l, loc_l, attn_l, H, W)
+                ref_dv = msda.level_dv_plain(loc_l, attn_l, g4, H, W)
+                ref_dl, ref_da = msda.level_dgrid_plain(value_l, loc_l,
+                                                        attn_l, g4, H, W)
+                torch.cuda.synchronize()
+                good_f, err_f = close(out, ref, F32)
+                good_v, err_v = close_grad(dv[:, rows_l], ref_dv)
+                c_l = close_grad(dloc[:, :, :, lvl], ref_dl)
+                c_a = close_grad(dattn[:, :, :, lvl], ref_da)
+                good_g, err_g = c_l[0] and c_a[0], max(c_l[1], c_a[1])
+                ok &= good_f and good_v and good_g
+                del ref, ref_dv, ref_dl, ref_da
+
+                corners = corners_in_map(loc_l[..., 0], loc_l[..., 1], H, W)
+                touched = touched_rows(loc_l, H, W) * D \
+                    * value.element_size()
+                ops = 2 * D * corners
+                la = nbytes(loc_l, attn_l)
+                fb = bound_ms(touched + la + B * Lq * M * D * 4, ops, F32)
+                vb = bound_ms(la + nbytes(g) + B * H * W * M * D * 4, ops,
+                              F32)
+                gb = bound_ms(touched + nbytes(g) + 2 * la, ops, F32)
+                inp, grid = grid_sample_inputs(value_l, loc_l, H, W)
+                with torch.no_grad():
+                    k_f = time_ms(lambda: msda.level_forward(
+                        value, shapes, lvl, loc, attn, out), flush)
+                    k_v = time_ms(lambda: msda.level_grad_value(
+                        value, shapes, lvl, loc, attn, g, dv), flush)
+                    k_g = time_ms(lambda: msda.level_grad_grid(
+                        value, shapes, lvl, loc, attn, g, dloc, dattn),
+                        flush)
+                    p_f = time_ms(lambda: msda._sample_one_level(
+                        value_l, loc_l, attn_l, H, W), flush, iters=3)
+                    l_f = time_ms(lambda: F.grid_sample(inp, grid, **sample),
+                                  flush)
+                p_v = time_ms(lambda: msda.level_dv_plain(
+                    loc_l, attn_l, g4, H, W), flush, iters=3)
+                p_g = time_ms(lambda: msda.level_dgrid_plain(
+                    value_l, loc_l, attn_l, g4, H, W), flush, iters=3)
+                inp.requires_grad_()
+                grid.requires_grad_()
+                lib_out = F.grid_sample(inp, grid, **sample)
+                go = torch.randn(lib_out.shape, generator=gen, device="cuda")
+                l_v = time_ms(lambda: torch.autograd.grad(
+                    lib_out, inp, go, retain_graph=True), flush)
+                l_g = time_ms(lambda: torch.autograd.grad(
+                    lib_out, grid, go, retain_graph=True), flush)
+                del inp, grid, lib_out, go
+                which = ("_sample_kernel_onehot_pf" if H * W <= 1024
+                         else "_sample_kernel")
+                head = (f"{name} {str(dtype):14s} level {lvl} ({H}, {W}) "
+                        f"B=1 Lq={Lq} M={M}")
+                log(f"msda_level_fwd {head} (the TPU's {which}) "
+                    f"max_abs_err={err_f:.3e} ok={good_f} kernel_ms="
+                    f"{k_f:.4f} plain_ms={p_f:.4f} grid_sample_ms={l_f:.4f} "
+                    f"bound_ms={fb[0]:.4f} ({fb[1]}; {touched / 2 ** 20:.1f}"
+                    f" of the level's {nbytes(value_l) / 2 ** 20:.1f} MiB of "
+                    f"value touched)")
+                log(f"msda_level_dv {head} max_abs_err={err_v:.3e} "
+                    f"ok={good_v} kernel_ms={k_v:.4f} plain_ms={p_v:.4f} "
+                    f"grid_sample_bwd_input_ms={l_v:.4f} "
+                    f"bound_ms={vb[0]:.4f} ({vb[1]})")
+                log(f"msda_level_dgrid {head} max_abs_err (loc, attn)="
+                    f"({c_l[1]:.3e}, {c_a[1]:.3e}) ok={good_g} "
+                    f"kernel_ms={k_g:.4f} plain_ms={p_g:.4f} "
+                    f"grid_sample_bwd_grid_ms={l_g:.4f} "
+                    f"bound_ms={gb[0]:.4f} ({gb[1]})")
+                for kernel, numbers in (
+                        ("msda_level_fwd", (err_f, k_f, p_f, fb, l_f)),
+                        ("msda_level_dv", (err_v, k_v, p_v, vb, l_v)),
+                        ("msda_level_dgrid", (err_g, k_g, p_g, gb, l_g))):
+                    if on_path and on_path[0] == LEVEL_ROW_PATH[kernel]:
+                        add_to_row(rows[kernel], on_path[1], *numbers)
+                if dtype == F32 and H * W <= 1024:
+                    rows["msda_level_fwd"]["small_level"] = dict(
+                        shape=[H, W], ms=k_f, plain_ms=p_f, library_ms=l_f,
+                        bound_ms=fb[0], bound_by=fb[1], max_abs_err=err_f)
+
+            # the whole route, through the wrapper where it takes it
+            ins = [t.detach().clone().requires_grad_()
+                   for t in (value, loc, attn)]
+            fn = (msda.ms_deform_attn if route == "level"
+                  else msda.MSDeformAttnLevelFunction.apply)
+            got = fn(ins[0], tuple(shapes), ins[1], ins[2])
+            got.backward(g)
+            ref = msda.ms_deform_attn_plain(value, shapes, loc, attn)
+            ref_g = msda.ms_deform_attn_plain_backward(value, shapes, loc,
+                                                       attn, g)
+            torch.cuda.synchronize()
+            good, err = close(got, ref, dtype)
+            checks = [close_grad(t.grad, r) for t, r in zip(ins, ref_g)]
+            good_b = all(c[0] for c in checks)
+            ok &= good and good_b
+            del ref, ref_g
+            vs_fused = ""
+            if dtype == F32:
+                fused = [t.detach().clone().requires_grad_()
+                         for t in (value, loc, attn)]
+                f_out = msda.MSDeformAttnFunction.apply(
+                    fused[0], tuple(shapes), fused[1], fused[2])
+                f_out.backward(g)
+                rel = [float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip((got.detach(), *(t.grad for t in ins)),
+                                       (f_out.detach(),
+                                        *(t.grad for t in fused)))]
+                good_fused = all(r <= 1e-5 for r in rel)
+                ok &= good_fused
+                vs_fused = (f" vs the fused kernels (out, d value, d loc, "
+                            f"d attn) err/max={[f'{r:.2e}' for r in rel]} "
+                            f"ok={good_fused}")
+                del fused, f_out
+            log(f"msda route {name} {str(dtype):14s} S={S} "
+                f"({S * D * value.element_size() / 2 ** 20:.2f} MiB per "
+                f"head) route={route}: out max_abs_err={err:.3e} ok={good}; "
+                f"grads via MSDeformAttnLevelFunction max_abs_err (value, "
+                f"loc, attn)={[f'{c[1]:.3e}' for c in checks]} ok={good_b}"
+                + vs_fused)
+            del value, loc, attn, g, g4, out, dv, dloc, dattn, ins, got
+            torch.cuda.empty_cache()
     return ok
 
 
@@ -540,7 +789,11 @@ def check_point_sample(rows, flush, gen):
 def check_kernels(flush):
     """Phase 3. Returns each kernel's numbers at the flagship's bf16 shapes,
     summed over its calls in one batch-2 forward (forward kernels) or one
-    batch-2 train step (the others); one forward runs in each step."""
+    batch-2 train step (the others; one forward runs in each step); the
+    per-level MSDA kernels' in fp32 at their main path's shapes, summed
+    over its level launches in one flagship forward at ratio 1.5
+    (msda_level_fwd, phase 8) or in one over-line train step (msda_level_dv
+    and _dgrid, phase 9)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(0)
@@ -549,14 +802,15 @@ def check_kernels(flush):
             for name in REPLACES}
     unported = {}
     ok = check_msda(rows, flush, gen, unported)
+    ok &= check_msda_levels(rows, flush, gen)
     ok &= check_attention(rows, flush, gen)
     ok &= check_point_sample(rows, flush, gen)
     ok &= check_auction(rows, flush, gen)
     if not ok:
         raise SystemExit("FAIL: a kernel disagrees with its plain version")
     log("bounds of the TPU kernels not ported yet, ms per flagship bf16 "
-        "batch-2 forward or train step at the shapes above (none launched "
-        "by the JAX dispatch there): "
+        "batch-2 forward at the shapes above (not launched by the JAX "
+        "dispatch by default): "
         + json.dumps({k: [round(v[0], 6), "/".join(sorted(v[1]))]
                       for k, v in unported.items()}))
     for r in rows.values():
@@ -795,6 +1049,194 @@ def train_card_vs_cpu():
                          f"(launches {used}, want {want})")
 
 
+class Items:
+    """A dataset of given (uint8 HxWx3 image, int HxW label) pairs."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def load(self, i):
+        return self.items[i]
+
+
+def block_labels(gen, h, w, classes, cell):
+    """A label map of cell x cell blocks of random classes in [0, classes)
+    (cropped at the edges)."""
+    ids = torch.randint(0, classes, (-(-h // cell), -(-w // cell)),
+                        generator=gen)
+    lab = ids.repeat_interleave(cell, 0).repeat_interleave(cell, 1)
+    return lab[:h, :w].numpy().astype("int32")
+
+
+def eval_flagship_whole():
+    """Phase 8: the flagship in fp32 (as the JAX configs evaluate it: no
+    dtype set) through `run_eval` on one uint8 1024x2048 image, whole mode,
+    img_scale (2048, 1024), ratios (1.0, 1.5) with flip. At ratio 1.5 the
+    injectors' and the pixel decoder's values hold 11.8 MiB per head and
+    take the per-level kernels; the extractors' 2.25 MiB stay fused."""
+    from vitadapter_torch import zoo
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.loop import run_eval
+
+    model = zoo.mask2former_vit_adapter(
+        "large", generator=torch.Generator("cuda").manual_seed(0))
+    host = torch.Generator().manual_seed(8)
+    h, w = EVAL_HW
+    img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8,
+                        generator=host).numpy()
+    label = block_labels(host, h, w, 150, 128)
+    label[:64] = 255                     # an ignored band
+    calls = []
+
+    def pre(_m, args):
+        s = torch.cuda.Event(enable_timing=True)
+        s.record()
+        calls.append([tuple(args[0].shape), s, None, None])
+
+    def post(_m, _args, out):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        calls[-1][2] = e
+        calls[-1][3] = torch.isfinite(out).all()
+
+    hooks = [model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.launches.clear()
+    t0 = time.perf_counter()
+    metrics = run_eval(EVAL_CFG, model, Items([(img, label)]),
+                       aug_test=True, log_fn=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_ext.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for hk in hooks:
+        hk.remove()
+    fwd = [(shape, s.elapsed_time(e), bool(fin))
+           for shape, s, e, fin in calls]
+    cm = metrics["confusion"]
+    labelled = int((label != 255).sum())
+    log(f"flagship fp32 whole-image eval of one {h}x{w} image, ratios "
+        f"{EVAL_CFG['aug_test']['img_ratios']} with flip: forwards (input "
+        f"shape, ms, logits finite) {[(s, round(t, 2), f) for s, t, f in fwd]}"
+        f"; run_eval {wall:.2f} s in all, peak memory {peak:.2f} GiB; "
+        f"confusion sums to {int(cm.sum())} of {labelled} labelled pixels; "
+        f"mIoU {metrics['mIoU']:.4f} (random weights)")
+    log(f"launches in the evaluation: {counts} (want {EVAL_LAUNCHES})")
+    finite = all(f for _, _, f in fwd) and len(fwd) == 4
+    if not finite or int(cm.sum()) != labelled \
+            or metrics["mIoU"] != metrics["mIoU"]:
+        raise SystemExit("FAIL: flagship whole-image evaluation (non-finite "
+                         "logits or a confusion matrix that does not count "
+                         "the labelled pixels)")
+    if counts != EVAL_LAUNCHES:
+        raise SystemExit("FAIL: the evaluation did not launch each kernel "
+                         "as often as expected")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_overline():
+    """Phase 9: one fp32 train step of the reduced model (depth 4, full
+    width), drop path 0, batch 1 at 1792x1792: the injectors' and the pixel
+    decoder's values hold 8.04 MiB per head, over the line, so their
+    forward and backward take the per-level kernels."""
+    from vitadapter_torch import zoo
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_m2f_train_step
+
+    model = zoo.mask2former_vit_adapter(
+        "large", num_queries=OVERLINE_QUERIES, depth=4,
+        interaction_indexes=((0, 0), (1, 1), (2, 2), (3, 3)),
+        drop_path_rate=0.0, generator=torch.Generator("cuda").manual_seed(0))
+    randomize(model, torch.Generator().manual_seed(9))
+    opt, _ = make_optimizer(model, depth=4, total_steps=1000,
+                            warmup_steps=0, grad_clip=0.01)
+    state = TrainState.create(model, opt)
+    step = make_m2f_train_step(model, num_classes=150)
+    gen = torch.Generator("cuda").manual_seed(10)
+    n = OVERLINE_HW
+    label = block_labels(torch.Generator().manual_seed(11), n, n, 150, 448)
+    batch = {"image": torch.randn(1, n, n, 3, generator=gen, device="cuda"),
+             "label": torch.from_numpy(label).long()[None].cuda()}
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.launches.clear()
+    t0 = time.perf_counter()
+    state, logs = step(state, batch, gen)
+    logs = {k: float(v) for k, v in logs.items()}
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    counts = dict(cuda_ext.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    still = [k for k, p in model.named_parameters()
+             if torch.equal(p.detach(), before[k])]
+    log(f"reduced fp32 train step at {n}x{n}, batch 1, {OVERLINE_QUERIES} "
+        f"queries: {took:.2f} s (the first step: builds included), peak "
+        f"memory {peak:.2f} GiB; logs {logs}; {len(before) - len(still)} "
+        f"of {len(before)} parameter tensors changed (unchanged: {still})")
+    log(f"launches in the step: {counts} (want {OVERLINE_LAUNCHES})")
+    finite = all(v == v and abs(v) != float("inf") for v in logs.values())
+    if not finite or len(still) > 0.05 * len(before):
+        raise SystemExit("FAIL: over-line train step (non-finite loss or "
+                         "gradient norm, or parameters did not move)")
+    if counts != OVERLINE_LAUNCHES:
+        raise SystemExit("FAIL: the over-line train step did not launch each "
+                         "kernel as often as expected")
+    del model, opt, state, before
+    torch.cuda.empty_cache()
+    return counts
+
+
+def eval_card_vs_cpu():
+    """Phase 10: `run_eval` with the reduced model in fp32, whole mode, on
+    two odd-sized non-square images, ratios (0.75, 1.0) with flip, on the
+    card (kernels) and on the CPU (plain versions): the confusion matrices
+    may differ in at most EVAL_CM_SHARE of the labelled pixels."""
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.loop import run_eval
+
+    gen = torch.Generator().manual_seed(12)
+    cpu = reduced_model(gen)
+    card = copy.deepcopy(cpu).cuda()
+    items = []
+    for h, w in ((97, 151), (131, 83)):
+        img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8,
+                            generator=gen).numpy()
+        items.append((img, block_labels(gen, h, w, 150, 24)))
+    cfg = {"num_classes": 150,
+           "test_cfg": {"mode": "whole", "img_scale": (192, 128)},
+           "aug_test": {"img_ratios": [0.75, 1.0], "flip": True}}
+    cms, secs = {}, {}
+    before = dict(cuda_ext.launches)
+    for side, model in (("cpu", cpu), ("cuda", card)):
+        t0 = time.perf_counter()
+        cms[side] = run_eval(cfg, model, Items(items), aug_test=True,
+                             log_fn=lambda *_: None)["confusion"]
+        secs[side] = time.perf_counter() - t0
+    used = {k: v - before.get(k, 0) for k, v in cuda_ext.launches.items()
+            if v != before.get(k, 0)}
+    labelled = sum(int(lab.size) for _, lab in items)
+    moved = int(abs(cms["cuda"] - cms["cpu"]).sum()) // 2
+    ok = (moved <= EVAL_CM_SHARE * labelled
+          and int(cms["cuda"].sum()) == labelled)
+    want = {"msda_fwd": 8 * 16, "attention_fwd": 8 * 4}
+    log(f"reduced model fp32 run_eval card vs CPU, images (97, 151) and "
+        f"(131, 83), ratios (0.75, 1.0) with flip: {moved} of {labelled} "
+        f"labelled pixels predicted differently (tol {EVAL_CM_SHARE} of "
+        f"them) ok={ok}; CPU {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s;"
+        f" kernel launches {used} (want {want})")
+    if not ok or used != want:
+        raise SystemExit("FAIL: run_eval card vs CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -836,25 +1278,48 @@ def main():
     # phase 7: a train step, kernels against plain versions
     train_card_vs_cpu()
 
+    # phase 8: whole-image evaluation, the per-level forward on its path
+    eval_counts = eval_flagship_whole()
+
+    # phase 9: an over-line train step, all ten kernels
+    overline_counts = train_overline()
+
+    # phase 10: run_eval, card against CPU
+    eval_card_vs_cpu()
+
+    paths = {"serve": serve_counts, "train": train_counts,
+             "eval_whole": eval_counts, "train_overline": overline_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
-        fwd = name in serve_counts
+        # each kernel's main path: the first of these paths that runs it
+        path = next(p for p in ("serve", "train", "eval_whole",
+                                "train_overline") if name in paths[p])
+        if name == "msda_level_fwd":
+            per = ("times per flagship fp32 forward of a 1024x2048 image at "
+                   "ratio 1.5 (6 pixel-decoder and 4 injector MSDA calls, 3 "
+                   "level launches each, at phase 8's shapes)")
+        elif name.startswith("msda_level"):
+            per = ("times per reduced fp32 train step at 1792x1792 (6 "
+                   "pixel-decoder and 4 injector MSDA calls, 3 level "
+                   "launches each, at phase 9's shapes)")
+        elif name in serve_counts:
+            per = ("times per flagship bf16 batch-2 forward (one runs in "
+                   "each train step)")
+        else:
+            per = "times per flagship bf16 batch-2 train step"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",
             "replaces": REPLACES[name], "status": "ported",
-            "launches": (serve_counts if fwd else train_counts)[name],
-            "launches_serve": serve_counts.get(name, 0),
-            "launches_train": train_counts.get(name, 0),
+            "launches": paths[path][name], "main_path": path,
+            **{f"launches_{p}": c.get(name, 0) for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "per": ("times per flagship bf16 batch-2 forward (one runs in "
-                    f"each train step); launches over the {SERVE_REQUESTS} "
-                    "served requests" if fwd else
-                    "times per flagship bf16 batch-2 train step; launches "
-                    f"over the {TRAIN_STEPS} train steps")})
+            **({"small_level": r["small_level"]} if "small_level" in r
+               else {}),
+            "per": per + f"; launches over the {path} phase"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """The port's Mask2Former + ViT-Adapter segmentor against the JAX package:
-end-to-end logits from uint8 images (fp32, CPU, tiny widths), and the
+end-to-end logits from uint8 images (fp32, CPU, tiny widths; square and
+non-square), and the
 weight round trip through the JAX package's converters."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from vitadapter.data.preprocess import normalize as jnormalize
@@ -83,6 +85,26 @@ def test_segmentor_logits_match_jax_from_uint8():
     with torch.no_grad():
         got = model(normalize(torch.from_numpy(img)))
     assert tuple(got.shape) == (2, 64, 64, TINY_HEAD["num_classes"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (96, 64)])
+def test_segmentor_logits_match_jax_non_square(hw):
+    """Non-square inputs (whole-image evaluation feeds 1024x2048): any H/W
+    mix-up in the pos-embed resize, the reference points, the MSDA
+    normalizer or the pixel decoder's level shapes shows here."""
+    model = _port_segmentor(16)
+    params, stats = _to_flax(model.state_dict())
+    img = np.random.RandomState(17).randint(0, 256, (1, *hw, 3),
+                                            dtype=np.uint8)
+    jm = JSegmentor(backbone=JViTAdapter(**TINY_BACKBONE),
+                    decode_head=JHead(**TINY_HEAD))
+    want = jax.jit(lambda v, x: jm.apply(v, jnormalize(x)))(
+        {"params": params, "batch_stats": stats}, img)
+    with torch.no_grad():
+        got = model(normalize(torch.from_numpy(img)))
+    assert tuple(got.shape) == (1, *hw, TINY_HEAD["num_classes"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
 

@@ -488,6 +488,25 @@ def test_present_classes_and_gt_points_match_jax():
     np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("B", [1, 2])
+def test_sample_gt_points_hands_the_kernel_contiguous_points(monkeypatch, B):
+    """At batch 1 the expanded points stayed a zero-stride view, which the
+    point-sampling kernel's input checks refuse (a batch-1 train step failed
+    on the card); the wrapper must get contiguous points at any batch."""
+    seen = []
+
+    def spy(masks, points):
+        seen.append(points.is_contiguous())
+        return tps.point_sample_plain(masks, points)
+
+    monkeypatch.setattr(tloss, "point_sample", spy)
+    label = np.random.RandomState(37).randint(0, 4, (B, 9, 11))
+    got_l, _ = tloss.present_classes(_t(label), 4, 3)
+    pts = np.random.RandomState(38).rand(B, 20, 2).astype(np.float32)
+    out = tloss.sample_gt_points(_t(label), _t(pts), got_l)
+    assert tuple(out.shape) == (B, 3, 20) and seen == [True]
+
+
 @pytest.fixture
 def jax_pallas_assignment(monkeypatch):
     """Pin the JAX loss to the Pallas auction (interpret mode on the CPU),

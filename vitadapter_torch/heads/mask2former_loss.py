@@ -59,7 +59,9 @@ def sample_gt_points(label_map: torch.Tensor, points: torch.Tensor,
     (B, G, P) fp32."""
     B, G = gt_labels.shape
     P = points.shape[1]
-    pts = points[:, None].expand(B, G, P, 2).reshape(B * G, P, 2)
+    # at B = 1 the reshape stays a view with a zero stride, which the kernel
+    # does not take
+    pts = points[:, None].expand(B, G, P, 2).reshape(B * G, P, 2).contiguous()
     out = point_sample(_indicator(label_map, gt_labels), pts)
     return out.reshape(B, G, P)
 

@@ -104,8 +104,10 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
     for (int p = 0; p < P; ++p) {
       const int i = l * P + p;
       const float a = ap[i];
-      const float x = lp[2 * i] * W - 0.5f;
-      const float y = lp[2 * i + 1] * H - 0.5f;
+      // loc * size, then - 0.5, each rounded, as the plain version and
+      // JAX round them (__fmul_rn is never contracted into an FMA)
+      const float x = __fmul_rn(lp[2 * i], (float)W) - 0.5f;
+      const float y = __fmul_rn(lp[2 * i + 1], (float)H) - 0.5f;
       const float x0f = floorf(x);
       const float y0f = floorf(y);
       // no corner on the map (also NaN and values too large for int):

@@ -49,8 +49,10 @@ point_sample_fwd_kernel(const T* __restrict__ masks,
   if (i >= n_points) return;
   const long long n = i / P;
   const float2 pt = reinterpret_cast<const float2*>(points)[i];
-  const float x = pt.x * W - 0.5f;
-  const float y = pt.y * H - 0.5f;
+  // loc * size, then - 0.5, each rounded, as the plain version and
+  // JAX round them (__fmul_rn is never contracted into an FMA)
+  const float x = __fmul_rn(pt.x, (float)W) - 0.5f;
+  const float y = __fmul_rn(pt.y, (float)H) - 0.5f;
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   float acc = 0.f;

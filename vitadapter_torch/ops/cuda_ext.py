@@ -37,6 +37,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "msda_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     "msda_bwd": [_P] * 8 + [_I] * 7 + [_P, _P, _I, _P],
+    # the per-level route: pointers, then B, S, M, D, Lq, L, P, level,
+    # start, H, W, is_bf16, stream
+    "msda_level_fwd": [_P] * 4 + [_I] * 12 + [_P],
+    "msda_level_dv": [_P] * 4 + [_I] * 12 + [_P],
+    "msda_level_dgrid": [_P] * 6 + [_I] * 12 + [_P],
     "attention_fwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
     "attention_bwd": [_P] * 8 + [_I, _I, _I, ctypes.c_float, _I, _P],
     "point_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -1,14 +1,22 @@
-"""Multi-scale deformable attention (MSDA): the Hopper kernel's wrapper, its
-plain version, and the `MSDeformAttn` module.
+"""Multi-scale deformable attention (MSDA): the Hopper kernels' wrappers,
+their plain versions, and the `MSDeformAttn` module.
 
-Counterpart of `vitadapter/ops/msda.py`. The kernels are `csrc/msda_fwd.cu`
-(it replaces the TPU kernel `msda_pallas._fwd_ml_kernel`) and
-`csrc/msda_bwd.cu` (it replaces `msda_pallas._bwd_ml_kernel`). Layouts follow
-JAX: value (B, S, M, D), sampling locations (B, Lq, M, L, P, 2) as (x, y) in
-[0, 1], attention weights (B, Lq, M, L, P); the result is (B, Lq, M * D).
-Sampling matches `F.grid_sample(mode='bilinear', padding_mode='zeros',
-align_corners=False)`: location `loc` maps to pixel `loc * size - 0.5` and
-corners off the map contribute zero.
+Counterpart of `vitadapter/ops/msda.py` and of the dispatch of
+`msda_pallas.ms_deform_attn_pallas`. Two routes, chosen by `msda_route` from
+the value's shape and dtype alone, as the JAX package chooses:
+- "fused", a value of at most `ML_MAX_VALUE_BYTES` per head:
+  `csrc/msda_fwd.cu` (replaces `msda_pallas._fwd_ml_kernel`) and
+  `csrc/msda_bwd.cu` (replaces `msda_pallas._bwd_ml_kernel`), all levels in
+  one launch;
+- "level", a larger value: one launch per level of `csrc/msda_level_fwd.cu`
+  (replaces `_sample_kernel` and `_sample_kernel_onehot_pf`),
+  `csrc/msda_level_dv.cu` (replaces `_dv_kernel`) and
+  `csrc/msda_level_dgrid.cu` (replaces `_dgrid_kernel`).
+Layouts follow JAX: value (B, S, M, D), sampling locations
+(B, Lq, M, L, P, 2) as (x, y) in [0, 1], attention weights (B, Lq, M, L, P);
+the result is (B, Lq, M * D). Sampling matches `F.grid_sample(mode=
+'bilinear', padding_mode='zeros', align_corners=False)`: location `loc` maps
+to pixel `loc * size - 0.5` and corners off the map contribute zero.
 """
 
 from __future__ import annotations
@@ -26,6 +34,17 @@ from vitadapter_torch.ops import cuda_ext
 SpatialShapes = Tuple[Tuple[int, int], ...]
 MAX_LEVELS = 8   # csrc/msda_fwd.cu kMaxLevels
 MAX_HEAD_DIM = 64
+# one head's value (S * D * itemsize) above this takes the per-level route
+# (`msda_pallas.ML_MAX_VALUE_BYTES`)
+ML_MAX_VALUE_BYTES = 8 * 1024 * 1024
+
+
+def msda_route(value_shape: Sequence[int], dtype: torch.dtype) -> str:
+    """"fused" or "level": which kernels a CUDA value of this (B, S, M, D)
+    shape and dtype takes (`msda_pallas._forward` / `_bwd`)."""
+    S, D = value_shape[1], value_shape[3]
+    return "fused" if S * D * dtype.itemsize <= ML_MAX_VALUE_BYTES \
+        else "level"
 
 
 def level_sizes(spatial_shapes: SpatialShapes) -> Tuple[int, ...]:
@@ -147,6 +166,32 @@ def ms_deform_attn_plain_backward(value: torch.Tensor,
     return dv.to(value.dtype), dloc, dattn
 
 
+def level_dv_plain(loc_l: torch.Tensor, attn_l: torch.Tensor,
+                   g: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """d value of `_sample_one_level` for the output gradient g
+    (B, Lq, M, D): (B, H * W, M, D) fp32. The sampling is linear in the
+    value, so the value itself is not needed."""
+    B, Lq, M, D = g.shape
+    with torch.enable_grad():
+        v = torch.zeros((B, H * W, M, D), dtype=torch.float32,
+                        device=g.device, requires_grad=True)
+        out = _sample_one_level(v, loc_l, attn_l, H, W)
+        (dv,) = torch.autograd.grad(out, (v,), g.float())
+    return dv
+
+
+def level_dgrid_plain(value_l: torch.Tensor, loc_l: torch.Tensor,
+                      attn_l: torch.Tensor, g: torch.Tensor, H: int, W: int):
+    """(d loc (B, Lq, M, P, 2), d attn (B, Lq, M, P)) of `_sample_one_level`
+    for the output gradient g (B, Lq, M, D), fp32."""
+    with torch.enable_grad():
+        loc = loc_l.detach().float().requires_grad_()
+        attn = attn_l.detach().float().requires_grad_()
+        out = _sample_one_level(value_l.detach(), loc, attn, H, W)
+        dloc, dattn = torch.autograd.grad(out, (loc, attn), g.float())
+    return dloc, dattn
+
+
 def _level_arrays(spatial_shapes: SpatialShapes):
     L = len(spatial_shapes)
     shapes = (ctypes.c_int * (2 * L))(*[n for hw in spatial_shapes
@@ -212,6 +257,115 @@ class MSDeformAttnFunction(torch.autograd.Function):
         return dvalue, None, dloc, dattn
 
 
+def _level_geometry(value, spatial_shapes, level, loc):
+    """The ints that the per-level kernels take after their pointers:
+    B, S, M, D, Lq, L, P, level, the level's first value row, H, W."""
+    B, S, M, D = value.shape
+    H, W = spatial_shapes[level]
+    return (B, S, M, D, loc.shape[1], loc.shape[3], loc.shape[4], level,
+            level_start_index(spatial_shapes)[level], H, W)
+
+
+def _level_slices(value, spatial_shapes, level, loc, attn):
+    H, W = spatial_shapes[level]
+    start = level_start_index(spatial_shapes)[level]
+    return (value[:, start:start + H * W], loc[:, :, :, level],
+            attn[:, :, :, level], H, W)
+
+
+def level_forward(value, spatial_shapes: SpatialShapes, level: int, loc,
+                  attn, out: torch.Tensor) -> None:
+    """Add level `level`'s sampling into `out` (B, Lq, M, D) fp32 in place:
+    `msda_level_fwd.cu`, or `_sample_one_level` for CPU tensors."""
+    if value.device.type == "cpu":
+        out += _sample_one_level(*_level_slices(value, spatial_shapes, level,
+                                                loc, attn))
+        return
+    cuda_ext.launch("msda_level_fwd", value.device, value.data_ptr(),
+                    loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+                    *_level_geometry(value, spatial_shapes, level, loc),
+                    int(value.dtype == torch.bfloat16))
+
+
+def level_grad_value(value, spatial_shapes: SpatialShapes, level: int, loc,
+                     attn, g, dvalue: torch.Tensor) -> None:
+    """Add level `level`'s d value into its rows of `dvalue` (B, S, M, D)
+    fp32 in place, for the output gradient g (B, Lq, M * D) in the value
+    dtype: `msda_level_dv.cu`, or `level_dv_plain` for CPU tensors."""
+    if value.device.type == "cpu":
+        _, loc_l, attn_l, H, W = _level_slices(value, spatial_shapes, level,
+                                               loc, attn)
+        start = level_start_index(spatial_shapes)[level]
+        dvalue[:, start:start + H * W] += level_dv_plain(
+            loc_l, attn_l, g.reshape(*loc.shape[:3], -1), H, W)
+        return
+    cuda_ext.launch("msda_level_dv", value.device, loc.data_ptr(),
+                    attn.data_ptr(), g.data_ptr(), dvalue.data_ptr(),
+                    *_level_geometry(value, spatial_shapes, level, loc),
+                    int(g.dtype == torch.bfloat16))
+
+
+def level_grad_grid(value, spatial_shapes: SpatialShapes, level: int, loc,
+                    attn, g, dloc: torch.Tensor, dattn: torch.Tensor) -> None:
+    """Write level `level`'s slices of `dloc` (B, Lq, M, L, P, 2) and `dattn`
+    (B, Lq, M, L, P), fp32, for the output gradient g (B, Lq, M * D) in the
+    value dtype: `msda_level_dgrid.cu`, or `level_dgrid_plain` for CPU
+    tensors."""
+    if value.device.type == "cpu":
+        value_l, loc_l, attn_l, H, W = _level_slices(value, spatial_shapes,
+                                                     level, loc, attn)
+        dl, da = level_dgrid_plain(value_l, loc_l, attn_l,
+                                   g.reshape(*loc.shape[:3], -1), H, W)
+        dloc[:, :, :, level] = dl
+        dattn[:, :, :, level] = da
+        return
+    cuda_ext.launch("msda_level_dgrid", value.device, value.data_ptr(),
+                    loc.data_ptr(), attn.data_ptr(), g.data_ptr(),
+                    dloc.data_ptr(), dattn.data_ptr(),
+                    *_level_geometry(value, spatial_shapes, level, loc),
+                    int(value.dtype == torch.bfloat16))
+
+
+class MSDeformAttnLevelFunction(torch.autograd.Function):
+    """The per-level kernels with their gradient, for values over
+    `ML_MAX_VALUE_BYTES` (counterpart of `msda_pallas._forward`'s and
+    `_bwd`'s per-level branches): one `msda_level_fwd` launch per level,
+    summed into an fp32 (B, Lq, M, D) and cast to the value dtype once; one
+    `msda_level_dv` and one `msda_level_dgrid` launch per level backward."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, attn):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, attn)
+        B, _, M, D = value.shape
+        Lq = loc.shape[1]
+        out = torch.zeros((B, Lq, M, D), dtype=torch.float32,
+                          device=value.device)
+        for level in range(len(spatial_shapes)):
+            level_forward(value, spatial_shapes, level, loc, attn, out)
+        return out.reshape(B, Lq, M * D).to(value.dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        shapes = ctx.spatial_shapes
+        B, _, M, D = value.shape
+        if tuple(grad_out.shape) != (B, loc.shape[1], M * D) \
+                or grad_out.dtype != value.dtype:
+            raise ValueError(f"output gradient {tuple(grad_out.shape)} "
+                             f"{grad_out.dtype} must be ({B}, {loc.shape[1]}"
+                             f", {M * D}) {value.dtype}")
+        g = grad_out.contiguous()
+        dvalue = torch.zeros(value.shape, dtype=torch.float32,
+                             device=value.device)
+        dloc = torch.empty_like(loc)
+        dattn = torch.empty_like(attn)
+        for level in range(len(shapes)):
+            level_grad_value(value, shapes, level, loc, attn, g, dvalue)
+            level_grad_grid(value, shapes, level, loc, attn, g, dloc, dattn)
+        return dvalue.to(value.dtype), None, dloc, dattn
+
+
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: SpatialShapes,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor,
@@ -219,8 +373,9 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: SpatialShapes,
                    ) -> torch.Tensor:
     """MSDA sampling, (B, Lq, M * D) in the value dtype, differentiable in
     the value, the locations and the weights. CPU tensors take the plain
-    version (autograd differentiates it); CUDA tensors take the kernels
-    through `MSDeformAttnFunction`, or raise if they cannot take them.
+    version (autograd differentiates it); CUDA tensors take the kernels of
+    `msda_route`'s route, through `MSDeformAttnFunction` or
+    `MSDeformAttnLevelFunction`, or raise if they cannot take them.
     `query_segments` is the TPU kernel's tiling hint and is ignored."""
     del query_segments
     if value.device.type == "cpu":
@@ -228,8 +383,11 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: SpatialShapes,
                                     attention_weights)
     check_kernel_inputs(value, spatial_shapes, sampling_locations,
                         attention_weights)
-    return MSDeformAttnFunction.apply(value, tuple(spatial_shapes),
-                                      sampling_locations, attention_weights)
+    fn = (MSDeformAttnFunction
+          if msda_route(value.shape, value.dtype) == "fused"
+          else MSDeformAttnLevelFunction)
+    return fn.apply(value, tuple(spatial_shapes), sampling_locations,
+                    attention_weights)
 
 
 def msda_grid_init(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
