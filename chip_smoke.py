@@ -7,16 +7,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (each failure exits non-zero; nothing is caught):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. builds every CUDA kernel of the port from `vitadapter_torch/ops/csrc`;
+  2. builds every CUDA kernel of the port from `vitadapter_torch/ops/csrc`,
+     printing registers and spills, and the tensor-core instructions
+     (`HGMMA`, `HMMA`) in the attention libraries' SASS;
   3. holds each kernel against its plain PyTorch version on the card, fp32
      and bf16, at the flagship's shapes: the forward kernels, and the
      backward kernels reached through the autograd wrappers (so the
-     gradients of MSDA and attention on the card are checked too); the
+     gradients of MSDA and attention on the card are checked too, and the
+     log-sum-exp the attention forward saves for its backward); the
      auction (fp32 costs only) for equal matches and for a total cost within
-     its bound of scipy's optimum. It times each kernel beside its bound,
-     its plain version and, where one PyTorch call computes the same
-     function, that call (`scaled_dot_product_attention` and its backward,
-     `F.grid_sample` and its backward);
+     its bound of scipy's optimum. It times each kernel (CUDA events, L2
+     flushed before each call, the launches queued ahead) beside
+     its bound, its plain version and, where one PyTorch call computes the
+     same function, that call (`scaled_dot_product_attention` and its
+     backward, `F.grid_sample` and its backward);
   4. serves a few batch-2 requests of raw uint8 512x512 images with the
      flagship ViT-Adapter-L + Mask2Former (ADE20K, 150 classes) in bf16 from
      random seeded weights, and checks the launch counts of the kernels;
@@ -43,12 +47,18 @@ Phases (each failure exits non-zero; nothing is caught):
 Phase 3 also holds the per-level MSDA kernels against their plain versions,
 and the per-level route against the fused kernels, at the shapes of every
 MSDA call that takes that route in phases 8 and 9 (and at a few thousand
-queries in fp32 and bf16). The last two lines are a JSON object of the
-kernels' numbers and {"ok": true, "device": {...}}.
+queries in fp32 and bf16), and the fp32 attention at the lengths phases 8
+and 9 give it. The last two lines are a JSON object of the
+kernels' numbers (with the TPU kernels each one covers besides the one it
+replaces) and {"ok": true, "device": {...}}.
 """
 
 import copy
 import json
+import os
+import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -87,6 +97,16 @@ MSDA_GEOMETRIES = {
 }
 ATTN_SHAPE = (2, 16, 1024, 64)   # 24 calls per forward
 ATTN_CALLS = 24
+# fp32 attention at the lengths of the paths that run it, B 1, 16 heads,
+# head dim 64: name: (N, path, calls there, with a backward). The
+# whole-image evaluation's 1/16 token grid is 64x128 at ratio 1.0 and
+# 96x192 at 1.5 (24 calls per forward, 2 forwards each with the flip); the
+# over-line step's is 112x112 (4 blocks)
+ATTN_PATH_CASES = {
+    "eval_r1.0": (8192, "eval_whole", 48, False),
+    "eval_r1.5": (18432, "eval_whole", 48, False),
+    "overline": (12544, "train_overline", 4, True),
+}
 # point sampling in one flagship train step (batch 2, 200 queries, 60 gt
 # classes, 10 decoder outputs, 12544 points):
 # name: (masks N, H, W, points per mask, points sorted by y, calls)
@@ -168,6 +188,19 @@ REPLACES = {
     "point_sample_bwd": "vitadapter/ops/point_sample_pallas.py:101",
     "auction": "vitadapter/ops/auction_pallas.py:33",
 }
+# TPU kernels that compute the same function as another one, on inputs that
+# a ported kernel takes whole: `msda_fwd.cu` computes the multi-level forward
+# of every value under the 8 MiB line, which is all the opt-in band-matmul
+# forward takes; `msda_level_fwd.cu` computes one level of any size, which
+# is all `_sample_kernel_onehot_pf` takes (levels of at most 1024 cells)
+COVERS = {
+    "msda_fwd": ["vitadapter/ops/msda_pallas.py:514"],
+    "msda_level_fwd": ["vitadapter/ops/msda_pallas.py:177"],
+}
+
+
+# `time_ms`'s spin before each call: about 1 ms at the H100's SM clock
+SPIN_CYCLES = 2_000_000
 
 
 def log(*a):
@@ -175,21 +208,29 @@ def log(*a):
 
 
 def time_ms(fn, flush, iters=10):
-    """Mean ms of fn on the card, CUDA events around each call, L2 flushed
-    before each (the main path finds its inputs mostly cold)."""
+    """Median ms of one call of fn over `iters` calls on the card (a host
+    stall moves a mean, not the median): CUDA events around each call, L2
+    flushed before each (the main path finds its inputs mostly cold).
+    Between the flush and the first event the card spins for about 1 ms,
+    so the host has queued the call's launches before the card reaches
+    them: the time is the card's, not the host's launch overhead, unless
+    the call waits on the host (a plain version that reads a result back).
+    torch.profiler's kernel records are not used: on the H100 a trace of
+    many launches lost some of them."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
         torch.cuda.synchronize()
-        total += s.elapsed_time(e)
-    return total / iters
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def close(got, ref, dtype):
@@ -208,6 +249,22 @@ def close_grad(got, ref):
     err = (got.float() - r).abs()
     ok = bool((err <= GRAD_TOL * float(r.abs().max()) + rtol * r.abs()).all())
     return ok and got.dtype == ref.dtype, float(err.max())
+
+
+def sass_counts(lib):
+    """Counts of Hopper warpgroup (HGMMA) and warp (HMMA) tensor-core
+    instructions in a built library's SASS, or a note when the toolkit has
+    no cuobjdump."""
+    from vitadapter_torch.ops import cuda_ext
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(cuda_ext.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return "cuobjdump not available"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "HMMA")}
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -298,19 +355,6 @@ def msda_inputs(shapes, Lq, M, dtype, gen, B=2, D=32, P=4):
 def msda_corners(shapes, loc):
     return sum(corners_in_map(loc[:, :, :, lvl, :, 0], loc[:, :, :, lvl, :, 1],
                               H, W) for lvl, (H, W) in enumerate(shapes))
-
-
-def unported_msda_bounds(shapes, value, loc, attn):
-    """(bound ms, bound by) of one call at these inputs for each MSDA
-    kernel of the JAX package not ported yet (ROADMAP section 2, item 10):
-    the band-matmul forward, which computes the whole forward and which the
-    JAX dispatch takes only with VITADAPTER_MSDA_BANDMM=1."""
-    D = value.shape[-1]
-    g_bytes = loc.shape[0] * loc.shape[1] * loc.shape[2] * D \
-        * value.element_size()
-    return {"msda_pallas.py:514 _fwd_ml_bandmm_kernel": bound_ms(
-        msda_touched_bytes(shapes, value, loc) + nbytes(loc, attn) + g_bytes,
-        2 * D * msda_corners(shapes, loc), torch.float32)}
 
 
 def auction_costs(gen, B, Q, G, contested, P=12544, K=150):
@@ -411,7 +455,7 @@ def check_auction(rows, flush, gen):
     return ok
 
 
-def check_msda(rows, flush, gen, unported):
+def check_msda(rows, flush, gen):
     """msda_fwd and msda_bwd (through `MSDeformAttnFunction`)."""
     from vitadapter_torch.ops import msda
 
@@ -474,11 +518,6 @@ def check_msda(rows, flush, gen, unported):
             if dtype == torch.bfloat16:
                 add_to_row(rows["msda_fwd"], calls, err, k_ms, p_ms, fb)
                 add_to_row(rows["msda_bwd"], calls, err_b, kb_ms, pb_ms, bb)
-                for k, (b_ms, b_by) in unported_msda_bounds(
-                        shapes, value, loc, attn).items():
-                    u = unported.setdefault(k, [0.0, set()])
-                    u[0] += calls * b_ms
-                    u[1].add(b_by)
     return ok
 
 
@@ -657,7 +696,10 @@ def check_msda_levels(rows, flush, gen):
 
 
 def check_attention(rows, flush, gen):
-    """attention_fwd and attention_bwd (through `FusedAttentionFunction`)."""
+    """attention_fwd and attention_bwd (through `FusedAttentionFunction`),
+    with the row log-sum-exp and fp32 output the forward saves for the
+    backward. The forward is checked and timed as a forward alone (serving)
+    and as it runs before a backward (the fp32 output written too)."""
     from vitadapter_torch.ops import attention as at
 
     ok = True
@@ -669,36 +711,54 @@ def check_attention(rows, flush, gen):
             q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                           .to(dtype) for _ in range(4))
             ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            scale = shape[-1] ** -0.5
             got = at.fused_attention(*ins)
+            saved_out32, saved_lse = got.grad_fn.saved_tensors[3:]
             got.backward(g)
-            ref = at.attention_plain(q, k, v)
+            ref, ref_lse, ref_out32 = at.attention_plain_lse(q, k, v)
             ref_g = at.attention_plain_backward(q, k, v, g)
+            with torch.no_grad():
+                served = at.fused_attention(q, k, v)
             torch.cuda.synchronize()
             good, err = close(got, ref, dtype)
+            good_s, err_s = close(served, ref, dtype)
+            # the saved log-sum-exp and output are fp32 in every version
+            good_l, err_l = close(saved_lse, ref_lse, torch.float32)
+            good_o, err_o = close(saved_out32, ref_out32, torch.float32)
             checks = [close_grad(t.grad, r) for t, r in zip(ins, ref_g)]
             good_b = all(c[0] for c in checks)
             err_b = max(c[1] for c in checks)
-            ok &= good and good_b
-            scale = shape[-1] ** -0.5
+            good_f = good and good_s and good_l and good_o
+            ok &= good_f and good_b
             lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             lib_out = sdpa(*lib)
             with torch.no_grad():
+                _, lse, out32 = at._kernel_forward(q, k, v, scale, True)
                 k_ms = time_ms(lambda: at.fused_attention(q, k, v), flush)
+                kt_ms = time_ms(lambda: at._kernel_forward(q, k, v, scale,
+                                                           True), flush)
                 p_ms = time_ms(lambda: at.attention_plain(q, k, v), flush)
-                kb_ms = time_ms(lambda: at._kernel_backward(q, k, v, g,
-                                                            scale), flush)
+                kb_ms = time_ms(lambda: at._kernel_backward(
+                    q, k, v, out32, lse, g, scale), flush)
                 lib_ms = time_ms(lambda: sdpa(q, k, v), flush)
             pb_ms = time_ms(lambda: at.attention_plain_backward(q, k, v, g),
                             flush)
             libb_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, lib, g, retain_graph=True), flush)
             B, H, N, D = shape
-            fb = bound_ms(4 * nbytes(q), 4 * B * H * N * N * D, dtype)
-            # backward: q k^T again, dv = P^T dO, dP = dO v^T, dq, dk
-            bb = bound_ms(7 * nbytes(q), 10 * B * H * N * N * D, dtype)
+            # forward: reads q, k, v, writes out and the log-sum-exp
+            fb = bound_ms(4 * nbytes(q) + nbytes(lse),
+                          4 * B * H * N * N * D, dtype)
+            # backward: reads q, k, v, dO, the fp32 output and the
+            # log-sum-exp, writes dq, dk, dv; q k^T again, dP = dO v^T,
+            # dv = P^T dO, dq, dk
+            bb = bound_ms(7 * nbytes(q) + nbytes(out32, lse),
+                          10 * B * H * N * N * D, dtype)
             log(f"attention_fwd {str(shape):18s} {str(dtype):14s} "
-                f"max_abs_err={err:.3e} ok={good} kernel_ms={k_ms:.4f} "
-                f"plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
+                f"max_abs_err serving={err_s:.3e} before a backward={err:.3e}"
+                f" (saved fp32 output {err_o:.3e}, lse {err_l:.3e}) "
+                f"ok={good_f} kernel_ms={k_ms:.4f} (before a backward "
+                f"{kt_ms:.4f}) plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
                 f"bound_ms={fb[0]:.4f} ({fb[1]})")
             log(f"attention_bwd {str(shape):18s} {str(dtype):14s} grads via "
                 f"the autograd wrapper: max_abs_err (q, k, v)="
@@ -706,10 +766,118 @@ def check_attention(rows, flush, gen):
                 f"kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
                 f"sdpa_bwd_ms={libb_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]})")
             if dtype == torch.bfloat16 and shape == ATTN_SHAPE:
-                add_to_row(rows["attention_fwd"], ATTN_CALLS, err, k_ms, p_ms,
-                           fb, lib_ms)
+                # the library's own agreement with the plain version
+                lib_g = torch.autograd.grad(lib_out, lib, g)
+                lib_f = close(lib_out, ref, dtype)
+                lib_b = [close_grad(a, b) for a, b in zip(lib_g, ref_g)]
+                log(f"attention {str(shape)} bf16: SDPA against the plain "
+                    f"version: forward ok={lib_f[0]} max_abs_err="
+                    f"{lib_f[1]:.3e}, backward ok="
+                    f"{all(c[0] for c in lib_b)} max_abs_err (q, k, v)="
+                    f"{[f'{c[1]:.3e}' for c in lib_b]}")
+                add_to_row(rows["attention_fwd"], ATTN_CALLS, max(err, err_s),
+                           k_ms, p_ms, fb, lib_ms)
                 add_to_row(rows["attention_bwd"], ATTN_CALLS, err_b, kb_ms,
                            pb_ms, bb, libb_ms)
+    return ok
+
+
+def by_heads(fn, *ts, heads=4):
+    """fn on `heads` heads of (B, H, N, D) inputs at a time, its outputs
+    joined along the heads: at the main paths' lengths the plain version's
+    (N, N) fp32 scores of all 16 heads would not fit beside the rest."""
+    parts = [fn(*(t[:, h:h + heads] for t in ts))
+             for h in range(0, ts[0].shape[1], heads)]
+    return tuple(torch.cat(p, 1) for p in zip(*parts))
+
+
+def check_attention_paths(rows, flush, gen):
+    """fp32 attention at the lengths of the paths that run it in fp32: the
+    whole-image evaluation's forwards (phase 8; `fused_attention` without a
+    gradient) and the over-line step (phase 9; forward, saved output and
+    log-sum-exp, and the three gradients through `FusedAttentionFunction`),
+    against the plain versions taken four heads at a time. The numbers go
+    to the attention rows' `paths`, summed over each path's calls."""
+    from vitadapter_torch.ops import attention as at
+
+    ok = True
+    sdpa = F.scaled_dot_product_attention
+    for name, (N, path, calls, backward) in ATTN_PATH_CASES.items():
+        shape = (1, 16, N, 64)
+        scale = 64 ** -0.5
+        q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
+                      for _ in range(4))
+        ref, ref_lse, _ = by_heads(
+            lambda *t: at.attention_plain_lse(*t, scale), q, k, v)
+        ins = [t.detach().clone().requires_grad_(backward) for t in (q, k, v)]
+        got = at.fused_attention(*ins)
+        good, err = close(got, ref, F32)
+        line = f"max_abs_err={err:.3e}"
+        checks = []
+        if backward:
+            saved_out32, saved_lse = got.grad_fn.saved_tensors[3:]
+            good_l, err_l = close(saved_lse, ref_lse, F32)
+            good_o, err_o = close(saved_out32, ref, F32)
+            got.backward(g)
+            ref_g = by_heads(lambda *t: at.attention_plain_backward(
+                *t, scale), q, k, v, g)
+            checks = [close_grad(t.grad, r) for t, r in zip(ins, ref_g)]
+            good &= good_l and good_o
+            line += (f" (saved fp32 output {err_o:.3e}, lse {err_l:.3e}); "
+                     f"grads via the autograd wrapper: max_abs_err (q, k, v)="
+                     f"{[f'{c[1]:.3e}' for c in checks]}")
+            del ref_g, saved_out32, saved_lse
+        torch.cuda.synchronize()
+        good &= all(c[0] for c in checks)
+        ok &= good
+        del got, ins, ref, ref_lse
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            if backward:
+                k_ms = time_ms(lambda: at.FusedAttentionFunction.apply(
+                    q, k, v, scale, True), flush, iters=3)
+            else:
+                k_ms = time_ms(lambda: at.fused_attention(q, k, v), flush,
+                               iters=3)
+            p_ms = time_ms(lambda: by_heads(
+                lambda *t: at.attention_plain_lse(*t, scale), q, k, v),
+                flush, iters=3)
+            lib_ms = time_ms(lambda: sdpa(q, k, v), flush, iters=3)
+            out, lse, out32 = at._kernel_forward(q, k, v, scale, backward)
+        # forward: reads q, k, v, writes the output and the log-sum-exp
+        fb = bound_ms(4 * nbytes(q) + nbytes(lse), 4 * 16 * N * N * 64, F32)
+        row = rows["attention_fwd"].setdefault("paths", {}).setdefault(
+            path, new_row())
+        add_to_row(row, calls, err, k_ms, p_ms, fb, lib_ms)
+        text = (f"attention {name} {shape} fp32 ({path}, {calls} calls): "
+                f"{line} ok={good}; forward kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
+                f"bound_ms={fb[0]:.4f} ({fb[1]})")
+        if backward:
+            with torch.no_grad():
+                kb_ms = time_ms(lambda: at._kernel_backward(
+                    q, k, v, out32, lse, g, scale), flush, iters=3)
+            pb_ms = time_ms(lambda: by_heads(
+                lambda *t: at.attention_plain_backward(*t, scale),
+                q, k, v, g), flush, iters=3)
+            lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_out = sdpa(*lib)
+            libb_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib, g, retain_graph=True), flush, iters=3)
+            # as check_attention's backward bound
+            bb = bound_ms(7 * nbytes(q) + nbytes(out32, lse),
+                          10 * 16 * N * N * 64, F32)
+            row = rows["attention_bwd"].setdefault("paths", {}).setdefault(
+                path, new_row())
+            add_to_row(row, calls, max(c[1] for c in checks), kb_ms, pb_ms,
+                       bb, libb_ms)
+            text += (f"; backward kernel_ms={kb_ms:.4f} plain_ms="
+                     f"{pb_ms:.4f} sdpa_bwd_ms={libb_ms:.4f} bound_ms="
+                     f"{bb[0]:.4f} ({bb[1]})")
+            del lib, lib_out
+        log(text)
+        del q, k, v, g, out, lse, out32
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -800,21 +968,22 @@ def check_kernels(flush):
     rows = {name: new_row(library=name not in ("msda_fwd", "msda_bwd",
                                                  "auction"))
             for name in REPLACES}
-    unported = {}
-    ok = check_msda(rows, flush, gen, unported)
+    ok = check_msda(rows, flush, gen)
     ok &= check_msda_levels(rows, flush, gen)
     ok &= check_attention(rows, flush, gen)
+    ok &= check_attention_paths(rows, flush, gen)
     ok &= check_point_sample(rows, flush, gen)
     ok &= check_auction(rows, flush, gen)
     if not ok:
         raise SystemExit("FAIL: a kernel disagrees with its plain version")
-    log("bounds of the TPU kernels not ported yet, ms per flagship bf16 "
-        "batch-2 forward at the shapes above (not launched by the JAX "
-        "dispatch by default): "
-        + json.dumps({k: [round(v[0], 6), "/".join(sorted(v[1]))]
-                      for k, v in unported.items()}))
+    log("TPU kernels covered by a ported kernel: " + json.dumps(COVERS)
+        + "; at D = 32 the flagship's 64x64 and 32x32 levels are JAX's "
+        "band-matmul levels (msda_pallas._bandmm_mode), so with "
+        "VITADAPTER_MSDA_BANDMM=1 its injector and pixel-decoder forwards "
+        "take that kernel; msda_fwd's numbers above are at those inputs")
     for r in rows.values():
-        r["bound_by"] = "/".join(sorted(r["bound_by"]))
+        for row in (r, *r.get("paths", {}).values()):
+            row["bound_by"] = "/".join(sorted(row["bound_by"]))
     return rows
 
 
@@ -1260,6 +1429,9 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    for name in ("attention_fwd", "attention_bwd"):
+        log(f"  {name}: tensor-core instructions in the built library's "
+            f"SASS: {sass_counts(cuda_ext.library_path(name))}")
 
     # phase 3: kernels against their plain versions
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -1312,13 +1484,13 @@ def main():
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",
             "replaces": REPLACES[name], "status": "ported",
+            "covers": COVERS.get(name, []),
             "launches": paths[path][name], "main_path": path,
             **{f"launches_{p}": c.get(name, 0) for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"small_level": r["small_level"]} if "small_level" in r
-               else {}),
+            **{key: r[key] for key in ("paths", "small_level") if key in r},
             "per": per + f"; launches over the {path} phase"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,13 @@
 MSDA: `vitadapter_torch.ops.msda.ms_deform_attn_plain` against
 `vitadapter.ops.msda.ms_deform_attn_core` and against the Pallas kernel
 `msda_pallas.ms_deform_attn_pallas` in TPU interpret mode, fp32, tol 1e-5.
+The band-matmul Pallas forward (`msda_pallas._forward_ml_bandmm`, off by
+default in JAX) against the same plain version, fp32, tol 1e-5.
 Attention: `attention_plain` against `fused_mha(interpret=True)` and
-`layers.attention.mha`, fp32, tol 1e-5. Plus resizing, positional encoding
-and preprocessing, and the wrappers' CPU dispatch and input checks.
+`layers.attention.mha`, fp32, tol 1e-5; the forward kernel's plain
+function's log-sum-exp against `torch.logsumexp`, 1e-6. Plus resizing,
+positional encoding and preprocessing, and the wrappers' CPU dispatch and
+input checks.
 """
 
 import jax.numpy as jnp
@@ -79,6 +83,30 @@ def test_msda_plain_matches_pallas_interpret():
                                atol=1e-5)
 
 
+def test_msda_plain_matches_bandmm_forward_interpret():
+    """`_fwd_ml_bandmm_kernel` computes `_fwd_ml_kernel`'s function; on the
+    card `msda_fwd.cu` covers it. The 32x32 level at D = 32 takes the band
+    path, the 7x9 level the flat one."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vitadapter.ops import msda_pallas
+
+    shapes = ((32, 32), (7, 9))
+    D = 32
+    assert [msda_pallas._bandmm_mode(H, W, D, msda_pallas.ML_CHUNK)
+            for H, W in shapes] == [True, False]
+    value, loc, attn = _msda_inputs("out_of_range", 9, shapes, Lq=40, M=2,
+                                    D=D)
+    with pltpu.force_tpu_interpret_mode():
+        ref = msda_pallas._forward_ml_bandmm(
+            jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn))
+    got = tmsda.ms_deform_attn_plain(torch.from_numpy(value), shapes,
+                                     torch.from_numpy(loc),
+                                     torch.from_numpy(attn))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
 def _qkv(seed, shape=(2, 3, 128, 64)):
     rng = np.random.RandomState(seed)
     return [rng.randn(*shape).astype(np.float32) for _ in range(3)]
@@ -101,6 +129,20 @@ def test_attention_plain_matches_mha(n):
     got = tattn.attention_plain(*map(torch.from_numpy, (q, k, v)), 0.125)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [128, 77])
+def test_attention_plain_lse_is_the_scores_logsumexp(n):
+    """The forward kernel's plain function returns the fp32 row
+    log-sum-exp of the scaled scores beside the output, ragged N
+    included."""
+    q, k, v = map(torch.from_numpy, _qkv(8, (2, 3, n, 64)))
+    out, lse, out32 = tattn.attention_plain_lse(q, k, v, 0.125)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, n)
+    assert out32 is out  # fp32 inputs: the output is the fp32 output
+    s = torch.matmul(q, k.transpose(-1, -2)) * 0.125
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_wrappers_take_plain_versions_on_cpu():

@@ -154,6 +154,19 @@ def test_attention_plain_backward_matches_jax(ref):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("n", [128, 77])
+def test_attention_plain_backward_lse_matches_autograd(n):
+    """The backward kernel's function, from the saved output and
+    log-sum-exp, against autograd of the plain forward (ragged N too)."""
+    q, k, v, g = map(_t, _qkvg(24, (1, 2, n, 32)))
+    scale = 32 ** -0.5
+    _, lse, out32 = tattn.attention_plain_lse(q, k, v, scale)
+    got = tattn.attention_plain_backward_lse(q, k, v, out32, lse, g, scale)
+    want = tattn.attention_plain_backward(q, k, v, g, scale)
+    for name, gt, w in zip("qkv", got, want):
+        torch.testing.assert_close(gt, w, **TOL, msg=f"d{name}")
+
+
 # --- point sampling ---------------------------------------------------------
 
 def _ps_inputs(seed, N=3, H=24, W=40, P=300, dtype=np.float32):
@@ -724,9 +737,10 @@ def _plain_kernels(monkeypatch):
     monkeypatch.setattr(tmsda, "_kernel_backward", rec(
         "msda_bwd", tmsda.ms_deform_attn_plain_backward))
     monkeypatch.setattr(tattn, "_kernel_forward", rec(
-        "attention_fwd", tattn.attention_plain))
+        "attention_fwd", lambda q, k, v, scale, for_backward:
+        tattn.attention_plain_lse(q, k, v, scale)))
     monkeypatch.setattr(tattn, "_kernel_backward", rec(
-        "attention_bwd", tattn.attention_plain_backward))
+        "attention_bwd", tattn.attention_plain_backward_lse))
     monkeypatch.setattr(tps, "_kernel_forward", rec(
         "point_sample_fwd", tps.point_sample_plain))
     monkeypatch.setattr(tps, "_kernel_backward", rec(
@@ -751,8 +765,10 @@ def test_autograd_functions_carry_the_backward_kernels_gradients(
 
     q, k, v, go = _qkvg(44, (1, 2, 40, 32))
     ins = [_t(a).requires_grad_() for a in (q, k, v)]
-    tattn.FusedAttentionFunction.apply(*ins, 0.2).backward(_t(go))
-    want = tattn.attention_plain_backward(*map(_t, (q, k, v, go)), 0.2)
+    tattn.FusedAttentionFunction.apply(*ins, 0.2, True).backward(_t(go))
+    qkv = list(map(_t, (q, k, v)))
+    _, lse, out32 = tattn.attention_plain_lse(*qkv, 0.2)
+    want = tattn.attention_plain_backward_lse(*qkv, out32, lse, _t(go), 0.2)
     for x, w in zip(ins, want):
         assert x.grad is not None
         torch.testing.assert_close(x.grad, w, rtol=0, atol=0)
@@ -764,6 +780,21 @@ def test_autograd_functions_carry_the_backward_kernels_gradients(
         _t(masks), _t(pts), _t(g)), rtol=0, atol=0)
     assert calls == ["msda_fwd", "msda_bwd", "attention_fwd",
                      "attention_bwd", "point_sample_fwd", "point_sample_bwd"]
+
+
+def test_fused_attention_output_may_be_modified_in_place(monkeypatch):
+    """fp32: the fp32 output the forward saves is not the output itself, so
+    an in-place change of the output leaves the gradient as it was."""
+    calls = _plain_kernels(monkeypatch)
+    q, k, v, go = _qkvg(47, (1, 2, 40, 32))
+    ins = [_t(a).requires_grad_() for a in (q, k, v)]
+    out = tattn.FusedAttentionFunction.apply(*ins, 0.2, True)
+    out.add_(1.0)
+    out.backward(_t(go))
+    want = tattn.attention_plain_backward(*map(_t, (q, k, v)), _t(go), 0.2)
+    for x, w in zip(ins, want):
+        torch.testing.assert_close(x.grad, w, rtol=1e-5, atol=1e-5)
+    assert calls == ["attention_fwd", "attention_bwd"]
 
 
 def test_point_sample_and_cpu_wrappers_launch_nothing():

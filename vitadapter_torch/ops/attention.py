@@ -1,16 +1,22 @@
 """Fused multi-head attention: the Hopper kernels' wrapper, with its
-gradient, and its plain version.
+gradient, and its plain versions.
 
 Counterpart of `vitadapter/ops/attention_pallas.py::fused_mha`. The kernels
-are `csrc/attention_fwd.cu` (forward) and `csrc/attention_bwd.cu` (dq, dk,
-dv; it recomputes the softmax from q, k, v as the TPU kernel does, so the
-forward saves nothing but its inputs). Layout (B, H, N, D), as in JAX.
+are `csrc/attention_fwd.cu` (the output, the row log-sum-exp and, for a
+backward, the output in fp32) and `csrc/attention_bwd.cu` (dq, dk, dv from
+q, k, v, the saved fp32 output and log-sum-exp, and the output gradient; the
+TPU kernel saves only q, k, v and recomputes the rest, which gives the same
+gradient). Layout (B, H, N, D), as in JAX.
 
-Numerics: scores, softmax and the output sum are fp32 in both versions, as in
-the TPU kernel (which also rounds the probabilities to the value dtype before
-P.V, and P and dS before its backward products; neither version here does).
-The XLA path of `layers.attention.mha` rounds the logits to the value dtype
-before its softmax, so bf16 results of the two differ by bf16 rounding.
+Numerics: scores, softmax and every sum are fp32 in all versions, as in the
+TPU kernel. The bf16 kernels run their products on the tensor cores and
+feed the probabilities P (forward and backward) and dS (backward) to them
+as bf16 hi/lo pairs, about 2^-17 relative, where the TPU kernel rounds them
+to bf16; a forward that saves for a backward also keeps its fp32 output,
+from which the backward's rowsum(dO * O) is taken. The fp32 kernels and
+the plain versions keep P and dS in fp32. The XLA path of
+`layers.attention.mha` rounds the logits to the value dtype before its
+softmax, so bf16 results of the two differ by bf16 rounding.
 """
 
 from __future__ import annotations
@@ -24,14 +30,27 @@ from vitadapter_torch.ops import cuda_ext
 HEAD_DIMS = (32, 64, 128)
 
 
+def _scores(q, k, scale):
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+
+
+def attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: Optional[float] = None):
+    """The forward kernel's function: softmax(q @ k^T * scale) @ v with fp32
+    scores, in the input dtype; the fp32 row log-sum-exp of the scaled
+    scores (B, H, N); and the output in fp32 (the same tensor for fp32
+    inputs)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, scale)
+    out32 = torch.matmul(torch.softmax(s, dim=-1), v.float())
+    return out32.to(q.dtype), torch.logsumexp(s, dim=-1), out32
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q @ k^T * scale) @ v with fp32 scores, in the input dtype."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, v.float()).to(q.dtype)
+    return attention_plain_lse(q, k, v, scale)[0]
 
 
 def attention_plain_backward(q: torch.Tensor, k: torch.Tensor,
@@ -44,6 +63,26 @@ def attention_plain_backward(q: torch.Tensor, k: torch.Tensor,
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
         out = attention_plain(q, k, v, scale)
         return torch.autograd.grad(out, (q, k, v), grad_out)
+
+
+def attention_plain_backward_lse(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, grad_out: torch.Tensor,
+                                 scale: Optional[float] = None):
+    """The backward kernel's function: (dq, dk, dv) from the forward's fp32
+    output `out` and log-sum-exp `lse`, in fp32, rounded to the input dtype:
+    P = exp(S - lse), delta = rowsum(dO * out), dS = P (dP - delta)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    g = grad_out.float()
+    p = torch.exp(_scores(q, k, scale) - lse[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    delta = (g * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -62,51 +101,77 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                              "takes q, k, v of one (B, H, N, D) shape")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the bf16 kernels load it by TMA)")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
 
 
-def _kernel_forward(q, k, v, scale: float) -> torch.Tensor:
+def _kernel_forward(q, k, v, scale: float, for_backward: bool = False):
+    """`attention_fwd.cu`: (the output in the input dtype, the fp32 row
+    log-sum-exp (B, H, N), the output in fp32 or None). The fp32 output is
+    the output itself for fp32 inputs; for bf16 ones the kernel writes it
+    only `for_backward`."""
     B, H, N, D = q.shape
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    out32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+             if bf16 and for_backward else None)
     cuda_ext.launch("attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), B * H, N, D, float(scale),
-                    int(q.dtype == torch.bfloat16))
-    return out
+                    v.data_ptr(), out.data_ptr(),
+                    None if out32 is None else out32.data_ptr(),
+                    lse.data_ptr(), B * H, N, D, float(scale), int(bf16))
+    return out, lse, (out32 if bf16 else out)
 
 
-def _kernel_backward(q, k, v, grad_out, scale: float):
-    """`attention_bwd.cu`: (dq, dk, dv) in the input dtype."""
+def _kernel_backward(q, k, v, out32, lse, grad_out, scale: float):
+    """`attention_bwd.cu`: (dq, dk, dv) in the input dtype, from the
+    forward's fp32 output and log-sum-exp."""
     if grad_out.shape != q.shape or grad_out.dtype != q.dtype:
         raise ValueError(f"output gradient {tuple(grad_out.shape)} "
                          f"{grad_out.dtype} must match q {tuple(q.shape)} "
                          f"{q.dtype}")
+    if (out32.shape != q.shape or lse.shape != q.shape[:3]
+            or out32.dtype != torch.float32 or lse.dtype != torch.float32):
+        raise ValueError("the saved output and log-sum-exp must be fp32 of "
+                         "shapes (B, H, N, D) and (B, H, N)")
     grad_out = grad_out.contiguous()
+    check_kernel_inputs(q, grad_out, grad_out)
     B, H, N, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # row log-sum-exp and rowsum(dO * O), fp32
-    stats = torch.empty((B * H, N, 2), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B * H, N), dtype=torch.float32, device=q.device)
     cuda_ext.launch("attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), grad_out.data_ptr(), dq.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B * H, N,
-                    D, float(scale), int(q.dtype == torch.bfloat16))
+                    v.data_ptr(), out32.data_ptr(), lse.data_ptr(),
+                    grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), delta.data_ptr(), B * H, N, D,
+                    float(scale), int(q.dtype == torch.bfloat16))
     return dq, dk, dv
 
 
 class FusedAttentionFunction(torch.autograd.Function):
     """The kernels with their gradient (counterpart of `fused_mha`'s
-    `jax.custom_vjp`)."""
+    `jax.custom_vjp`). `for_backward`: a backward may follow, so the
+    forward saves q, k, v, its fp32 output and its log-sum-exp. For fp32
+    inputs the saved fp32 output is a copy of the output, so the caller
+    may modify the output in place."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, for_backward):
         ctx.scale = scale
-        ctx.save_for_backward(q, k, v)
-        return _kernel_forward(q, k, v, scale)
+        out, lse, out32 = _kernel_forward(q, k, v, scale, for_backward)
+        if for_backward:
+            if out32 is out:
+                out32 = out.clone()
+            ctx.save_for_backward(q, k, v, out32, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        return (*_kernel_backward(q, k, v, grad_out, ctx.scale), None)
+        q, k, v, out32, lse = ctx.saved_tensors
+        return (*_kernel_backward(q, k, v, out32, lse, grad_out, ctx.scale),
+                None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,4 +185,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
     check_kernel_inputs(q, k, v)
-    return FusedAttentionFunction.apply(q, k, v, float(scale))
+    for_backward = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return FusedAttentionFunction.apply(q, k, v, float(scale), for_backward)

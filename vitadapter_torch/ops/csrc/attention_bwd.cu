@@ -5,103 +5,122 @@
 // of one (batch, head) in VMEM from q, k, v and emits dq, dk, dv.
 //
 // What bounds it on an H100: operations. At the flagship shape (N = 1024,
-// 16 heads, D = 64) a call does about 10 N^2 D = 10.7 GFLOP per image
-// (recompute q k^T, then dv = P^T do, dP = do v^T, dq = dS k, dk = dS^T q)
-// against 14.7 MB of q/k/v/do/dq/dk/dv, about 700 FLOP per byte.
+// 16 heads, D = 64) the gradient needs about 10 N^2 D = 10.7 GFLOP per image
+// (S = q k^T again, dP = dO v^T, dv = P^T dO, dq = dS k, dk = dS^T q)
+// against 18.9 MB of q/k/v/dO/dq/dk/dv (bf16) and O (fp32), about 570 FLOP
+// per byte.
 //
-// Design: flash-attention style, in two kernels launched back to back, so
-// that neither needs atomics and nothing (N, N) leaves the SM; the forward
-// saves nothing but q, k, v (as the TPU kernel).
-//   1. attention_bwd_dq, one block per (batch * head, 64-query tile): pass 1
-//      re-runs the forward's online softmax over all key tiles, giving the
-//      row log-sum-exp and the fp32 output O; D_i = rowsum(dO * O). Both go
-//      to a small fp32 scratch (B * H, N, 2). Pass 2 walks the key tiles
-//      again: P = exp(s - lse), dP = dO v^T, dS = P (dP - D),
-//      dq += dS k.
-//   2. attention_bwd_dkdv, one block per (batch * head, 64-key tile): walks
-//      the query tiles, recomputes P and dS from the saved lse and D, and
-//      accumulates dv += P^T dO and dk += dS^T q in registers.
-// 256 threads as a 16 x 16 grid, each owning a 4 x 4 patch of a 64 x 64
-// score tile and a 4 x D/16 patch of its output tile, as in
-// attention_fwd.cu. Inputs are widened to fp32 in shared memory and every
-// product is an fp32 FMA on the CUDA cores: no tensor cores yet. The
-// scores, P, dP, dS and D stay fp32; the TPU kernel rounds P and dS to the
-// value dtype before its products (attention_pallas.py:85, :94). Keys past N
-// get P = 0; query rows past N have zero q and dO and are not written.
+// The forward saves its output O in fp32 and the row log-sum-exp (lse,
+// fp32); the TPU kernel saves only q, k, v and recomputes both. Keeping
+// them is a card-side choice that leaves the gradient the same function and
+// spares the backward a pass over all keys. Three launches behind one entry
+// point, in order on the caller's stream, none with atomics:
+//   0. attention_bwd_delta: delta_i = rowsum(dO * O), fp32, a warp per row;
+//   1. dq, one CTA per (batch * head, 64-query tile), walking the key
+//      tiles: P = exp(S - lse), dS = P (dP - delta), dq += dS k;
+//   2. dk and dv, one CTA per (batch * head, 64-key tile), walking the
+//      query tiles: dv += P^T dO, dk += dS^T q.
+// Deterministic: every output element is summed by one thread in a fixed
+// order.
 //
-// Determinism: deterministic. Every output element is summed by one thread
-// in a fixed order; no atomics.
+// Design, bf16 (the main path): one warpgroup (128 threads) per CTA, every
+// product on the tensor cores by wgmma, staged as in attention_fwd.cu: TMA
+// loads the CTA's own two tiles once and streams the other side's two
+// tiles through a 2-stage ring of mbarrier-completed stages (sm90.cuh).
+// S and dP (dq kernel) or S^T and dP^T (dk/dv kernel, keys as the rows) are
+// wgmma products of two shared-memory tiles. P and dS stay in registers as
+// the A operands of dq += dS k, dv += P^T dO and dk += dS^T q. Their inputs
+// are bf16 already, so S and dP are exact products summed in fp32.
 //
-// Layouts (all contiguous): q, k, v, dout, dq, dk, dv (B * H, N, D), bf16 or
-// fp32; stats (B * H, N, 2) fp32 scratch (lse, D).
+// Numerics, bf16: P and dS are fp32 values that wgmma can only take as
+// bf16. The TPU kernel rounds them to bf16 (attention_pallas.py:85, :94),
+// about 1e-3 of a typical gradient element, which breaks the card's 1e-5 x
+// max floor on elements near zero. Here each is fed as a hi/lo pair, hi =
+// bf16(x), lo = bf16(x - hi): two products per such GEMM, about 2^-17
+// relative. delta reads O in fp32: from a bf16 O its error (about 2^-9 of
+// O's elements, summed over D) moves dq and dk by more than that floor.
+//
+// fp32 keeps the CUDA-core kernels (256 threads as a 16 x 16 grid over 64 x
+// 64 tiles, fp32 FMAs; TF32 would miss the fp32 tolerance), reading the
+// saved lse and delta as the bf16 kernels do.
+//
+// Layouts (all contiguous): q, k, v, dout, dq, dk, dv (B * H, N, D), bf16
+// or fp32; o (B * H, N, D) fp32; lse, delta (B * H, N) fp32 (delta is
+// scratch, written here).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "sm90.cuh"
 
-constexpr int kB = 64;  // query rows or keys per tile
-constexpr int kThreads = 256;
+namespace {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+
+// ---- 0. delta = rowsum(dO * O) -------------------------------------------
+
+constexpr int kDeltaWarps = 8;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * kDeltaWarps)
+attention_bwd_delta(const float* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, long long rows) {
+  const long long row =
+      (long long)blockIdx.x * kDeltaWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  float sum = 0.f;
+#pragma unroll
+  for (int c = lane; c < D; c += 32)
+    sum = fmaf(o[row * D + c], to_float(dout[row * D + c]), sum);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) delta[row] = sum;
 }
 
-// sum over the 16 threads of a tile row: lanes 0-15 or 16-31 of one warp
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
+// ---- fp32: CUDA cores ----------------------------------------------------
+
+constexpr int kB = 64;  // query rows or keys per tile
+constexpr int kThreads = 256;
 
 // rows [r0, r0 + 64) of a (N, D) matrix into a (64, D + 1) fp32 tile, zero
 // past N
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int N, int tid) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int N, int tid) {
   constexpr int DP = D + 1;
   for (int idx = tid; idx < kB * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int gr = r0 + r;
-    dst[r * DP + c] = gr < N ? to_float(src[(long long)gr * D + c]) : 0.f;
+    dst[r * DP + c] = gr < N ? src[(long long)gr * D + c] : 0.f;
   }
 }
 
 template <int D>
 constexpr int dq_smem_floats() {
-  // Q, dO, K, V tiles padded by one word per row; P / dS tile padded
+  // Q, dO, K, V tiles padded by one word per row; dS tile padded
   return 4 * kB * (D + 1) + kB * (kB + 1);
 }
 
 template <int D>
 constexpr int dkdv_smem_floats() {
-  // K, V, Q, dO tiles; P and dS tiles; lse and D of the query tile
+  // K, V, Q, dO tiles; P and dS tiles; lse and delta of the query tile
   return 4 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 T* __restrict__ dq, float* __restrict__ stats, int N,
-                 int n_tiles, float scale) {
+attention_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int N, int n_tiles, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
   constexpr int DC = D / 16;
@@ -119,106 +138,25 @@ attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (blockIdx.x % n_tiles) * kB;
   const long long base = bh * (long long)N * D;
 
-  load_tile<T, D>(Qs, q + base, q0, N, tid);
-  load_tile<T, D>(dOs, dout + base, q0, N, tid);
+  load_tile<D>(Qs, q + base, q0, N, tid);
+  load_tile<D>(dOs, dout + base, q0, N, tid);
 
-  // pass 1: the forward's online softmax, for lse and O
-  float acc[4][DC];
-  float m_i[4], l_i[4];
+  float acc[4][DC];  // dq
+  float lr[4], dr[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
+    const int r = q0 + ty + 16 * i;
+    lr[i] = r < N ? lse[bh * N + r] : 0.f;  // rows past N: zero q and dO
+    dr[i] = r < N ? delta[bh * N + r] : 0.f;
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
+
+  // dS = P (dP - delta), dq += dS k
   for (int k0 = 0; k0 < N; k0 += kB) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, k + base, k0, N, tid);
-    load_tile<T, D>(Vs, v + base, k0, N, tid);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = k0 + tx + 16 * j < N;
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);  // finite: the first key of every tile is < N
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
-      }
-      l_i[i] = l_i[i] * alpha + row_sum(sum);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      float pa[4], vb[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty + 16 * i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) vb[j] = Vs[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
-    }
-  }
-
-  // lse and D = rowsum(dO * O), O in fp32
-  float lse[4], Dr[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float inv = 1.f / l_i[i];
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j)
-      part = fmaf(dOs[r * DP + tx + 16 * j], acc[i][j] * inv, part);
-    Dr[i] = row_sum(part);
-    lse[i] = m_i[i] + logf(l_i[i]);
-    if (tx == 0 && q0 + r < N) {
-      float* st = stats + (bh * (long long)N + q0 + r) * 2;
-      st[0] = lse[i];
-      st[1] = Dr[i];
-    }
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;  // now dq
-  }
-
-  // pass 2: dS = P (dP - D), dq += dS k
-  for (int k0 = 0; k0 < N; k0 += kB) {
-    __syncthreads();
-    load_tile<T, D>(Ks, k + base, k0, N, tid);
-    load_tile<T, D>(Vs, v + base, k0, N, tid);
+    load_tile<D>(Ks, k + base, k0, N, tid);
+    load_tile<D>(Vs, v + base, k0, N, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
 #pragma unroll
@@ -251,8 +189,8 @@ attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool ok = k0 + tx + 16 * j < N;
-        const float p = ok ? expf(s[i][j] * scale - lse[i]) : 0.f;
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p * (dp[i][j] - Dr[i]);
+        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
+        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p * (dp[i][j] - dr[i]);
       }
     __syncthreads();
 #pragma unroll 4
@@ -273,19 +211,22 @@ attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= N) continue;
-    T* o = dq + base + (long long)r * D;
+    float* o = dq + base + (long long)r * D;
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      o[tx + 16 * j] = from_float<T>(acc[i][j] * scale);
+    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ stats, T* __restrict__ dk,
-                   T* __restrict__ dv, int N, int n_tiles, float scale) {
+attention_bwd_dkdv_f32(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv, int N,
+                       int n_tiles, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kB + 1;
   constexpr int DC = D / 16;
@@ -306,8 +247,8 @@ attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = (blockIdx.x % n_tiles) * kB;
   const long long base = bh * (long long)N * D;
 
-  load_tile<T, D>(Ks, k + base, k0, N, tid);
-  load_tile<T, D>(Vs, v + base, k0, N, tid);
+  load_tile<D>(Ks, k + base, k0, N, tid);
+  load_tile<D>(Vs, v + base, k0, N, tid);
   bool key_ok[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) key_ok[j] = k0 + tx + 16 * j < N;
@@ -320,13 +261,12 @@ attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = 0; q0 < N; q0 += kB) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Qs, q + base, q0, N, tid);
-    load_tile<T, D>(dOs, dout + base, q0, N, tid);
+    load_tile<D>(Qs, q + base, q0, N, tid);
+    load_tile<D>(dOs, dout + base, q0, N, tid);
     if (tid < kB) {
       const int gr = q0 + tid;
-      const float* st = stats + (bh * (long long)N + gr) * 2;
-      lse_s[tid] = gr < N ? st[0] : INFINITY;  // P = 0 on padded rows
-      D_s[tid] = gr < N ? st[1] : 0.f;
+      lse_s[tid] = gr < N ? lse[bh * N + gr] : INFINITY;  // P = 0 past N
+      D_s[tid] = gr < N ? delta[bh * N + gr] : 0.f;
     }
     __syncthreads();
     // tile (query row ty + 16 i, key tx + 16 j)
@@ -397,87 +337,344 @@ attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = k0 + ty + 16 * i;
     if (r >= N) continue;
-    T* ok = dk + base + (long long)r * D;
-    T* ov = dv + base + (long long)r * D;
+    float* ok = dk + base + (long long)r * D;
+    float* ov = dv + base + (long long)r * D;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
-      ok[tx + 16 * j] = from_float<T>(dka[i][j] * scale);
-      ov[tx + 16 * j] = from_float<T>(dva[i][j]);
+      ok[tx + 16 * j] = dka[i][j] * scale;
+      ov[tx + 16 * j] = dva[i][j];
     }
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *o, *lse;
+  void *dq, *dk, *dv;
+  float* delta;
+  int BH, N;
+  float scale;
+};
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, void* dq, void* dk, void* dv,
-                   float* stats, int BH, int N, float scale,
-                   cudaStream_t stream) {
-  const int n_tiles = (N + kB - 1) / kB;
-  const long long blocks = (long long)BH * n_tiles;
+cudaError_t launch_delta(const Args& a, cudaStream_t stream) {
+  const long long rows = (long long)a.BH * a.N;
+  const long long blocks = (rows + kDeltaWarps - 1) / kDeltaWarps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  const T* oo = static_cast<const T*>(dout);
+  attention_bwd_delta<T, D><<<(unsigned)blocks, 32 * kDeltaWarps, 0,
+                              stream>>>(a.o, static_cast<const T*>(a.dout),
+                                        a.delta, rows);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  const int n_tiles = (a.N + kB - 1) / kB;
+  const long long blocks = (long long)a.BH * n_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = launch_delta<float, D>(a, stream);
+  if (err != cudaSuccess) return err;
+  const float* qq = static_cast<const float*>(a.q);
+  const float* kk = static_cast<const float*>(a.k);
+  const float* vv = static_cast<const float*>(a.v);
+  const float* oo = static_cast<const float*>(a.dout);
 
   const size_t smem_dq = sizeof(float) * dq_smem_floats<D>();
-  auto kdq = attention_bwd_dq<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dq);
+  auto kdq = attention_bwd_dq_f32<D>;
+  err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_dq);
   if (err != cudaSuccess) return err;
   kdq<<<(unsigned)blocks, kThreads, smem_dq, stream>>>(
-      qq, kk, vv, oo, static_cast<T*>(dq), stats, N, n_tiles, scale);
+      qq, kk, vv, oo, a.lse, a.delta, static_cast<float*>(a.dq), a.N,
+      n_tiles, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const size_t smem_kv = sizeof(float) * dkdv_smem_floats<D>();
-  auto kkv = attention_bwd_dkdv<T, D>;
-  err = cudaFuncSetAttribute(
-      kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  auto kkv = attention_bwd_dkdv_f32<D>;
+  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_kv);
   if (err != cudaSuccess) return err;
   kkv<<<(unsigned)blocks, kThreads, smem_kv, stream>>>(
-      qq, kk, vv, oo, stats, static_cast<T*>(dk), static_cast<T*>(dv), N,
-      n_tiles, scale);
+      qq, kk, vv, oo, a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.N, n_tiles, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* dout, void* dq, void* dk, void* dv,
-                     float* stats, int BH, int N, int D, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, dout, dq, dk, dv, stats, BH, N, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, dq, dk, dv, stats, BH, N, scale,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, dq, dk, dv, stats, BH, N, scale,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---- bf16: tensor cores --------------------------------------------------
+
+constexpr int kRows = 64;   // rows of every tile
+constexpr int kTcThreads = 128;
+// the CTA's own two tiles, a 2-stage ring of the streamed side's tile
+// pairs, and the streamed query tile's lse and delta (dk/dv kernel)
+template <int D>
+using BwdStaging = sm90::Staging<D, 2, 2, 2 * kRows * 4>;
+
+// acc (64 x 64) = A B^T + C D^T over the inner dimension D: two products
+// of K-major shared-memory tiles, into zeroed accumulators
+template <int D>
+__device__ __forceinline__ void two_products(float (&x)[32], uint32_t a,
+                                             uint32_t b, float (&y)[32],
+                                             uint32_t c, uint32_t d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = y[i] = 0.f;
+  sm90::fence_regs(x);
+  sm90::fence_regs(y);
+  sm90::wg_fence();
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t)
+    sm90::mma_ss_n64(x, sm90::desc_k<D, kRows>(a, t),
+                     sm90::desc_k<D, kRows>(b, t));
+#pragma unroll
+  for (int t = 0; t < D / 16; ++t)
+    sm90::mma_ss_n64(y, sm90::desc_k<D, kRows>(c, t),
+                     sm90::desc_k<D, kRows>(d, t));
+  sm90::wg_commit();
+}
+
+// acc (64 x D) += X B, X (64 x 64) from the registers x as hi/lo bf16
+// pairs, B a (64, D) MN-major shared-memory tile; issued, not waited for
+template <int D, int NC, int NW>
+__device__ __forceinline__ void split_product(float (&acc)[NC][NW],
+                                              const float (&x)[32],
+                                              uint32_t b) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) sm90::frag_hi_lo(x, kk, hi[kk], lo[kk]);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) sm90::fence_regs(acc[c]);
+  sm90::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const uint64_t bd = sm90::desc_mn<D, kRows>(b, kk, c);
+      sm90::mma_rs(acc[c], hi[kk], bd);
+      sm90::mma_rs(acc[c], lo[kk], bd);
+    }
+  sm90::wg_commit();
+}
+
+// rows < N of a (64, D) accumulator times `mul`, as bf16
+template <int NC, int NW, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[NC][NW],
+                                           __nv_bfloat16* __restrict__ dst,
+                                           int r0, int N, float mul) {
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= N) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < NW / 4; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * D + c * 64 +
+                                           8 * j + col0) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * h] * mul,
+                                  acc[c][4 * j + 2 * h + 1] * mul);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+attention_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int N, int n_tiles,
+                      float scale) {
+  using T = sm90::Tile<D, kRows>;
+  constexpr int NC = D == 128 ? 2 : 1;
+  constexpr int NW = D == 32 ? 16 : 32;
+  extern __shared__ uint8_t smem_raw[];
+  BwdStaging<D> ring(smem_raw);
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * kRows;
+  // own: Q, dO; ring: K, V
+  if (threadIdx.x == 0) ring.start(&tq, &tdo, q0, &tk, &tv, bh, n_tiles);
+
+  const int lane = threadIdx.x & 31;
+  const int row = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const float sl2 = scale * sm90::kLog2e;
+  float l2[2], dl[2];  // rows row, row + 8: lse (base 2) and delta
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;  // rows past N: zero q and dO, not stored
+    l2[h] = r < N ? lse[(long long)bh * N + r] * sm90::kLog2e : 0.f;
+    dl[h] = r < N ? delta[(long long)bh * N + r] : 0.f;
+  }
+  float acc[NC][NW];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < NW; ++i) acc[c][i] = 0.f;
+
+  ring.wait_own();
+  const uint32_t qs = ring.own(0), dos = ring.own(1);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const uint32_t ks = ring.wait(kt);
+    const uint32_t vs = ks + T::BYTES;
+    float sc[32], dp[32];
+    two_products<D>(sc, qs, ks, dp, dos, vs);  // S = Q K^T, dP = dO V^T
+    sm90::wg_wait_all();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    const bool ragged = (kt + 1) * kRows > N;  // keys past N: P = 0
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = sm90::ex2(fmaf(sc[i], sl2, -l2[h]));
+      if (ragged && kt * kRows + 8 * (i >> 2) + col0 + (i & 1) >= N) p = 0.f;
+      sc[i] = p * (dp[i] - dl[h]);  // dS
+    }
+    split_product<D>(acc, sc, ks);  // dq += dS K
+    sm90::wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) sm90::fence_regs(acc[c]);
+    ring.refill(&tk, &tv, kt, bh, n_tiles);
+  }
+  store_rows<NC, NW, D>(acc, dq + (long long)bh * N * D, q0, N, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+attention_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int N, int n_tiles,
+                        float scale) {
+  using T = sm90::Tile<D, kRows>;
+  constexpr int NC = D == 128 ? 2 : 1;
+  constexpr int NW = D == 32 ? 16 : 32;
+  extern __shared__ uint8_t smem_raw[];
+  BwdStaging<D> ring(smem_raw);
+  const int bh = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x % n_tiles) * kRows;
+  // own: K, V; ring: Q, dO
+  if (threadIdx.x == 0) ring.start(&tk, &tv, k0, &tq, &tdo, bh, n_tiles);
+  float* l2_s = reinterpret_cast<float*>(ring.extra());
+  float* dl_s = l2_s + kRows;
+
+  const int tid = threadIdx.x;
+  const int col0 = 2 * (tid & 3);
+  const float sl2 = scale * sm90::kLog2e;
+  float dka[NC][NW], dva[NC][NW];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < NW; ++i) dka[c][i] = dva[c][i] = 0.f;
+
+  ring.wait_own();
+  const uint32_t ks = ring.own(0), vs = ring.own(1);
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    if (tid < kRows) {  // the previous tile's readers passed ring.refill
+      const int r = qt * kRows + tid;
+      l2_s[tid] = r < N ? lse[(long long)bh * N + r] * sm90::kLog2e
+                        : INFINITY;  // P = 0 for queries past N
+      dl_s[tid] = r < N ? delta[(long long)bh * N + r] : 0.f;
+    }
+    const uint32_t qs = ring.wait(qt);
+    const uint32_t dos = qs + T::BYTES;
+    // keys as rows: S^T = K Q^T, dP^T = V dO^T
+    float st[32], dpt[32];
+    two_products<D>(st, ks, qs, dpt, vs, dos);
+    __syncthreads();  // l2_s, dl_s written
+    sm90::wg_wait_all();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+    // register i holds (key row, query 8 (i >> 2) + col0 + (i & 1))
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i >> 2) + col0 + (i & 1);
+      st[i] = sm90::ex2(fmaf(st[i], sl2, -l2_s[c]));  // P^T
+      dpt[i] = st[i] * (dpt[i] - dl_s[c]);   // dS^T
+    }
+    split_product<D>(dva, st, dos);  // dv += P^T dO
+    sm90::wg_wait_all();
+    split_product<D>(dka, dpt, qs);  // dk += dS^T Q
+    sm90::wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      sm90::fence_regs(dva[c]);
+      sm90::fence_regs(dka[c]);
+    }
+    ring.refill(&tq, &tdo, qt, bh, n_tiles);
+  }
+  store_rows<NC, NW, D>(dka, dk + (long long)bh * N * D, k0, N, scale);
+  store_rows<NC, NW, D>(dva, dv + (long long)bh * N * D, k0, N, 1.f);
+}
+
+template <int D>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!sm90::make_map<D, kRows>(&mq, a.q, a.BH, a.N) ||
+      !sm90::make_map<D, kRows>(&mk, a.k, a.BH, a.N) ||
+      !sm90::make_map<D, kRows>(&mv, a.v, a.BH, a.N) ||
+      !sm90::make_map<D, kRows>(&mdo, a.dout, a.BH, a.N))
+    return cudaErrorInvalidValue;
+  const int n_tiles = (a.N + kRows - 1) / kRows;
+  const long long blocks = (long long)a.BH * n_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = launch_delta<__nv_bfloat16, D>(a, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = BwdStaging<D>::BYTES;
+
+  auto kdq = attention_bwd_dq_bf16<D>;
+  err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  kdq<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq),
+      a.N, n_tiles, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kkv = attention_bwd_dkdv_bf16<D>;
+  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  kkv<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.N, n_tiles, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const Args& a, int is_bf16, cudaStream_t stream) {
+  return is_bf16 ? launch_bf16<D>(a, stream) : launch_f32<D>(a, stream);
 }
 
 }  // namespace
 
-// stats: an fp32 scratch of BH * N * 2 floats. Returns a cudaError_t.
+// o, lse: the forward's output in fp32 and its row log-sum-exp; delta: an
+// fp32 scratch of BH * N floats. Returns a cudaError_t.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
+                             const void* o, const void* lse,
                              const void* dout, void* dq, void* dk, void* dv,
-                             void* stats, int BH, int N, int D, float scale,
+                             void* delta, int BH, int N, int D, float scale,
                              int is_bf16, void* stream) {
   if (BH < 0 || N < 0) return (int)cudaErrorInvalidValue;
   if ((long long)BH * N == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* st = static_cast<float*>(stats);
-  cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, st, BH, N,
-                                        D, scale, s)
-              : dispatch<float>(q, k, v, dout, dq, dk, dv, st, BH, N, D,
-                                scale, s);
-  return (int)err;
+  const Args a{q,  k,  v,  dout, static_cast<const float*>(o),
+               static_cast<const float*>(lse), dq, dk, dv,
+               static_cast<float*>(delta), BH, N, scale};
+  switch (D) {
+    case 32: return (int)launch<32>(a, is_bf16, s);
+    case 64: return (int)launch<64>(a, is_bf16, s);
+    case 128: return (int)launch<128>(a, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* attention_bwd_error_string(int code) {

@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface and loaded with `ctypes`. Nothing is
 built when a module is imported: the first launch of a kernel builds its
-library into `vitadapter_torch/_build/` (named by a hash of its source and
-flags, so an edited source builds anew), and `build()` compiles several
-sources in parallel, one `nvcc` each.
+library into `vitadapter_torch/_build/` (named by a hash of its source,
+the shared headers `csrc/*.cuh` and the flags, so an edited source builds
+anew), and `build()` compiles several sources in parallel, one `nvcc` each.
 
 `launches` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show which kernels its
@@ -42,8 +42,8 @@ SIGNATURES = {
     "msda_level_fwd": [_P] * 4 + [_I] * 12 + [_P],
     "msda_level_dv": [_P] * 4 + [_I] * 12 + [_P],
     "msda_level_dgrid": [_P] * 6 + [_I] * 12 + [_P],
-    "attention_fwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
-    "attention_bwd": [_P] * 8 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    "attention_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    "attention_bwd": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _P],
     "point_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "point_sample_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "auction": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
@@ -70,7 +70,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every shared header in csrc/
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Card time of one checkout's attention beside SDPA, on `chip_smoke.py`'s
+clock, so that two commits can be compared on one card.
+
+Run on a machine with one NVIDIA H100, once per checkout, one after
+another on the same card (order A, B, B, A):
+
+    python3 vitadapter_torch/tools/attention_ab.py CHECKOUT
+
+CHECKOUT is the root of a checkout of this repository whose
+`vitadapter_torch.ops.attention` has `fused_attention` (this one, or an
+older commit unpacked with `git archive`); its kernels build there. The
+clock (`chip_smoke.time_ms`: CUDA events, L2 flushed and the launches
+queued before each call) is this file's own checkout's, so both commits are
+timed alike.
+At the flagship's shape (2, 16, 1024, 64) bf16 it times, per call, the
+forward without a gradient (`fused_attention`) and the backward through
+autograd (`torch.autograd.grad` of `fused_attention`'s output), and
+`scaled_dot_product_attention` both ways. Prints the card's name and power
+limit, then one JSON line.
+"""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SHAPE = (2, 16, 1024, 64)
+ITERS = 20
+
+
+def main(argv=None):
+    args = sys.argv[1:] if argv is None else argv
+    if len(args) != 1:
+        raise SystemExit(__doc__)
+    root = os.path.abspath(args[0])
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: no CUDA device")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_clock", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sys.path.insert(0, root)
+    from vitadapter_torch.ops import attention as at
+    if not at.__file__.startswith(root + os.sep):
+        raise SystemExit(f"FAIL: imported {at.__file__}, not from {root}")
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0])
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v, g = (torch.randn(*SHAPE, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = at.fused_attention(*ins)
+    lib_out = F.scaled_dot_product_attention(*lib)
+    with torch.no_grad():
+        ms = {"fwd_ms": smoke.time_ms(lambda: at.fused_attention(q, k, v),
+                                      flush, ITERS),
+              "sdpa_ms": smoke.time_ms(
+                  lambda: F.scaled_dot_product_attention(q, k, v), flush,
+                  ITERS)}
+    ms["bwd_ms"] = smoke.time_ms(lambda: torch.autograd.grad(
+        out, ins, g, retain_graph=True), flush, ITERS)
+    ms["sdpa_bwd_ms"] = smoke.time_ms(lambda: torch.autograd.grad(
+        lib_out, lib, g, retain_graph=True), flush, ITERS)
+    print(json.dumps({"checkout": root, "shape": SHAPE, **ms,
+                      "fwd_ratio": ms["fwd_ms"] / ms["sdpa_ms"],
+                      "bwd_ratio": ms["bwd_ms"] / ms["sdpa_bwd_ms"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
