@@ -47,8 +47,12 @@ Phases (each failure exits non-zero; nothing is caught):
 Phase 3 also holds the per-level MSDA kernels against their plain versions,
 and the per-level route against the fused kernels, at the shapes of every
 MSDA call that takes that route in phases 8 and 9 (and at a few thousand
-queries in fp32 and bf16), and the fp32 attention at the lengths phases 8
-and 9 give it. The last two lines are a JSON object of the
+queries in fp32 and bf16), on uniform locations and on locations shaped as
+the model makes them (`msda_model_locations`; msda_level_fwd and _dgrid
+timed there too, under `model_shaped`, and launched twice for bitwise-equal
+outputs), and at other P, widths and a misaligned value
+(`LEVEL_LAYOUTS`); and the fp32 attention at the lengths phases 8 and 9
+give it. The last two lines are a JSON object of the
 kernels' numbers (with the TPU kernels each one covers besides the one it
 replaces) and {"ok": true, "device": {...}}.
 """
@@ -151,6 +155,30 @@ LEVEL_GEOMETRIES = {
     "pixel_decoder_r1.5": (R15, 4096, 32, (F32, BF16), None),
     "small_level": (((32, 32), (96, 192), (192, 384)), 4096, 32, (F32, BF16),
                     None),
+}
+# where each geometry's queries sit, for the model-shaped locations
+# (`msda_model_locations`): None, the value's own cells (the pixel decoder);
+# (h, w), a grid of h * w queries (the injectors' 1/16 token grid, or a
+# 64x64 grid off the paths)
+LEVEL_QUERY_GRID = {
+    "eval_pixel_decoder": None, "eval_injector": (96, 192),
+    "overline_pixel_decoder": None, "overline_injector": (112, 112),
+    "pixel_decoder_r1.5": (64, 64), "small_level": (64, 64),
+}
+# the per-level kernels off the paths' layout (P 4, D 32, 16-byte aligned),
+# fp32 and bf16 each: name: (spatial shapes, query grid, heads, D, P, the
+# value 2 or 4 bytes off 16-byte alignment). Rows of 20 fp32 leave a ragged
+# team (5 chunks on 8 lanes) and 20 bf16 take the scalar instantiation;
+# 64 wide rows take 16 (fp32) or 8 (bf16) lanes a (query, head), 8 wide
+# rows 2 or 1 (then P 2 takes two rounds of points); a misaligned value
+# takes the scalar instantiation
+LEVEL_LAYOUTS = {
+    "P3": (R15, (64, 64), 32, 32, 3, False),
+    "ragged_d20": (((12, 20), (24, 40)), (16, 32), 4, 20, 4, False),
+    "d64_P3": (((12, 20), (24, 40)), (16, 32), 4, 64, 3, False),
+    "d8_P2": (((12, 20), (24, 40)), (16, 32), 4, 8, 2, False),
+    "misaligned_d32_P5": (((12, 20), (24, 40)), (16, 32), 4, 32, 5, True),
+    "misaligned_d64": (((12, 20), (24, 40)), (16, 32), 4, 64, 4, True),
 }
 # the table row of each per-level kernel comes from its main path's calls
 LEVEL_ROW_PATH = {"msda_level_fwd": "eval_whole",
@@ -317,15 +345,19 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def new_row(library=True):
-    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                library_ms=0.0 if library else None, bound_by=set())
+def new_row(library=True, plain=True):
+    row = dict(max_abs_err=0.0, ms=0.0, bound_ms=0.0,
+               library_ms=0.0 if library else None, bound_by=set())
+    if plain:
+        row["plain_ms"] = 0.0
+    return row
 
 
 def add_to_row(row, calls, err, k_ms, p_ms, b, lib_ms=None):
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row["ms"] += calls * k_ms
-    row["plain_ms"] += calls * p_ms
+    if p_ms is not None:
+        row["plain_ms"] += calls * p_ms
     row["bound_ms"] += calls * b[0]
     row["bound_by"].add(b[1])
     if lib_ms is not None:
@@ -350,6 +382,46 @@ def msda_inputs(shapes, Lq, M, dtype, gen, B=2, D=32, P=4):
                                      device=dev), -1).reshape(B, Lq, M, L, P)
     g = torch.randn(B, Lq, M * D, generator=gen, device=dev).to(dtype)
     return value, loc.contiguous(), attn.contiguous(), g
+
+
+def msda_model_locations(shapes, grid, M, P, gen, device="cuda", B=1):
+    """Sampling locations (B, Lq, M, L, P, 2) shaped as the model makes
+    them: each query's reference point, plus `msda.msda_grid_init(M, L, P)`'s
+    offsets (head h along angle 2 pi h / M, point p at p + 1 pixels) and
+    N(0, 1) pixels of noise, over the level's (W, H). `grid` None: the
+    queries are the value's cells, level by level, each at its own cell's
+    centre (the pixel decoder); (h, w): the cell centres of an h x w grid
+    (the injectors' 1/16 token grid). About 10% of the points are snapped
+    to integer pixel coordinates (loc * size - 0.5 integer) and about 2%
+    moved onto a border cell (one coordinate into the map's first or last
+    cell). `gen` is a generator on `device`."""
+    from vitadapter_torch.ops import msda
+
+    L = len(shapes)
+    refs = []
+    for h, w in (shapes if grid is None else (grid,)):
+        y, x = torch.meshgrid((torch.arange(h, device=device) + 0.5) / h,
+                              (torch.arange(w, device=device) + 0.5) / w,
+                              indexing="ij")
+        refs.append(torch.stack([x, y], -1).reshape(h * w, 2))
+    ref = torch.cat(refs)[None, :, None, None, None, :]
+    Lq = ref.shape[1]
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                        device=device)[:, None, :]               # (L, 1, 2)
+    offsets = msda.msda_grid_init(M, L, P).to(device).reshape(M, L, P, 2)
+
+    def rand(last):
+        return torch.rand(B, Lq, M, L, P, last, generator=gen, device=device)
+
+    noise = torch.randn(B, Lq, M, L, P, 2, generator=gen, device=device)
+    loc = ref + (offsets + noise) / size
+    edge = torch.where(rand(2) < 0.5, 0.0, size - 1.0)
+    first = rand(1) < 0.5
+    border = (rand(1) < 0.02) & torch.cat([first, ~first], -1)
+    loc = torch.where(border, (edge + rand(2)) / size, loc)
+    snap = rand(1) < 0.1
+    loc = torch.where(snap, (torch.floor(loc * size) + 0.5) / size, loc)
+    return loc.contiguous()
 
 
 def msda_corners(shapes, loc):
@@ -532,124 +604,175 @@ def grid_sample_inputs(value_l, loc_l, H, W):
             grid.reshape(B * M, Lq, P, 2).contiguous())
 
 
-def check_msda_levels(rows, flush, gen):
-    """msda_level_fwd, msda_level_dv and msda_level_dgrid: each level's
-    launch against its plain version (`_sample_one_level`, `level_dv_plain`,
-    `level_dgrid_plain`), then the whole per-level route through the
-    wrapper (`MSDeformAttnLevelFunction`) against `ms_deform_attn_plain`
-    and its autograd, and in fp32 against the fused kernels
-    (`MSDeformAttnFunction`, which takes any S): output and all three
-    gradients within 1e-5 of the fused result's largest entry. Times each
-    level's launch beside its bound, its plain version and `F.grid_sample`
-    (forward; backward to the input for d value, to the grid for d loc).
+SAMPLE = dict(mode="bilinear", padding_mode="zeros", align_corners=False)
+
+
+def check_level(value, shapes, lvl, loc, attn, g, flush, gen, full):
+    """One level of the per-level route on one set of locations:
+    msda_level_fwd and msda_level_dgrid against their plain versions
+    (`_sample_one_level`, `level_dgrid_plain`), each launched twice into
+    fresh outputs that must agree bit for bit, and with `full` also
+    msda_level_dv against `level_dv_plain`. Times each launch beside its
+    bound and `F.grid_sample` (forward; backward to the grid for d loc, to
+    the input for d value), with `full` beside its plain version too.
     Bounds count the value rows the points touch, read once, and each
     output written once: the forward's fp32 (B, Lq, M, D), d value's whole
-    level, d loc's and d attn's level slices."""
+    level, d loc's and d attn's level slices. Returns (ok, {kernel: (err,
+    ms, plain ms or None, bound, library ms)}, words for the log)."""
+    from vitadapter_torch.ops import msda
+
+    B, S, M, D = value.shape
+    Lq = loc.shape[1]
+    H, W = shapes[lvl]
+    start = msda.level_start_index(shapes)[lvl]
+    value_l = value[:, start:start + H * W]
+    loc_l, attn_l = loc[:, :, :, lvl], attn[:, :, :, lvl]
+    g4 = g.reshape(B, Lq, M, D)
+    runs = []
+    for _ in range(2):
+        out = torch.zeros((B, Lq, M, D), dtype=F32, device="cuda")
+        dloc = torch.full_like(loc, float("nan"))
+        dattn = torch.full_like(attn, float("nan"))
+        msda.level_forward(value, shapes, lvl, loc, attn, out)
+        msda.level_grad_grid(value, shapes, lvl, loc, attn, g, dloc, dattn)
+        runs.append((out, dloc[:, :, :, lvl], dattn[:, :, :, lvl]))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    out, dl, da = runs[0]
+    ref = msda._sample_one_level(value_l, loc_l, attn_l, H, W)
+    ref_dl, ref_da = msda.level_dgrid_plain(value_l, loc_l, attn_l, g4, H, W)
+    torch.cuda.synchronize()
+    good_f, err_f = close(out, ref, F32)
+    c_l, c_a = close_grad(dl, ref_dl), close_grad(da, ref_da)
+    good_g, err_g = c_l[0] and c_a[0], max(c_l[1], c_a[1])
+    ok = good_f and good_g and same
+    del runs, ref, ref_dl, ref_da, dl, da
+
+    corners = corners_in_map(loc_l[..., 0], loc_l[..., 1], H, W)
+    touched = touched_rows(loc_l, H, W) * D * value.element_size()
+    ops = 2 * D * corners
+    la = nbytes(loc_l, attn_l)
+    fb = bound_ms(touched + la + B * Lq * M * D * 4, ops, F32)
+    gb = bound_ms(touched + nbytes(g) + 2 * la, ops, F32)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    inp, grid = grid_sample_inputs(value_l, loc_l, H, W)
+    with torch.no_grad():
+        k_f = time_ms(lambda: msda.level_forward(
+            value, shapes, lvl, loc, attn, out), flush)
+        k_g = time_ms(lambda: msda.level_grad_grid(
+            value, shapes, lvl, loc, attn, g, dloc, dattn), flush)
+        l_f = time_ms(lambda: F.grid_sample(inp, grid, **SAMPLE), flush)
+    inp.requires_grad_()
+    grid.requires_grad_()
+    lib_out = F.grid_sample(inp, grid, **SAMPLE)
+    go = torch.randn(lib_out.shape, generator=gen, device="cuda")
+    l_g = time_ms(lambda: torch.autograd.grad(lib_out, grid, go,
+                                              retain_graph=True), flush)
+    numbers = {"msda_level_fwd": [err_f, k_f, None, fb, l_f],
+               "msda_level_dgrid": [err_g, k_g, None, gb, l_g]}
+    words = {"msda_level_fwd": f"max_abs_err={err_f:.3e} ok={good_f}",
+             "msda_level_dgrid": (f"max_abs_err (loc, attn)=({c_l[1]:.3e}, "
+                                  f"{c_a[1]:.3e}) ok={good_g}")}
+    words["msda_level_fwd"] += (
+        f" bitwise-equal twice={same}; touched {touched / 2 ** 20:.1f} of "
+        f"the level's {nbytes(value_l) / 2 ** 20:.1f} MiB of value")
+    if full:
+        dv = torch.zeros((B, S, M, D), dtype=F32, device="cuda")
+        msda.level_grad_value(value, shapes, lvl, loc, attn, g, dv)
+        ref_dv = msda.level_dv_plain(loc_l, attn_l, g4, H, W)
+        torch.cuda.synchronize()
+        good_v, err_v = close_grad(dv[:, start:start + H * W], ref_dv)
+        ok &= good_v
+        del ref_dv
+        vb = bound_ms(la + nbytes(g) + B * H * W * M * D * 4, ops, F32)
+        with torch.no_grad():
+            k_v = time_ms(lambda: msda.level_grad_value(
+                value, shapes, lvl, loc, attn, g, dv), flush)
+            numbers["msda_level_fwd"][2] = time_ms(
+                lambda: msda._sample_one_level(value_l, loc_l, attn_l, H, W),
+                flush, iters=3)
+        numbers["msda_level_dgrid"][2] = time_ms(
+            lambda: msda.level_dgrid_plain(value_l, loc_l, attn_l, g4, H, W),
+            flush, iters=3)
+        p_v = time_ms(lambda: msda.level_dv_plain(loc_l, attn_l, g4, H, W),
+                      flush, iters=3)
+        l_v = time_ms(lambda: torch.autograd.grad(lib_out, inp, go,
+                                                  retain_graph=True), flush)
+        numbers["msda_level_dv"] = [err_v, k_v, p_v, vb, l_v]
+        words["msda_level_dv"] = f"max_abs_err={err_v:.3e} ok={good_v}"
+        del dv
+    return ok, numbers, words
+
+
+def log_level(words, numbers, head):
+    """One line per kernel of `check_level`'s result."""
+    library = {"msda_level_fwd": "grid_sample_ms",
+               "msda_level_dv": "grid_sample_bwd_input_ms",
+               "msda_level_dgrid": "grid_sample_bwd_grid_ms"}
+    for kernel, (err, k_ms, p_ms, b, l_ms) in numbers.items():
+        plain = "" if p_ms is None else f" plain_ms={p_ms:.4f}"
+        log(f"{kernel} {head} {words[kernel]} kernel_ms={k_ms:.4f}{plain} "
+            f"{library[kernel]}={l_ms:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+
+
+def check_msda_levels(rows, flush, gen):
+    """msda_level_fwd, msda_level_dv and msda_level_dgrid at every
+    `LEVEL_GEOMETRIES` shape, level by level (`check_level`), on two sets
+    of locations: `msda_inputs`' uniform ones (all three kernels, the
+    numbers of the kernels' rows) and `msda_model_locations`' model-shaped
+    ones (fwd and dgrid, the rows' `model_shaped` numbers); then the whole
+    per-level route through the wrapper (`MSDeformAttnLevelFunction`)
+    against `ms_deform_attn_plain` and its autograd, and in fp32 against
+    the fused kernels (`MSDeformAttnFunction`, which takes any S): output
+    and all three gradients within 1e-5 of the fused result's largest
+    entry."""
     from vitadapter_torch.ops import msda
 
     ok = True
-    sample = dict(mode="bilinear", padding_mode="zeros", align_corners=False)
     for name, (shapes, Lq, M, dtypes, on_path) in LEVEL_GEOMETRIES.items():
         for dtype in dtypes:
             value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen, B=1)
-            B, S, _, D = value.shape
+            loc_m = msda_model_locations(shapes, LEVEL_QUERY_GRID[name], M,
+                                         4, gen)
+            ok &= loc_m.shape == loc.shape
+            S, D = value.shape[1], value.shape[3]
             # the fp32 values pass the 8 MiB line; the bf16 one, half the
             # bytes, stays under it (the route test below then applies
             # `MSDeformAttnLevelFunction` itself)
             route = msda.msda_route(value.shape, dtype)
             ok &= route == ("level" if dtype == F32 else "fused")
-            g4 = g.reshape(B, Lq, M, D)
-            starts = msda.level_start_index(shapes)
-            out = torch.zeros((B, Lq, M, D), dtype=F32, device="cuda")
-            dv = torch.zeros((B, S, M, D), dtype=F32, device="cuda")
-            dloc = torch.empty_like(loc)
-            dattn = torch.empty_like(attn)
             for lvl, (H, W) in enumerate(shapes):
-                rows_l = slice(starts[lvl], starts[lvl] + H * W)
-                value_l = value[:, rows_l]
-                loc_l, attn_l = loc[:, :, :, lvl], attn[:, :, :, lvl]
-                out.zero_()
-                msda.level_forward(value, shapes, lvl, loc, attn, out)
-                msda.level_grad_value(value, shapes, lvl, loc, attn, g, dv)
-                msda.level_grad_grid(value, shapes, lvl, loc, attn, g, dloc,
-                                     dattn)
-                ref = msda._sample_one_level(value_l, loc_l, attn_l, H, W)
-                ref_dv = msda.level_dv_plain(loc_l, attn_l, g4, H, W)
-                ref_dl, ref_da = msda.level_dgrid_plain(value_l, loc_l,
-                                                        attn_l, g4, H, W)
-                torch.cuda.synchronize()
-                good_f, err_f = close(out, ref, F32)
-                good_v, err_v = close_grad(dv[:, rows_l], ref_dv)
-                c_l = close_grad(dloc[:, :, :, lvl], ref_dl)
-                c_a = close_grad(dattn[:, :, :, lvl], ref_da)
-                good_g, err_g = c_l[0] and c_a[0], max(c_l[1], c_a[1])
-                ok &= good_f and good_v and good_g
-                del ref, ref_dv, ref_dl, ref_da
-
-                corners = corners_in_map(loc_l[..., 0], loc_l[..., 1], H, W)
-                touched = touched_rows(loc_l, H, W) * D \
-                    * value.element_size()
-                ops = 2 * D * corners
-                la = nbytes(loc_l, attn_l)
-                fb = bound_ms(touched + la + B * Lq * M * D * 4, ops, F32)
-                vb = bound_ms(la + nbytes(g) + B * H * W * M * D * 4, ops,
-                              F32)
-                gb = bound_ms(touched + nbytes(g) + 2 * la, ops, F32)
-                inp, grid = grid_sample_inputs(value_l, loc_l, H, W)
-                with torch.no_grad():
-                    k_f = time_ms(lambda: msda.level_forward(
-                        value, shapes, lvl, loc, attn, out), flush)
-                    k_v = time_ms(lambda: msda.level_grad_value(
-                        value, shapes, lvl, loc, attn, g, dv), flush)
-                    k_g = time_ms(lambda: msda.level_grad_grid(
-                        value, shapes, lvl, loc, attn, g, dloc, dattn),
-                        flush)
-                    p_f = time_ms(lambda: msda._sample_one_level(
-                        value_l, loc_l, attn_l, H, W), flush, iters=3)
-                    l_f = time_ms(lambda: F.grid_sample(inp, grid, **sample),
-                                  flush)
-                p_v = time_ms(lambda: msda.level_dv_plain(
-                    loc_l, attn_l, g4, H, W), flush, iters=3)
-                p_g = time_ms(lambda: msda.level_dgrid_plain(
-                    value_l, loc_l, attn_l, g4, H, W), flush, iters=3)
-                inp.requires_grad_()
-                grid.requires_grad_()
-                lib_out = F.grid_sample(inp, grid, **sample)
-                go = torch.randn(lib_out.shape, generator=gen, device="cuda")
-                l_v = time_ms(lambda: torch.autograd.grad(
-                    lib_out, inp, go, retain_graph=True), flush)
-                l_g = time_ms(lambda: torch.autograd.grad(
-                    lib_out, grid, go, retain_graph=True), flush)
-                del inp, grid, lib_out, go
-                which = ("_sample_kernel_onehot_pf" if H * W <= 1024
-                         else "_sample_kernel")
-                head = (f"{name} {str(dtype):14s} level {lvl} ({H}, {W}) "
-                        f"B=1 Lq={Lq} M={M}")
-                log(f"msda_level_fwd {head} (the TPU's {which}) "
-                    f"max_abs_err={err_f:.3e} ok={good_f} kernel_ms="
-                    f"{k_f:.4f} plain_ms={p_f:.4f} grid_sample_ms={l_f:.4f} "
-                    f"bound_ms={fb[0]:.4f} ({fb[1]}; {touched / 2 ** 20:.1f}"
-                    f" of the level's {nbytes(value_l) / 2 ** 20:.1f} MiB of "
-                    f"value touched)")
-                log(f"msda_level_dv {head} max_abs_err={err_v:.3e} "
-                    f"ok={good_v} kernel_ms={k_v:.4f} plain_ms={p_v:.4f} "
-                    f"grid_sample_bwd_input_ms={l_v:.4f} "
-                    f"bound_ms={vb[0]:.4f} ({vb[1]})")
-                log(f"msda_level_dgrid {head} max_abs_err (loc, attn)="
-                    f"({c_l[1]:.3e}, {c_a[1]:.3e}) ok={good_g} "
-                    f"kernel_ms={k_g:.4f} plain_ms={p_g:.4f} "
-                    f"grid_sample_bwd_grid_ms={l_g:.4f} "
-                    f"bound_ms={gb[0]:.4f} ({gb[1]})")
-                for kernel, numbers in (
-                        ("msda_level_fwd", (err_f, k_f, p_f, fb, l_f)),
-                        ("msda_level_dv", (err_v, k_v, p_v, vb, l_v)),
-                        ("msda_level_dgrid", (err_g, k_g, p_g, gb, l_g))):
-                    if on_path and on_path[0] == LEVEL_ROW_PATH[kernel]:
-                        add_to_row(rows[kernel], on_path[1], *numbers)
-                if dtype == F32 and H * W <= 1024:
-                    rows["msda_level_fwd"]["small_level"] = dict(
-                        shape=[H, W], ms=k_f, plain_ms=p_f, library_ms=l_f,
-                        bound_ms=fb[0], bound_by=fb[1], max_abs_err=err_f)
+                for kind, lc in (("uniform", loc), ("model-shaped", loc_m)):
+                    good, numbers, words = check_level(
+                        value, shapes, lvl, lc, attn, g, flush, gen,
+                        full=kind == "uniform")
+                    ok &= good
+                    which = ("_sample_kernel_onehot_pf" if H * W <= 1024
+                             else "_sample_kernel")
+                    words["msda_level_fwd"] = (f"(the TPU's {which}) "
+                                               + words["msda_level_fwd"])
+                    log_level(words, numbers,
+                              f"{name} {str(dtype):14s} {kind} level {lvl} "
+                              f"({H}, {W}) B=1 Lq={Lq} M={M}")
+                    for kernel, (err, k_ms, p_ms, b, l_ms) in numbers.items():
+                        if not on_path or on_path[0] != LEVEL_ROW_PATH[kernel]:
+                            continue
+                        row = rows[kernel]
+                        if kind != "uniform":
+                            row = row.setdefault("model_shaped", new_row(
+                                plain=False))
+                        add_to_row(row, on_path[1], err, k_ms, p_ms, b, l_ms)
+                    if dtype == F32 and H * W <= 1024:
+                        err, k_ms, p_ms, b, l_ms = numbers["msda_level_fwd"]
+                        row = rows["msda_level_fwd"].setdefault(
+                            "small_level", {})
+                        if kind != "uniform":
+                            row = row.setdefault("model_shaped", {})
+                        row.update(shape=[H, W], ms=k_ms, library_ms=l_ms,
+                                   bound_ms=b[0], bound_by=b[1],
+                                   max_abs_err=err)
+                        if p_ms is not None:
+                            row["plain_ms"] = p_ms
 
             # the whole route, through the wrapper where it takes it
             ins = [t.detach().clone().requires_grad_()
@@ -690,8 +813,39 @@ def check_msda_levels(rows, flush, gen):
                 f"grads via MSDeformAttnLevelFunction max_abs_err (value, "
                 f"loc, attn)={[f'{c[1]:.3e}' for c in checks]} ok={good_b}"
                 + vs_fused)
-            del value, loc, attn, g, g4, out, dv, dloc, dattn, ins, got
+            del value, loc, loc_m, attn, g, ins, got
             torch.cuda.empty_cache()
+    return ok
+
+
+def check_msda_level_layouts(flush, gen):
+    """msda_level_fwd and msda_level_dgrid at the `LEVEL_LAYOUTS` cases
+    (another P, ragged and narrow rows, a misaligned value), fp32 and bf16,
+    on both sets of locations, through `check_level`."""
+    ok = True
+    for name, (shapes, grid, M, D, P, misaligned) in LEVEL_LAYOUTS.items():
+        Lq = grid[0] * grid[1]
+        for dtype in (F32, BF16):
+            value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen, B=1,
+                                              D=D, P=P)
+            if misaligned:
+                buf = torch.empty(value.numel() + 1, dtype=dtype,
+                                  device="cuda")
+                buf[1:].copy_(value.reshape(-1))
+                value = buf[1:].view(value.shape)
+                ok &= value.data_ptr() % 16 != 0
+            loc_m = msda_model_locations(shapes, grid, M, P, gen)
+            for kind, lc in (("uniform", loc), ("model-shaped", loc_m)):
+                for lvl, (H, W) in enumerate(shapes):
+                    good, numbers, words = check_level(
+                        value, shapes, lvl, lc, attn, g, flush, gen,
+                        full=False)
+                    ok &= good
+                    log_level(words, numbers,
+                              f"{name} {str(dtype):14s} {kind} level {lvl} "
+                              f"({H}, {W}) B=1 Lq={Lq} M={M} D={D} P={P}")
+            del value, loc, loc_m, attn, g
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -970,6 +1124,7 @@ def check_kernels(flush):
             for name in REPLACES}
     ok = check_msda(rows, flush, gen)
     ok &= check_msda_levels(rows, flush, gen)
+    ok &= check_msda_level_layouts(flush, gen)
     ok &= check_attention(rows, flush, gen)
     ok &= check_attention_paths(rows, flush, gen)
     ok &= check_point_sample(rows, flush, gen)
@@ -982,7 +1137,8 @@ def check_kernels(flush):
         "VITADAPTER_MSDA_BANDMM=1 its injector and pixel-decoder forwards "
         "take that kernel; msda_fwd's numbers above are at those inputs")
     for r in rows.values():
-        for row in (r, *r.get("paths", {}).values()):
+        for row in (r, *r.get("paths", {}).values(),
+                    *([r["model_shaped"]] if "model_shaped" in r else [])):
             row["bound_by"] = "/".join(sorted(row["bound_by"]))
     return rows
 
@@ -1490,7 +1646,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("paths", "small_level") if key in r},
+            **{key: r[key] for key in ("paths", "small_level", "model_shaped")
+               if key in r},
             "per": per + f"; launches over the {path} phase"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

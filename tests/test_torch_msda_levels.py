@@ -13,6 +13,9 @@ rows and their per-level outputs to bf16 where the port keeps fp32
 measured on these inputs stay under the tolerances stated below.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +23,12 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from vitadapter.ops import msda as jmsda
 from vitadapter.ops import msda_pallas
 from vitadapter_torch.models.adapter import deform_inputs
 from vitadapter_torch.ops import msda as tmsda
 
+ROOT = Path(__file__).resolve().parents[1]
 SHAPES = ((40, 30), (8, 6))
 # bf16: relative to the largest magnitude of each reference tensor, about
 # twice the largest difference seen over seeds 0-2 of `_inputs` (out 7.4e-3,
@@ -154,3 +159,53 @@ def test_wrapper_takes_the_level_function_for_large_values(monkeypatch):
                              torch.zeros(1, 3, 2, 1, 4, 2, **meta),
                              torch.zeros(1, 3, 2, 1, 4, **meta))
     assert seen == ["MSDeformAttnFunction", "MSDeformAttnLevelFunction"]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("P", [4, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_level_plain_versions_match_jax_on_model_shaped_locations(dtype, P):
+    """The plain versions that `chip_smoke.py` holds `msda_level_fwd.cu`
+    and `msda_level_dgrid.cu` to (`_sample_one_level`, `level_dgrid_plain`)
+    against the JAX package's XLA `_sample_one_level` and its `jax.vjp`, on
+    the model-shaped locations of `chip_smoke.msda_model_locations`: one
+    8 x 12 level, 24 queries on a 4 x 6 grid, 4 heads, D 8. fp32 sums in
+    both, so 1e-5 of each tensor's largest entry in fp32 and with bf16
+    values alike."""
+    H, W, M, D, grid = 8, 12, 4, 8, (4, 6)
+    Lq = grid[0] * grid[1]
+    loc = _chip_smoke().msda_model_locations(
+        ((H, W),), grid, M, P, torch.Generator().manual_seed(P),
+        device="cpu")[:, :, :, 0]
+    # the set holds integer pixel coordinates and points with corners off
+    # the map
+    px = loc * torch.tensor([W, H]) - 0.5
+    assert bool((px == torch.floor(px)).any())
+    assert bool(((px < 0) | (px > torch.tensor([W - 1, H - 1]))).any())
+    rng = np.random.RandomState(P)
+    tdt = getattr(torch, dtype)
+    value = torch.from_numpy(rng.randn(1, H * W, M, D).astype(np.float32)
+                             ).to(tdt)
+    attn = torch.from_numpy(rng.rand(1, Lq, M, P).astype(np.float32))
+    g = torch.from_numpy(rng.randn(1, Lq, M, D).astype(np.float32)).to(tdt)
+
+    value_j = jnp.asarray(value.float().numpy(), getattr(jnp, dtype))
+    out_j, vjp = jax.vjp(
+        lambda lc, a: jmsda._sample_one_level(value_j, lc, a, H, W),
+        jnp.asarray(loc.numpy()), jnp.asarray(attn.numpy()))
+    want = [out_j, *vjp(jnp.asarray(g.float().numpy()))]
+    got = [tmsda._sample_one_level(value, loc, attn, H, W),
+           *tmsda.level_dgrid_plain(value, loc, attn, g, H, W)]
+    for name, x, w in zip(("out", "loc", "attn"), got, want):
+        w = np.asarray(w, np.float32)
+        assert x.dtype == torch.float32 and x.shape == w.shape, name
+        np.testing.assert_allclose(
+            x.numpy(), w, rtol=1e-5,
+            atol=1e-5 * max(1.0, float(np.abs(w).max())), err_msg=name)

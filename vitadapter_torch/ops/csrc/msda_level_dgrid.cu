@@ -9,22 +9,33 @@
 // with attn * W and attn * H folded into wxd and Wyd (msda_pallas.py:1127-
 // 1130), because gathers are slow on a TPU.
 //
-// What bounds it on an H100: bytes. It reads the level's value rows (into
-// L2, shared by neighbouring samples), the fp32 locations and weights and
-// the output gradient once, and writes fp32 d loc / d attn; one fp32 FMA per
-// channel per in-map corner for the dot product, far under the CUDA cores'
-// ridge of about 20 FLOP per byte.
+// What bounds it on an H100 (80GB HBM3, 700 W): as msda_level_fwd.cu, the
+// per-(query, head) work, not the gathers: at the ratio-1.5 pixel decoder
+// a launch took 0.75 ms with every point on one cell, 0.77-0.92 ms on
+// model-shaped locations and 0.79-0.95 ms on uniform ones
+// (vitadapter_torch/tools/msda_level_ab.py). Besides the forward's loads
+// it reads the D-wide row of the output gradient g once per (batch, query,
+// head), writes fp32 d loc / d attn, and sums three dot products per point
+// across the team's lanes. The earlier design ran one warp per (batch,
+// query, head, point), 8.4 M warps per launch at the over-line pixel
+// decoder, each with warp-uniform scalar loads, a reread of g's row, one
+// point's corners in flight and three 5-step shuffle reductions, at 21.7x
+// its byte bound.
 //
-// Design: a direct gather, one warp per (batch, query, head, point), lanes
-// on the channels. The warp reads its D-wide row of g and, for each in-map
-// corner, the corner's value row; each lane keeps its share of three sums
-// over the corners: w * (g . v) for d attn and the derivative taps
-// (+-1) * wy * (g . v) and wx * (+-1) * (g . v) for d x and d y (the floor
-// convention keeps both taps active at integer coordinates, as
-// msda_bwd.cu). Three warp reductions finish them; lane 0 writes the point's
-// d attn and d loc = (attn * W * d x, attn * H * d y). Each output element
-// has one writer and a fixed summation order: deterministic. A point with no
-// corner on the map (also NaN and values too large for an int) gets zeros.
+// Design (msda_level.cuh): a team of G lanes per (batch, query, head), 8
+// at fp32 D 32 (4 at bf16), each lane owning a 16-byte chunk of the row
+// and of g's row, which it reads once for all points. Lane t computes
+// point t's geometry once and the team takes it by shuffles; each lane
+// issues its chunk's four corner loads, two points at a time, before it
+// uses any, and keeps its share of three sums over the corners: w * (g . v)
+// for d attn and the derivative taps (+-1) * wy * (g . v) and
+// wx * (+-1) * (g . v) for d x and d y (the floor convention keeps both taps
+// active at integer coordinates, as msda_bwd.cu). The three sums reduce
+// over the team's G lanes (3 shuffle steps at fp32 D 32, 2 at bf16) and
+// lane t keeps point t's; lane t then writes that point's d attn and d loc
+// = (attn * W * d x, attn * H * d y), so a team's stores fall side by side.
+// Each output element has one writer and a fixed summation order:
+// deterministic. A point with no corner on the map (also NaN) gets zeros.
 // The weights stay fp32 where the TPU kernel rounds Wy and Wyd (which hold
 // +-attn * H) to a bf16 value's dtype (msda_pallas.py:1056-1059).
 //
@@ -33,27 +44,13 @@
 // dloc, dattn fp32 like loc, attn, of which this level's slices are
 // written. The level covers value rows [start, start + H * W).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "msda_level.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace msda_level;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// CPL: channels per lane, ceil(D / 32).
-template <typename T, int CPL>
+template <typename T, int VEC, int G, int K>
 __global__ void __launch_bounds__(kThreads)
 msda_level_dgrid_kernel(const T* __restrict__ value,
                         const float* __restrict__ loc,
@@ -61,76 +58,97 @@ msda_level_dgrid_kernel(const T* __restrict__ value,
                         const T* __restrict__ g, float* __restrict__ dloc,
                         float* __restrict__ dattn, int Lq, int S, int M,
                         int D, int L, int P, int level, int start, int H,
-                        int W, long long n_warps) {
-  const int lane = threadIdx.x & 31;
-  const long long warp =
-      (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (warp >= n_warps) return;
-  // warp = ((b * Lq + q) * M + m) * P + p
-  const int p = (int)(warp % P);
-  const long long bqm = warp / P;
-  const int m = (int)(bqm % M);
-  const long long b = bqm / M / Lq;
-  const long long row_stride = (long long)M * D;  // one value row s
-  const T* vl = value + (b * S + start) * row_stride + (long long)m * D;
-  const long long i = (bqm * L + level) * P + p;  // this point in attn
-  const float a = attn[i];
-  // loc * size, then - 0.5, each rounded, as the plain version and
-  // JAX round them (__fmul_rn is never contracted into an FMA)
-  const float x = __fmul_rn(loc[2 * i], (float)W) - 0.5f;
-  const float y = __fmul_rn(loc[2 * i + 1], (float)H) - 0.5f;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  if (!(x0f >= -1.f && x0f <= (float)(W - 1) && y0f >= -1.f &&
-        y0f <= (float)(H - 1))) {
-    if (lane == 0) {
-      dattn[i] = 0.f;
-      dloc[2 * i] = 0.f;
-      dloc[2 * i + 1] = 0.f;
-    }
-    return;
-  }
-  const float lx = x - x0f;
-  const float ly = y - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
+                        int W) {
+  const Lanes ln = lanes<G>(Lq, M);
+  const int C = D / VEC;  // chunks of a row
+  const long long rs = (long long)M * D;
+  const T* vl = value + ((long long)ln.b * S + start) * rs + ln.m * D;
+  const long long pbase = (ln.bqm * L + level) * P;
 
-  float gv[CPL];
+  // this lane's chunks of g's row, read once for all points
+  float gv[K][VEC];
 #pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int d = lane + 32 * j;
-    gv[j] = d < D ? to_float(g[bqm * D + d]) : 0.f;
+  for (int k = 0; k < K; ++k) {
+    const int ch = ln.gl + G * k;
+    if (ln.active && ch < C) {
+      load_chunk<VEC>(g + ln.bqm * D + ch * VEC, gv[k]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) gv[k][e] = 0.f;
+    }
   }
 
-  float s_attn = 0.f, s_x = 0.f, s_y = 0.f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int dx = c & 1;
-    const int dy = c >> 1;
-    const int xi = x0 + dx;
-    const int yi = y0 + dy;
-    if (xi < 0 || xi >= W || yi < 0 || yi >= H) continue;
-    const float wx = dx ? lx : 1.f - lx;
-    const float wy = dy ? ly : 1.f - ly;
-    const T* row = vl + ((long long)yi * W + xi) * row_stride;
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) dot = fmaf(gv[j], to_float(row[d]), dot);
+  // rounds of G points, one point's geometry per lane; the same trip
+  // counts in every lane, so the shuffles see the whole warp
+  for (int first = 0; first < P; first += G) {
+    const int p = first + ln.gl;
+    const bool has = ln.active && p < P;
+    float lx = 0.f, ly = 0.f, a = 0.f;
+    if (has) {
+      lx = loc[2 * (pbase + p)];
+      ly = loc[2 * (pbase + p) + 1];
+      a = attn[pbase + p];
     }
-    s_attn = fmaf(wx * wy, dot, s_attn);
-    s_x = fmaf(dx ? wy : -wy, dot, s_x);
-    s_y = fmaf(dy ? wx : -wx, dot, s_y);
+    const Point mine = locate(lx, ly, a, has, H, W);
+    // the sums of this lane's own point, p
+    float o_attn = 0.f, o_x = 0.f, o_y = 0.f;
+    const int n = P - first < G ? P - first : G;
+    // two points' corner loads in flight
+#pragma unroll 2
+    for (int i = 0; i < n; ++i) {
+      const Point pt = broadcast(mine, ln.base + i);
+      float v[4][K][VEC];
+      load_corners<T, VEC, G, K>(vl, rs, pt, W, ln.gl, C, v);
+      float s_attn = 0.f, s_x = 0.f, s_y = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (!((pt.mask >> c) & 1u)) continue;
+        const int dx = c & 1;
+        const int dy = c >> 1;
+        const float wx = dx ? pt.fx : 1.f - pt.fx;
+        const float wy = dy ? pt.fy : 1.f - pt.fy;
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            dot = fmaf(gv[k][e], v[c][k][e], dot);
+        s_attn = fmaf(wx * wy, dot, s_attn);
+        s_x = fmaf(dx ? wy : -wy, dot, s_x);
+        s_y = fmaf(dy ? wx : -wx, dot, s_y);
+      }
+      // the team's lanes: a fixed tree, so a fixed order
+#pragma unroll
+      for (int off = 1; off < G; off <<= 1) {
+        s_attn += __shfl_xor_sync(0xffffffffu, s_attn, off);
+        s_x += __shfl_xor_sync(0xffffffffu, s_x, off);
+        s_y += __shfl_xor_sync(0xffffffffu, s_y, off);
+      }
+      if (ln.gl == i) {
+        o_attn = s_attn;
+        o_x = s_x;
+        o_y = s_y;
+      }
+    }
+    // lane t writes point first + t: a team's stores fall side by side
+    if (has) {
+      const bool ok = mine.mask != 0u;
+      dattn[pbase + p] = ok ? o_attn : 0.f;
+      dloc[2 * (pbase + p)] = ok ? o_x * a * (float)W : 0.f;
+      dloc[2 * (pbase + p) + 1] = ok ? o_y * a * (float)H : 0.f;
+    }
   }
-  s_attn = warp_sum(s_attn);
-  s_x = warp_sum(s_x);
-  s_y = warp_sum(s_y);
-  if (lane == 0) {
-    dattn[i] = s_attn;
-    dloc[2 * i] = s_x * a * (float)W;
-    dloc[2 * i + 1] = s_y * a * (float)H;
-  }
+}
+
+template <typename T, int VEC, int G, int K>
+void run(const Shape& s, const void* value, const void* loc,
+         const void* attn, const void* g, float* dloc, float* dattn, int S,
+         int M, int D, int Lq, int L, int P, int level, int start, int H,
+         int W, cudaStream_t stream) {
+  msda_level_dgrid_kernel<T, VEC, G, K><<<s.grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(value), static_cast<const float*>(loc),
+      static_cast<const float*>(attn), static_cast<const T*>(g), dloc, dattn,
+      Lq, S, M, D, L, P, level, start, H, W);
 }
 
 template <typename T>
@@ -138,21 +156,25 @@ cudaError_t launch(const void* value, const void* loc, const void* attn,
                    const void* g, float* dloc, float* dattn, int B, int S,
                    int M, int D, int Lq, int L, int P, int level, int start,
                    int H, int W, cudaStream_t stream) {
-  const long long n_warps = (long long)B * Lq * M * P;
-  const long long blocks = (n_warps + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const T* v = static_cast<const T*>(value);
-  const float* lc = static_cast<const float*>(loc);
-  const float* at = static_cast<const float*>(attn);
-  const T* gg = static_cast<const T*>(g);
-  if (D <= 32)
-    msda_level_dgrid_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        v, lc, at, gg, dloc, dattn, Lq, S, M, D, L, P, level, start, H, W,
-        n_warps);
-  else
-    msda_level_dgrid_kernel<T, 2><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        v, lc, at, gg, dloc, dattn, Lq, S, M, D, L, P, level, start, H, W,
-        n_warps);
+  const Shape s = shape<T>(D, aligned16(value) && aligned16(g), B, Lq, M);
+  if (!s.fits) return cudaErrorInvalidConfiguration;
+  constexpr int V = 16 / sizeof(T);
+#define MSDA_LEVEL_RUN(VEC, G, K)                                          \
+  run<T, VEC, G, K>(s, value, loc, attn, g, dloc, dattn, S, M, D, Lq, L, P, \
+                    level, start, H, W, stream)
+  if (!s.vec) {
+    if (s.K == 1) MSDA_LEVEL_RUN(1, 32, 1);
+    else MSDA_LEVEL_RUN(1, 32, 2);
+  } else {
+    switch (s.G) {
+      case 1: MSDA_LEVEL_RUN(V, 1, 1); break;
+      case 2: MSDA_LEVEL_RUN(V, 2, 1); break;
+      case 4: MSDA_LEVEL_RUN(V, 4, 1); break;
+      case 8: MSDA_LEVEL_RUN(V, 8, 1); break;
+      default: MSDA_LEVEL_RUN(V, 16, 1); break;
+    }
+  }
+#undef MSDA_LEVEL_RUN
   return cudaGetLastError();
 }
 

@@ -35,10 +35,13 @@ SHAPE = (2, 16, 1024, 64)
 ITERS = 20
 
 
-def main(argv=None):
-    args = sys.argv[1:] if argv is None else argv
+def load_checkout(args, module, doc):
+    """(this checkout's `chip_smoke` module, the checkout's
+    `vitadapter_torch.<module>`) for a tool called with one argument, the
+    checkout's root; prints the card's name and power limit. Exits when
+    there is no card or the module comes from elsewhere."""
     if len(args) != 1:
-        raise SystemExit(__doc__)
+        raise SystemExit(doc)
     root = os.path.abspath(args[0])
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: no CUDA device")
@@ -47,13 +50,19 @@ def main(argv=None):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     sys.path.insert(0, root)
-    from vitadapter_torch.ops import attention as at
-    if not at.__file__.startswith(root + os.sep):
-        raise SystemExit(f"FAIL: imported {at.__file__}, not from {root}")
-
+    mod = importlib.import_module(f"vitadapter_torch.{module}")
+    if not mod.__file__.startswith(root + os.sep):
+        raise SystemExit(f"FAIL: imported {mod.__file__}, not from {root}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.splitlines()[0])
+    return smoke, mod
+
+
+def main(argv=None):
+    args = sys.argv[1:] if argv is None else argv
+    smoke, at = load_checkout(args, "ops.attention", __doc__)
+    root = os.path.abspath(args[0])
     gen = torch.Generator("cuda").manual_seed(0)
     q, k, v, g = (torch.randn(*SHAPE, generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(4))
