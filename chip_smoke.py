@@ -8,8 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (each failure exits non-zero; nothing is caught):
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. builds every CUDA kernel of the port from `vitadapter_torch/ops/csrc`,
-     printing registers and spills, and the tensor-core instructions
-     (`HGMMA`, `HMMA`) in the attention libraries' SASS;
+     printing registers and spills by kernel instantiation, and the
+     tensor-core instructions in the attention libraries' SASS by
+     instantiation (TF32 and bf16 `HGMMA`, `HMMA`); fails if an fp32
+     attention kernel has no TF32 `HGMMA`;
   3. holds each kernel against its plain PyTorch version on the card, fp32
      and bf16, at the flagship's shapes: the forward kernels, and the
      backward kernels reached through the autograd wrappers (so the
@@ -52,7 +54,10 @@ the model makes them (`msda_model_locations`; msda_level_fwd and _dgrid
 timed there too, under `model_shaped`, and launched twice for bitwise-equal
 outputs), and at other P, widths and a misaligned value
 (`LEVEL_LAYOUTS`); and the fp32 attention at the lengths phases 8 and 9
-give it. The last two lines are a JSON object of the
+give it. The fp32 attention (split TF32 on the tensor cores) is launched
+twice at every case and must give bitwise-equal outputs and gradients; its
+bound is the split-TF32 floor (`attention_bound_ms`), with the CUDA-core
+figure beside it. The last two lines are a JSON object of the
 kernels' numbers (with the TPU kernels each one covers besides the one it
 replaces) and {"ok": true, "device": {...}}.
 """
@@ -74,6 +79,11 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # tensor cores, dense
               torch.float32: 67e12}     # CUDA cores
+# the fp32 attention kernels compute each fp32 product on the tensor cores
+# as three TF32 products (split TF32): their least time is three times the
+# operations over the dense TF32 peak
+TF32_FLOPS = 495e12
+SPLIT_PRODUCTS = 3
 
 # tolerances of kernel vs plain version on the same inputs (both sum in
 # fp32 in another order): fp32 differs by float rounding; bf16 outputs are
@@ -279,9 +289,57 @@ def close_grad(got, ref):
     return ok and got.dtype == ref.dtype, float(err.max())
 
 
+def demangle(names):
+    """{mangled: short C++ name} of kernel symbols (cu++filt from the CUDA
+    toolkit, else c++filt; the argument list and the anonymous namespace
+    dropped), or the names as given when neither tool is there."""
+    from vitadapter_torch.ops import cuda_ext
+
+    names = sorted(set(names))
+    for tool in (os.path.join(os.path.dirname(cuda_ext.nvcc_path()),
+                              "cu++filt"), shutil.which("c++filt")):
+        if not names or not tool or not os.path.isfile(tool):
+            continue
+        out = subprocess.run([tool, *names], capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+        if len(out) == len(names):
+            return {n: short_name(d) for n, d in zip(names, out)}
+    return {n: n for n in names}
+
+
+def short_name(decl):
+    """A demangled kernel's name with its template arguments: the return
+    type, the anonymous namespace and the parameter list dropped."""
+    decl = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "", decl)
+    depth = 0
+    for i, ch in enumerate(decl):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            return decl[:i]
+    return decl
+
+
+def ptxas_lines(text):
+    """(kernel, line) of the register, shared-memory and spill lines of an
+    `nvcc -Xptxas -v` log, each named by the kernel instantiation whose
+    entry ptxas was compiling."""
+    entries = re.findall(r"Compiling entry function '([^']+)'", text)
+    names = demangle(entries)
+    kernel, out = "?", []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = names[m.group(1)]
+        elif "registers" in line or "spill" in line:
+            out.append((kernel, line.split(":", 1)[-1].strip()
+                        if "ptxas info" in line else line.strip()))
+    return out
+
+
 def sass_counts(lib):
-    """Counts of Hopper warpgroup (HGMMA) and warp (HMMA) tensor-core
-    instructions in a built library's SASS, or a note when the toolkit has
+    """Tensor-core instructions in a built library's SASS, by kernel
+    instantiation: Hopper warpgroup products by input type ("HGMMA.TF32",
+    "HGMMA.BF16") and warp ones ("HMMA"); or a note when the toolkit has
     no cuobjdump."""
     from vitadapter_torch.ops import cuda_ext
 
@@ -291,8 +349,15 @@ def sass_counts(lib):
         return "cuobjdump not available"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "HMMA")}
+    parts = re.split(r"\n\s*Function : (\S+)", sass)[1:]
+    names = demangle(parts[0::2])
+    counts = {}
+    for fn, body in zip(parts[0::2], parts[1::2]):
+        c = {"HGMMA.TF32": len(re.findall(r"\bHGMMA\.\S*\.TF32\b", body)),
+             "HGMMA.BF16": len(re.findall(r"\bHGMMA\.\S*\.BF16\b", body)),
+             "HMMA": len(re.findall(r"\bHMMA\b", body))}
+        counts[names[fn]] = c
+    return counts
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -301,6 +366,31 @@ def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound_ms(nbytes, flops, dtype, split_bytes):
+    """`bound_ms` of an attention kernel; for fp32, the split-TF32 floor:
+    the bytes plus the pre-pass's (`split_bytes`: its hi/lo copies written
+    and read once) over HBM rate, or three TF32 products per product over
+    the TF32 peak. Also returns the CUDA-core figure (`bound_ms` at the
+    fp32 FMA peak, without the pre-pass), None for bf16."""
+    if dtype != torch.float32:
+        return bound_ms(nbytes, flops, dtype), None
+    t_bytes = (nbytes + split_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = SPLIT_PRODUCTS * flops / TF32_FLOPS * 1e3
+    return ((max(t_bytes, t_ops),
+             "bytes" if t_bytes >= t_ops else "operations"),
+            bound_ms(nbytes, flops, dtype))
+
+
+def split_copy_bytes(shape, rows, cols):
+    """Bytes of the fp32 attention's split copies, written once and read
+    once: hi and lo of `rows` operands as laid out and of `cols` transposed
+    with N padded to 64 (`attention.split_scratch_floats`)."""
+    from vitadapter_torch.ops import attention as at
+
+    B, H, N, D = shape
+    return 2 * 4 * at.split_scratch_floats(B * H, N, D, rows, cols)
 
 
 def corners_in_map(x01, y01, H, W):
@@ -859,8 +949,9 @@ def check_attention(rows, flush, gen):
     ok = True
     sdpa = F.scaled_dot_product_attention
     for dtype in (torch.float32, torch.bfloat16):
+        # ragged lengths, the other head dims, and N under one 64-row tile
         cases = [ATTN_SHAPE, (2, 16, 1000, 64), (1, 3, 130, 32),
-                 (1, 2, 77, 128)]
+                 (1, 2, 77, 128), (1, 4, 40, 64), (1, 2, 20, 128)]
         for shape in cases:
             q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                           .to(dtype) for _ in range(4))
@@ -869,6 +960,8 @@ def check_attention(rows, flush, gen):
             got = at.fused_attention(*ins)
             saved_out32, saved_lse = got.grad_fn.saved_tensors[3:]
             got.backward(g)
+            same = relaunch_equal(at, got, saved_lse, ins, g) \
+                if dtype == torch.float32 else None
             ref, ref_lse, ref_out32 = at.attention_plain_lse(q, k, v)
             ref_g = at.attention_plain_backward(q, k, v, g)
             with torch.no_grad():
@@ -883,7 +976,7 @@ def check_attention(rows, flush, gen):
             good_b = all(c[0] for c in checks)
             err_b = max(c[1] for c in checks)
             good_f = good and good_s and good_l and good_o
-            ok &= good_f and good_b
+            ok &= good_f and good_b and same is not False
             lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             lib_out = sdpa(*lib)
             with torch.no_grad():
@@ -899,26 +992,20 @@ def check_attention(rows, flush, gen):
                             flush)
             libb_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, lib, g, retain_graph=True), flush)
-            B, H, N, D = shape
-            # forward: reads q, k, v, writes out and the log-sum-exp
-            fb = bound_ms(4 * nbytes(q) + nbytes(lse),
-                          4 * B * H * N * N * D, dtype)
-            # backward: reads q, k, v, dO, the fp32 output and the
-            # log-sum-exp, writes dq, dk, dv; q k^T again, dP = dO v^T,
-            # dv = P^T dO, dq, dk
-            bb = bound_ms(7 * nbytes(q) + nbytes(out32, lse),
-                          10 * B * H * N * N * D, dtype)
+            fb, fcc, bb, bcc = attention_bounds(q, lse, out32)
             log(f"attention_fwd {str(shape):18s} {str(dtype):14s} "
                 f"max_abs_err serving={err_s:.3e} before a backward={err:.3e}"
                 f" (saved fp32 output {err_o:.3e}, lse {err_l:.3e}) "
                 f"ok={good_f} kernel_ms={k_ms:.4f} (before a backward "
                 f"{kt_ms:.4f}) plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                f"bound_ms={fb[0]:.4f} ({fb[1]})")
+                f"bound_ms={fb[0]:.4f} ({fb[1]}{cuda_core_note(fcc)})"
+                f"{relaunch_note(same)}")
             log(f"attention_bwd {str(shape):18s} {str(dtype):14s} grads via "
                 f"the autograd wrapper: max_abs_err (q, k, v)="
                 f"{[f'{c[1]:.3e}' for c in checks]} ok={good_b} "
                 f"kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
-                f"sdpa_bwd_ms={libb_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]})")
+                f"sdpa_bwd_ms={libb_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]}"
+                f"{cuda_core_note(bcc)})")
             if dtype == torch.bfloat16 and shape == ATTN_SHAPE:
                 # the library's own agreement with the plain version
                 lib_g = torch.autograd.grad(lib_out, lib, g)
@@ -934,6 +1021,53 @@ def check_attention(rows, flush, gen):
                 add_to_row(rows["attention_bwd"], ATTN_CALLS, err_b, kb_ms,
                            pb_ms, bb, libb_ms)
     return ok
+
+
+def relaunch_equal(at, got, lse, ins, g):
+    """Whether a second launch of the attention forward and backward on the
+    inputs `ins` gives bitwise the output `got`, its saved log-sum-exp
+    `lse` and the gradients in `ins` (the kernels sum in a fixed order)."""
+    again = [t.detach().clone().requires_grad_(t.requires_grad) for t in ins]
+    out = at.fused_attention(*again)
+    same = torch.equal(out, got)
+    if got.grad_fn is not None:
+        same &= torch.equal(out.grad_fn.saved_tensors[4], lse)
+        out.backward(g)
+        same &= all(torch.equal(a.grad, b.grad) for a, b in zip(again, ins))
+    return same
+
+
+def relaunch_note(same):
+    return "" if same is None else f"; relaunch bitwise equal={same}"
+
+
+def cuda_core_note(cc):
+    return "" if cc is None else (f"; split-TF32 floor, CUDA-core bound "
+                                  f"{cc[0]:.4f} ({cc[1]})")
+
+
+def attention_bounds(q, lse, out32):
+    """(forward bound, its CUDA-core figure, backward bound, its figure) of
+    the attention kernels on q's shape (`attention_bound_ms`)."""
+    B, H, N, D = q.shape
+    # forward: reads q, k, v, writes out and the log-sum-exp; fp32 splits
+    # q, k (rows) and v (columns)
+    fb, fcc = attention_bound_ms(4 * nbytes(q) + nbytes(lse),
+                                 4 * B * H * N * N * D, q.dtype,
+                                 split_copy_bytes(q.shape, 2, 1))
+    # backward: reads q, k, v, dO, the fp32 output and the log-sum-exp,
+    # writes dq, dk, dv; q k^T again, dP = dO v^T, dv = P^T dO, dq, dk;
+    # fp32 splits q, k, v, dO (rows) and k, q, dO (columns)
+    bb, bcc = attention_bound_ms(7 * nbytes(q) + nbytes(out32, lse),
+                                 10 * B * H * N * N * D, q.dtype,
+                                 split_copy_bytes(q.shape, 4, 3))
+    return fb, fcc, bb, bcc
+
+
+def add_cuda_core_bound(row, calls, cc):
+    """The fp32 attention rows' CUDA-core figure beside their bound."""
+    row["cuda_core_bound_ms"] = row.get("cuda_core_bound_ms", 0.0) \
+        + calls * cc[0]
 
 
 def by_heads(fn, *ts, heads=4):
@@ -968,6 +1102,7 @@ def check_attention_paths(rows, flush, gen):
         good, err = close(got, ref, F32)
         line = f"max_abs_err={err:.3e}"
         checks = []
+        saved_lse = None
         if backward:
             saved_out32, saved_lse = got.grad_fn.saved_tensors[3:]
             good_l, err_l = close(saved_lse, ref_lse, F32)
@@ -980,11 +1115,13 @@ def check_attention_paths(rows, flush, gen):
             line += (f" (saved fp32 output {err_o:.3e}, lse {err_l:.3e}); "
                      f"grads via the autograd wrapper: max_abs_err (q, k, v)="
                      f"{[f'{c[1]:.3e}' for c in checks]}")
-            del ref_g, saved_out32, saved_lse
+            del ref_g, saved_out32
+        same = relaunch_equal(at, got, saved_lse, ins, g)
+        line += relaunch_note(same)
         torch.cuda.synchronize()
-        good &= all(c[0] for c in checks)
+        good &= all(c[0] for c in checks) and same
         ok &= good
-        del got, ins, ref, ref_lse
+        del got, ins, ref, ref_lse, saved_lse
         torch.cuda.empty_cache()
         with torch.no_grad():
             if backward:
@@ -998,15 +1135,15 @@ def check_attention_paths(rows, flush, gen):
                 flush, iters=3)
             lib_ms = time_ms(lambda: sdpa(q, k, v), flush, iters=3)
             out, lse, out32 = at._kernel_forward(q, k, v, scale, backward)
-        # forward: reads q, k, v, writes the output and the log-sum-exp
-        fb = bound_ms(4 * nbytes(q) + nbytes(lse), 4 * 16 * N * N * 64, F32)
+        fb, fcc, bb, bcc = attention_bounds(q, lse, out32)
         row = rows["attention_fwd"].setdefault("paths", {}).setdefault(
             path, new_row())
         add_to_row(row, calls, err, k_ms, p_ms, fb, lib_ms)
+        add_cuda_core_bound(row, calls, fcc)
         text = (f"attention {name} {shape} fp32 ({path}, {calls} calls): "
                 f"{line} ok={good}; forward kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                f"bound_ms={fb[0]:.4f} ({fb[1]})")
+                f"bound_ms={fb[0]:.4f} ({fb[1]}{cuda_core_note(fcc)})")
         if backward:
             with torch.no_grad():
                 kb_ms = time_ms(lambda: at._kernel_backward(
@@ -1018,16 +1155,14 @@ def check_attention_paths(rows, flush, gen):
             lib_out = sdpa(*lib)
             libb_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, lib, g, retain_graph=True), flush, iters=3)
-            # as check_attention's backward bound
-            bb = bound_ms(7 * nbytes(q) + nbytes(out32, lse),
-                          10 * 16 * N * N * 64, F32)
             row = rows["attention_bwd"].setdefault("paths", {}).setdefault(
                 path, new_row())
             add_to_row(row, calls, max(c[1] for c in checks), kb_ms, pb_ms,
                        bb, libb_ms)
+            add_cuda_core_bound(row, calls, bcc)
             text += (f"; backward kernel_ms={kb_ms:.4f} plain_ms="
                      f"{pb_ms:.4f} sdpa_bwd_ms={libb_ms:.4f} bound_ms="
-                     f"{bb[0]:.4f} ({bb[1]})")
+                     f"{bb[0]:.4f} ({bb[1]}{cuda_core_note(bcc)})")
             del lib, lib_out
         log(text)
         del q, k, v, g, out, lse, out32
@@ -1581,13 +1716,25 @@ def main():
     logs = cuda_ext.build()
     log(f"built {sorted(cuda_ext.SIGNATURES)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(text):
+            log(f"  {name}: {kernel}: {line}")
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and int(m.group(1)):
+                spills.append(f"{name}: {kernel}")
+    log(f"  instantiations that spill: {spills or 'none'}")
     for name in ("attention_fwd", "attention_bwd"):
+        counts = sass_counts(cuda_ext.library_path(name))
         log(f"  {name}: tensor-core instructions in the built library's "
-            f"SASS: {sass_counts(cuda_ext.library_path(name))}")
+            f"SASS by kernel: {counts}")
+        # every fp32 product runs split TF32 on the tensor cores
+        f32 = [c for k, c in counts.items()
+               if re.search(r"_f32(<|ILi)", k)] \
+            if isinstance(counts, dict) else [{"HGMMA.TF32": 1}]
+        if not f32 or not all(c["HGMMA.TF32"] for c in f32):
+            raise SystemExit(f"FAIL: {name}: an fp32 kernel without TF32 "
+                             "HGMMA")
 
     # phase 3: kernels against their plain versions
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")

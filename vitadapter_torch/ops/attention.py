@@ -13,8 +13,14 @@ TPU kernel. The bf16 kernels run their products on the tensor cores and
 feed the probabilities P (forward and backward) and dS (backward) to them
 as bf16 hi/lo pairs, about 2^-17 relative, where the TPU kernel rounds them
 to bf16; a forward that saves for a backward also keeps its fp32 output,
-from which the backward's rowsum(dO * O) is taken. The fp32 kernels and
-the plain versions keep P and dS in fp32. The XLA path of
+from which the backward's rowsum(dO * O) is taken. The fp32 kernels run
+every product on the tensor cores in split TF32: each fp32 operand x as hi
+(x with its 13 low mantissa bits cleared, exactly TF32) and lo = x - hi,
+each product as A_lo B_hi + A_hi B_lo + A_hi B_hi, about 2^-20 relative
+(one TF32 product, about 2^-11, would miss fp32's tolerances); a pre-pass
+writes the operands' hi/lo copies into a scratch this module allocates
+(`split_scratch_floats`), and P and dS are split in registers. The plain
+versions keep everything in fp32. The XLA path of
 `layers.attention.mha` rounds the logits to the value dtype before its
 softmax, so bf16 results of the two differ by bf16 rounding.
 """
@@ -108,6 +114,15 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
 
 
+def split_scratch_floats(BH: int, N: int, D: int, rows: int,
+                         cols: int) -> int:
+    """fp32 scratch of the split TF32 kernels' hi/lo copies: `rows`
+    operands as laid out, (BH, N, D) each, and `cols` transposed to (BH, D,
+    Np), N padded to whole 64-row tiles (`sm90.cuh::padded_rows`)."""
+    n_pad = -(-N // 64) * 64
+    return 2 * (rows * BH * N * D + cols * BH * D * n_pad)
+
+
 def _kernel_forward(q, k, v, scale: float, for_backward: bool = False):
     """`attention_fwd.cu`: (the output in the input dtype, the fp32 row
     log-sum-exp (B, H, N), the output in fp32 or None). The fp32 output is
@@ -117,13 +132,17 @@ def _kernel_forward(q, k, v, scale: float, for_backward: bool = False):
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    out32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-             if bf16 and for_backward else None)
+    if bf16:  # the kernel's `aux`: the fp32 output, or none
+        aux = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+               if for_backward else None)
+    else:  # the split copies of q, k (rows) and v (columns)
+        aux = torch.empty(split_scratch_floats(B * H, N, D, 2, 1),
+                          dtype=torch.float32, device=q.device)
     cuda_ext.launch("attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out.data_ptr(),
-                    None if out32 is None else out32.data_ptr(),
+                    None if aux is None else aux.data_ptr(),
                     lse.data_ptr(), B * H, N, D, float(scale), int(bf16))
-    return out, lse, (out32 if bf16 else out)
+    return out, lse, (aux if bf16 else out)
 
 
 def _kernel_backward(q, k, v, out32, lse, grad_out, scale: float):
@@ -141,7 +160,13 @@ def _kernel_backward(q, k, v, out32, lse, grad_out, scale: float):
     check_kernel_inputs(q, grad_out, grad_out)
     B, H, N, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((B * H, N), dtype=torch.float32, device=q.device)
+    # delta = rowsum(dO * out); for fp32, then the split copies of q, k, v,
+    # dO (rows) and k, q, dO (columns), delta padded to 64 floats
+    n_delta = B * H * N
+    if q.dtype == torch.float32:
+        n_delta = -(-n_delta // 64) * 64 + split_scratch_floats(
+            B * H, N, D, 4, 3)
+    delta = torch.empty(n_delta, dtype=torch.float32, device=q.device)
     cuda_ext.launch("attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out32.data_ptr(), lse.data_ptr(),
                     grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),

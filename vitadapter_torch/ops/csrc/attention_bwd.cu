@@ -40,13 +40,24 @@
 // relative. delta reads O in fp32: from a bf16 O its error (about 2^-9 of
 // O's elements, summed over D) moves dq and dk by more than that floor.
 //
-// fp32 keeps the CUDA-core kernels (256 threads as a 16 x 16 grid over 64 x
-// 64 tiles, fp32 FMAs; TF32 would miss the fp32 tolerance), reading the
-// saved lse and delta as the bf16 kernels do.
+// Design, fp32: the same three launches, every product on the tensor cores
+// in split TF32 (sm90.cuh), after a pre-pass that reads q, k, v and dO once
+// and writes hi/lo copies into the caller's scratch: all four as laid out
+// (K-major A and B operands of S, dP, S^T, dP^T) and k, q, dO transposed
+// to (D, N) in k8_source order (the B operands of dq += dS k, dk += dS^T
+// q, dv += P^T dO, which contract over keys or queries: TF32 wgmma takes
+// B K-major only). Each product is three wgmmas (A_lo B_hi + A_hi B_lo +
+// A_hi B_hi, about 2^-20 relative); P and dS (P^T, dS^T) are split in
+// registers, and each tile's contribution to dq, dk, dv sums in a fresh
+// accumulator (add_product). One warpgroup a CTA, 64 own rows; the
+// streamed side comes in stages of 64 (D = 32), 32 (D = 64) or, one
+// stage, 32 keys and 16 queries (D = 128), which keeps the own tiles and
+// the ring under 227 KB. Deterministic as the bf16 kernels: no atomics.
 //
 // Layouts (all contiguous): q, k, v, dout, dq, dk, dv (B * H, N, D), bf16
-// or fp32; o (B * H, N, D) fp32; lse, delta (B * H, N) fp32 (delta is
-// scratch, written here).
+// or fp32; o (B * H, N, D) fp32; lse (B * H, N) fp32; delta: scratch, (B *
+// H, N) fp32 for bf16, and for fp32 delta_floats(B * H, N) + 8 B H N D +
+// 6 B H D Np floats (Np: N rounded up to 64), delta then the split copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,268 +94,284 @@ attention_bwd_delta(const float* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = sum;
 }
 
-// ---- fp32: CUDA cores ----------------------------------------------------
+// ---- fp32: split TF32 on the tensor cores ---------------------------------
 
-constexpr int kB = 64;  // query rows or keys per tile
-constexpr int kThreads = 256;
-
-// rows [r0, r0 + 64) of a (N, D) matrix into a (64, D + 1) fp32 tile, zero
-// past N
+// per head dim, one warpgroup of 64 own rows a CTA: the dq kernel streams
+// KT keys a stage (K, V hi/lo as rows, K^T hi/lo), the dk/dv kernel QT
+// queries (Q, dO hi/lo as rows, Q^T, dO^T hi/lo); the own tiles are four
+// (64, D) hi/lo tiles. Shared memory (dq, dk/dv): 128 and 160 KB at D = 32,
+// 160 and 192 KB at D = 64, 224 and 192 KB at D = 128 (one stage each).
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int N, int tid) {
-  constexpr int DP = D + 1;
-  for (int idx = tid; idx < kB * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int gr = r0 + r;
-    dst[r * DP + c] = gr < N ? src[(long long)gr * D + c] : 0.f;
+struct F32Bwd {
+  static constexpr int KT = D == 32 ? 64 : 32;
+  static constexpr int QT = D == 32 ? 64 : D == 64 ? 32 : 16;
+  static constexpr int STAGES = D == 128 ? 1 : 2;
+  using Own = sm90::Tile32<D, 64>;
+  using KRow = sm90::Tile32<D, KT>;
+  using KCol = sm90::Tile32<KT, D>;
+  using QRow = sm90::Tile32<D, QT>;
+  using QCol = sm90::Tile32<QT, D>;
+  static constexpr uint32_t OWN = 4 * Own::BYTES;
+  static constexpr uint32_t DQ_STAGE = 4 * KRow::BYTES + 2 * KCol::BYTES;
+  static constexpr uint32_t KV_STAGE = 4 * QRow::BYTES + 4 * QCol::BYTES;
+  using DqRing = sm90::Ring<OWN, DQ_STAGE, STAGES>;
+  using KvRing = sm90::Ring<OWN, KV_STAGE, STAGES>;
+};
+
+// the split copies, hi and lo each: rows (BH, N, D) of q, k, v, dO in maps
+// of 64-row boxes (the own tiles) and of the streamed tiles' rows; columns
+// (BH, D, Np) of k (dq kernel), q and dO (dk/dv kernel)
+struct BwdMaps {
+  CUtensorMap own[4];     // dq: Q, dO; dk/dv: K, V (hi, lo each)
+  CUtensorMap rows[4];    // dq: K, V; dk/dv: Q, dO
+  CUtensorMap cols[4];    // dq: K^T; dk/dv: Q^T, dO^T
+};
+
+// rows < N of a (64, D) fp32 accumulator times `mul`
+template <int D>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 2],
+                                               float* __restrict__ dst,
+                                               int r0, int N, float mul) {
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= N) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + (long long)r * D + 8 * j + col0) =
+          make_float2(acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
   }
 }
 
-template <int D>
-constexpr int dq_smem_floats() {
-  // Q, dO, K, V tiles padded by one word per row; dS tile padded
-  return 4 * kB * (D + 1) + kB * (kB + 1);
+// thread 0: the four own tiles at row r0 onto the own barrier
+template <int D, typename R>
+__device__ __forceinline__ void load_own(R& ring, const BwdMaps& m, int r0,
+                                         int bh) {
+  using Own = typename F32Bwd<D>::Own;
+  sm90::mbar_expect_tx(ring.own_bar(), 4 * Own::BYTES);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    sm90::tma_load_tile32<D, 64>(ring.smem + i * Own::BYTES, &m.own[i],
+                                 ring.own_bar(), 0, r0, bh);
 }
 
-template <int D>
-constexpr int dkdv_smem_floats() {
-  // K, V, Q, dO tiles; P and dS tiles; lse and delta of the query tile
-  return 4 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB;
+// thread 0: stage `it` of NR row tiles (RT rows each) and NC column tiles
+// (D rows of RT columns), all at the streamed side's row it * RT
+template <int D, int RT, int NR, int NC, typename R>
+__device__ __forceinline__ void load_stage(R& ring, const BwdMaps& m, int it,
+                                           int bh) {
+  using Row = sm90::Tile32<D, RT>;
+  using Col = sm90::Tile32<RT, D>;
+  uint8_t* st = ring.stage(it);
+  uint64_t* bar = ring.bar(it);
+  sm90::mbar_expect_tx(bar, NR * Row::BYTES + NC * Col::BYTES);
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+    sm90::tma_load_tile32<D, RT>(st + i * Row::BYTES, &m.rows[i], bar, 0,
+                                 it * RT, bh);
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+    sm90::tma_load_tile32<RT, D>(st + NR * Row::BYTES + i * Col::BYTES,
+                                 &m.cols[i], bar, it * RT, 0, bh);
 }
 
+// dq by query tiles: S = Q K^T and dP = dO V^T (three products each, both
+// from shared memory), P = exp(S - lse), dS = P (dP - delta) in registers,
+// dq += dS K (dS split in registers, K^T from shared memory)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+__global__ void __launch_bounds__(128)
+attention_bwd_dq_f32(const __grid_constant__ BwdMaps m,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dq,
                      int N, int n_tiles, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int PP = kB + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kB * DP;
-  float* Ks = dOs + kB * DP;
-  float* Vs = Ks + kB * DP;
-  float* Ps = Vs + kB * DP;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const long long bh = blockIdx.x / n_tiles;
-  const int q0 = (blockIdx.x % n_tiles) * kB;
-  const long long base = bh * (long long)N * D;
-
-  load_tile<D>(Qs, q + base, q0, N, tid);
-  load_tile<D>(dOs, dout + base, q0, N, tid);
-
-  float acc[4][DC];  // dq
-  float lr[4], dr[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    lr[i] = r < N ? lse[bh * N + r] : 0.f;  // rows past N: zero q and dO
-    dr[i] = r < N ? delta[bh * N + r] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  using C = F32Bwd<D>;
+  constexpr int KT = C::KT;
+  constexpr int NS = KT / 2;
+  extern __shared__ uint8_t smem_raw[];
+  typename C::DqRing ring(smem_raw);
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * 64;
+  const int n_kt = (N + KT - 1) / KT;
+  if (threadIdx.x == 0) {
+    load_own<D>(ring, m, q0, bh);
+    for (int it = 0; it < C::STAGES && it < n_kt; ++it)
+      load_stage<D, KT, 4, 2>(ring, m, it, bh);
   }
 
-  // dS = P (dP - delta), dq += dS k
-  for (int k0 = 0; k0 < N; k0 += kB) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Ks, k + base, k0, N, tid);
-    load_tile<D>(Vs, v + base, k0, N, tid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
+  const int lane = threadIdx.x & 31;
+  const int row = q0 + 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const float sl2 = scale * sm90::kLog2e;
+  float l2[2], dl[2];  // rows row, row + 8: lse (base 2) and delta
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;  // rows past N: zero q and dO, not stored
+    l2[h] = r < N ? lse[(long long)bh * N + r] * sm90::kLog2e : 0.f;
+    dl[h] = r < N ? delta[(long long)bh * N + r] : 0.f;
+  }
+  float acc[D / 2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kb[4], vb[4];
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float one[2] = {1.f, 1.f};
+
+  const uint32_t own = ring.wait_own();
+  auto own_desc = [&](int i) {
+    return [=](int t) {
+      return sm90::desc_k32<D, 64>(own + i * C::Own::BYTES, t);
+    };
+  };
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const uint32_t st = ring.wait(kt);
+    auto row_desc = [&](int i) {
+      return [=](int t) {
+        return sm90::desc_k32<D, KT>(st + i * C::KRow::BYTES, t);
+      };
+    };
+    float sc[NS], dp[NS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty + 16 * i) * DP + d];
-        oa[i] = dOs[(ty + 16 * i) * DP + d];
-      }
+    for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wg_fence();
+    // own 0, 1: Q hi, lo; 2, 3: dO hi, lo. rows 0, 1: K; 2, 3: V
+    sm90::split_ss<D / 8>(sc, own_desc(0), own_desc(1), row_desc(0),
+                          row_desc(1));
+    sm90::split_ss<D / 8>(dp, own_desc(2), own_desc(3), row_desc(2),
+                          row_desc(3));
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    const bool ragged = (kt + 1) * KT > N;  // keys past N: P = 0
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = Ks[(tx + 16 * j) * DP + d];
-        vb[j] = Vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-        }
+    for (int i = 0; i < NS; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = sm90::ex2(fmaf(sc[i], sl2, -l2[h]));
+      if (ragged && kt * KT + 8 * (i >> 2) + col0 + (i & 1) >= N) p = 0.f;
+      sc[i] = p * (dp[i] - dl[h]);  // dS
     }
+    uint32_t hi[KT / 8][4], lo[KT / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = k0 + tx + 16 * j < N;
-        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p * (dp[i][j] - dr[i]);
-      }
+    for (int kk = 0; kk < KT / 8; ++kk)
+      sm90::frag_tf32(sc, kk, hi[kk], lo[kk]);
+    const uint32_t kc = st + 4 * C::KRow::BYTES;  // K^T hi, lo
+    sm90::add_product<KT / 8, D>(acc, hi, lo, kc, kc + C::KCol::BYTES,
+                                 one);
     __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      float da[4], kb[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = Ps[(ty + 16 * i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) kb[j] = Ks[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(da[i], kb[j], acc[i][j]);
-    }
+    if (threadIdx.x == 0 && kt + C::STAGES < n_kt)
+      load_stage<D, KT, 4, 2>(ring, m, kt + C::STAGES, bh);
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= N) continue;
-    float* o = dq + base + (long long)r * D;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = acc[i][j] * scale;
-  }
+  store_rows_f32<D>(acc, dq + (long long)bh * N * D, q0, N, scale);
 }
 
+// dk and dv by key tiles, keys as the rows: S^T = K Q^T and dP^T = V dO^T
+// (shared memory), P^T and dS^T in registers, dv += P^T dO and dk += dS^T Q
+// (P^T, dS^T split in registers, dO^T and Q^T from shared memory)
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv_f32(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
+__global__ void __launch_bounds__(128)
+attention_bwd_dkdv_f32(const __grid_constant__ BwdMaps m,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        float* __restrict__ dk, float* __restrict__ dv, int N,
                        int n_tiles, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int PP = kB + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kB * DP;
-  float* Qs = Vs + kB * DP;
-  float* dOs = Qs + kB * DP;
-  float* Ps = dOs + kB * DP;
-  float* dSs = Ps + kB * PP;
-  float* lse_s = dSs + kB * PP;
-  float* D_s = lse_s + kB;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const long long bh = blockIdx.x / n_tiles;
-  const int k0 = (blockIdx.x % n_tiles) * kB;
-  const long long base = bh * (long long)N * D;
-
-  load_tile<D>(Ks, k + base, k0, N, tid);
-  load_tile<D>(Vs, v + base, k0, N, tid);
-  bool key_ok[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) key_ok[j] = k0 + tx + 16 * j < N;
-
-  float dka[4][DC], dva[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kB) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Qs, q + base, q0, N, tid);
-    load_tile<D>(dOs, dout + base, q0, N, tid);
-    if (tid < kB) {
-      const int gr = q0 + tid;
-      lse_s[tid] = gr < N ? lse[bh * N + gr] : INFINITY;  // P = 0 past N
-      D_s[tid] = gr < N ? delta[bh * N + gr] : 0.f;
-    }
-    __syncthreads();
-    // tile (query row ty + 16 i, key tx + 16 j)
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qs[(ty + 16 * i) * DP + d];
-        oa[i] = dOs[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = Ks[(tx + 16 * j) * DP + d];
-        vb[j] = Vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float l = lse_s[r];
-      const float dd = D_s[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = key_ok[j] ? expf(s[i][j] * scale - l) : 0.f;
-        Ps[r * PP + tx + 16 * j] = p;
-        dSs[r * PP + tx + 16 * j] = p * (dp[i][j] - dd);
-      }
-    }
-    __syncthreads();
-    // (key ty + 16 i, channel tx + 16 j): sum over the tile's query rows
-#pragma unroll 4
-    for (int r = 0; r < kB; ++r) {
-      float pa[4], sa[4], ob[DC], qb[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = Ps[r * PP + ty + 16 * i];
-        sa[i] = dSs[r * PP + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        ob[j] = dOs[r * DP + tx + 16 * j];
-        qb[j] = Qs[r * DP + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          dva[i][j] = fmaf(pa[i], ob[j], dva[i][j]);
-          dka[i][j] = fmaf(sa[i], qb[j], dka[i][j]);
-        }
-    }
+  using C = F32Bwd<D>;
+  constexpr int QT = C::QT;
+  constexpr int NS = QT / 2;
+  extern __shared__ uint8_t smem_raw[];
+  typename C::KvRing ring(smem_raw);
+  const int bh = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x % n_tiles) * 64;
+  const int n_qt = (N + QT - 1) / QT;
+  if (threadIdx.x == 0) {
+    load_own<D>(ring, m, k0, bh);
+    for (int it = 0; it < C::STAGES && it < n_qt; ++it)
+      load_stage<D, QT, 4, 4>(ring, m, it, bh);
   }
 
+  const int col0 = 2 * (threadIdx.x & 3);
+  const float sl2 = scale * sm90::kLog2e;
+  const float* lse_h = lse + (long long)bh * N;
+  const float* delta_h = delta + (long long)bh * N;
+  float dka[D / 2], dva[D / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= N) continue;
-    float* ok = dk + base + (long long)r * D;
-    float* ov = dv + base + (long long)r * D;
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const float one[2] = {1.f, 1.f};
+
+  const uint32_t own = ring.wait_own();
+  auto own_desc = [&](int i) {
+    return [=](int t) {
+      return sm90::desc_k32<D, 64>(own + i * C::Own::BYTES, t);
+    };
+  };
+  for (int qt = 0; qt < n_qt; ++qt) {
+    // this thread's queries 8 j + col0 + e of the tile: lse (base 2) and
+    // delta; queries past N: P = 0
+    float l2c[NS / 2], dlc[NS / 2];
 #pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      ok[tx + 16 * j] = dka[i][j] * scale;
-      ov[tx + 16 * j] = dva[i][j];
+    for (int c = 0; c < NS / 2; ++c) {
+      const int q = qt * QT + 8 * (c >> 1) + col0 + (c & 1);
+      l2c[c] = q < N ? __ldg(lse_h + q) * sm90::kLog2e : INFINITY;
+      dlc[c] = q < N ? __ldg(delta_h + q) : 0.f;
     }
+    const uint32_t st = ring.wait(qt);
+    auto row_desc = [&](int i) {
+      return [=](int t) {
+        return sm90::desc_k32<D, QT>(st + i * C::QRow::BYTES, t);
+      };
+    };
+    float sc[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wg_fence();
+    // own 0, 1: K hi, lo; 2, 3: V hi, lo. rows 0, 1: Q; 2, 3: dO
+    sm90::split_ss<D / 8>(sc, own_desc(0), own_desc(1), row_desc(0),
+                          row_desc(1));
+    sm90::split_ss<D / 8>(dp, own_desc(2), own_desc(3), row_desc(2),
+                          row_desc(3));
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    // register i holds (key row, query 8 (i >> 2) + col0 + (i & 1))
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = 2 * (i >> 2) + (i & 1);
+      sc[i] = sm90::ex2(fmaf(sc[i], sl2, -l2c[c]));  // P^T
+      dp[i] = sc[i] * (dp[i] - dlc[c]);              // dS^T
+    }
+    // columns 0, 1: Q^T hi, lo; 2, 3: dO^T hi, lo. At D = 128 the
+    // accumulators dk, dv take 128 registers: the tile sums go 32 columns
+    // at a time and the fragments of P^T and dS^T one after the other
+    constexpr int W = D > 64 ? 32 : D;
+    const uint32_t cols = st + 4 * C::QRow::BYTES;
+    {
+      uint32_t hi[QT / 8][4], lo[QT / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < QT / 8; ++kk)
+        sm90::frag_tf32(sc, kk, hi[kk], lo[kk]);
+      sm90::add_product<QT / 8, D, W>(dva, hi, lo,
+                                      cols + 2 * C::QCol::BYTES,
+                                      cols + 3 * C::QCol::BYTES, one);
+    }
+    {
+      uint32_t hi[QT / 8][4], lo[QT / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < QT / 8; ++kk)
+        sm90::frag_tf32(dp, kk, hi[kk], lo[kk]);
+      sm90::add_product<QT / 8, D, W>(dka, hi, lo, cols,
+                                      cols + C::QCol::BYTES, one);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && qt + C::STAGES < n_qt)
+      load_stage<D, QT, 4, 4>(ring, m, qt + C::STAGES, bh);
   }
+  store_rows_f32<D>(dka, dk + (long long)bh * N * D, k0, N, scale);
+  store_rows_f32<D>(dva, dv + (long long)bh * N * D, k0, N, 1.f);
 }
 
 struct Args {
@@ -367,37 +394,75 @@ cudaError_t launch_delta(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the delta region of the scratch, in floats: BH N rounded up to 64 (the
+// split copies after it stay 256-byte aligned)
+inline size_t delta_floats(int BH, int N) {
+  return ((size_t)BH * N + 63) / 64 * 64;
+}
+
+// a.delta: the scratch, delta_floats(BH, N) + 8 BH N D + 6 BH D Np floats:
+// delta, the row copies (hi, lo) of q, k, v, dO, the column copies of k, q,
+// dO
 template <int D>
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
-  const int n_tiles = (a.N + kB - 1) / kB;
-  const long long blocks = (long long)a.BH * n_tiles;
+  using C = F32Bwd<D>;
+  const int BH = a.BH, N = a.N, Np = sm90::padded_rows(N);
+  const size_t nd = (size_t)BH * N * D, tp = (size_t)BH * D * Np;
+  float* r = a.delta + delta_floats(BH, N);  // q, k, v, dO rows: hi, lo
+  float* c = r + 8 * nd;                      // k, q, dO columns: hi, lo
+  const void* src[4] = {a.q, a.k, a.v, a.dout};
+  BwdMaps mq, mkv;  // the dq kernel's and the dk/dv kernel's
+  bool ok = true;
+  for (int i = 0; i < 2; ++i) {
+    float* q = r + i * nd;          // Q hi, lo
+    float* k = r + (2 + i) * nd;    // K
+    float* v = r + (4 + i) * nd;    // V
+    float* o = r + (6 + i) * nd;    // dO
+    ok = ok && sm90::make_map32<D, 64>(&mq.own[i], q, BH, N, D) &&
+         sm90::make_map32<D, 64>(&mq.own[2 + i], o, BH, N, D) &&
+         sm90::make_map32<D, C::KT>(&mq.rows[i], k, BH, N, D) &&
+         sm90::make_map32<D, C::KT>(&mq.rows[2 + i], v, BH, N, D) &&
+         sm90::make_map32<C::KT, D>(&mq.cols[i], c + i * tp, BH, D, Np) &&
+         sm90::make_map32<D, 64>(&mkv.own[i], k, BH, N, D) &&
+         sm90::make_map32<D, 64>(&mkv.own[2 + i], v, BH, N, D) &&
+         sm90::make_map32<D, C::QT>(&mkv.rows[i], q, BH, N, D) &&
+         sm90::make_map32<D, C::QT>(&mkv.rows[2 + i], o, BH, N, D) &&
+         sm90::make_map32<C::QT, D>(&mkv.cols[i], c + (2 + i) * tp, BH, D,
+                                    Np) &&
+         sm90::make_map32<C::QT, D>(&mkv.cols[2 + i], c + (4 + i) * tp, BH,
+                                    D, Np);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  const int n_tiles = (N + 63) / 64;
+  const long long blocks = (long long)BH * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   cudaError_t err = launch_delta<float, D>(a, stream);
+  // rows of all four; columns of k (slot 0), q (1), dO (2)
+  const int col_slot[4] = {1, 0, -1, 2};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+    float* ch = col_slot[i] < 0 ? nullptr : c + 2 * col_slot[i] * tp;
+    err = sm90::launch_split<D>(src[i], r + 2 * i * nd, r + (2 * i + 1) * nd,
+                                ch, ch == nullptr ? nullptr : ch + tp, BH, N,
+                                stream);
+  }
   if (err != cudaSuccess) return err;
-  const float* qq = static_cast<const float*>(a.q);
-  const float* kk = static_cast<const float*>(a.k);
-  const float* vv = static_cast<const float*>(a.v);
-  const float* oo = static_cast<const float*>(a.dout);
 
-  const size_t smem_dq = sizeof(float) * dq_smem_floats<D>();
   auto kdq = attention_bwd_dq_f32<D>;
   err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_dq);
+                             (int)C::DqRing::BYTES);
   if (err != cudaSuccess) return err;
-  kdq<<<(unsigned)blocks, kThreads, smem_dq, stream>>>(
-      qq, kk, vv, oo, a.lse, a.delta, static_cast<float*>(a.dq), a.N,
-      n_tiles, a.scale);
+  kdq<<<(unsigned)blocks, 128, C::DqRing::BYTES, stream>>>(
+      mq, a.lse, a.delta, static_cast<float*>(a.dq), N, n_tiles, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem_kv = sizeof(float) * dkdv_smem_floats<D>();
   auto kkv = attention_bwd_dkdv_f32<D>;
   err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_kv);
+                             (int)C::KvRing::BYTES);
   if (err != cudaSuccess) return err;
-  kkv<<<(unsigned)blocks, kThreads, smem_kv, stream>>>(
-      qq, kk, vv, oo, a.lse, a.delta, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.N, n_tiles, a.scale);
+  kkv<<<(unsigned)blocks, 128, C::KvRing::BYTES, stream>>>(
+      mkv, a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), N, n_tiles, a.scale);
   return cudaGetLastError();
 }
 
@@ -657,7 +722,9 @@ cudaError_t launch(const Args& a, int is_bf16, cudaStream_t stream) {
 }  // namespace
 
 // o, lse: the forward's output in fp32 and its row log-sum-exp; delta: an
-// fp32 scratch of BH * N floats. Returns a cudaError_t.
+// fp32 scratch of BH * N floats (bf16) or of delta_floats(BH, N) + 8 BH N D
+// + 6 BH D Np floats (fp32: delta and the split copies). Returns a
+// cudaError_t.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* o, const void* lse,
                              const void* dout, void* dq, void* dk, void* dv,

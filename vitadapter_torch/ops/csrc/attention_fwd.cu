@@ -35,12 +35,25 @@
 // moves dq and dk by several times the card's 1e-5 x max tolerance on
 // small elements.
 //
-// fp32 keeps the CUDA-core kernel: 256 threads as a 16 x 16 grid over 64 x
-// 64 tiles, fp32 FMAs (TF32 would miss the fp32 tolerance), the same online
-// softmax in base e, and the same log-sum-exp output.
+// Design, fp32: the same flash attention with every product on the tensor
+// cores in split TF32 (sm90.cuh). A pre-pass behind the same entry point
+// reads q, k and v once and writes hi (TF32-exact) and lo = x - hi copies
+// into the caller's scratch: Q and K as they are laid out, V transposed to
+// (D, N) in k8_source order, since TF32 wgmma takes B K-major only and
+// O += P V contracts over the keys. Each product is then three wgmmas,
+// A_lo B_hi + A_hi B_lo + A_hi B_hi, about 2^-20 relative against fp32's
+// 1e-5 tolerance (single-pass TF32 misses it). P is split in registers
+// (frag_tf32), and each tile's P V sums in a fresh accumulator before it
+// joins O (add_product). A stage carries K hi/lo and V^T hi/lo, 64 KB at
+// D = 64, so two warpgroups (128 query rows, 256 threads) share each
+// stage: 192 KB of shared memory, one CTA per SM. At D = 128 one
+// warpgroup of 64 rows takes 32-key tiles (the same 64 KB a stage); at
+// D = 32, 96 KB. The pre-pass moves O(N D) bytes against the O(N^2 D)
+// products.
 //
-// Layouts (all contiguous): q, k, v, out (B * H, N, D), bf16 or fp32; out32
-// (B * H, N, D) fp32 or null (bf16 only); lse (B * H, N) fp32.
+// Layouts (all contiguous): q, k, v, out (B * H, N, D), bf16 or fp32; aux
+// (B * H, N, D) fp32 or null (bf16), the split scratch (fp32); lse (B * H,
+// N) fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,161 +63,196 @@
 
 namespace {
 
-// ---- fp32: CUDA cores ----------------------------------------------------
+// ---- fp32: split TF32 on the tensor cores ---------------------------------
 
-constexpr int kBM = 64;  // query rows per block
-constexpr int kBN = 64;  // keys per tile
-constexpr int kThreads = 256;
+// per head dim: WG warpgroups of 64 query rows share each key tile; KT keys
+// per tile. A stage holds K hi, K lo (KT x D) and V^T hi, V^T lo (D x KT):
+// 64 KB at D = 64 and 128, so D = 128 takes 32-key tiles and one
+// warpgroup. Shared memory: 96 KB (D = 32), 192 KB (D = 64 and 128).
+template <int D>
+struct F32Fwd {
+  static constexpr int WG = D == 128 ? 1 : 2;
+  static constexpr int KT = D == 128 ? 32 : 64;
+  static constexpr int STAGES = 2;
+  static constexpr int ROWS = 64 * WG;
+  using QTile = sm90::Tile32<D, ROWS>;
+  using KTile = sm90::Tile32<D, KT>;
+  using VTile = sm90::Tile32<KT, D>;  // V^T: D rows, KT keys
+  static constexpr uint32_t OWN = 2 * QTile::BYTES;
+  static constexpr uint32_t STAGE = 2 * KTile::BYTES + 2 * VTile::BYTES;
+  using Ring = sm90::Ring<OWN, STAGE, STAGES>;
+};
+
+// the split copies: Q and K hi/lo (BH, N, D), V^T hi/lo (BH, D, Np)
+struct FwdMaps {
+  CUtensorMap qh, ql, kh, kl, vh, vl;
+};
 
 template <int D>
-constexpr int smem_floats() {
-  // Q and K tiles padded by one word per row (conflict-free column reads),
-  // V tile, P tile padded by one word per row.
-  return kBM * (D + 1) + kBN * (D + 1) + kBN * D + kBM * (kBN + 1);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
-                  float* __restrict__ lse, int N, int n_qtiles, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int PP = kBN + 1;
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBM * DP;
-  float* Vs = Ks + kBN * DP;
-  float* Ps = Vs + kBN * D;
+__global__ void __launch_bounds__(128 * F32Fwd<D>::WG)
+attention_fwd_f32(const __grid_constant__ FwdMaps m, float* __restrict__ out,
+                  float* __restrict__ lse, int N, int n_qtiles,
+                  float scale) {
+  using C = F32Fwd<D>;
+  constexpr int KT = C::KT;
+  constexpr int NS = KT / 2;  // score registers
+  constexpr int NO = D / 2;   // output registers
+  extern __shared__ uint8_t smem_raw[];
+  typename C::Ring ring(smem_raw);
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const long long bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBM;
-  const long long base = bh * (long long)N * D;
-
-  for (int idx = tid; idx < kBM * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int gr = q0 + r;
-    Qs[r * DP + c] = gr < N ? q[base + (long long)gr * D + c] : 0.f;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * C::ROWS;
+  const int n_kt = (N + KT - 1) / KT;
+  auto load = [&](int it) {
+    uint8_t* st = ring.stage(it);
+    uint64_t* bar = ring.bar(it);
+    sm90::mbar_expect_tx(bar, C::STAGE);
+    sm90::tma_load_tile32<D, KT>(st, &m.kh, bar, 0, it * KT, bh);
+    sm90::tma_load_tile32<D, KT>(st + C::KTile::BYTES, &m.kl, bar, 0,
+                                 it * KT, bh);
+    st += 2 * C::KTile::BYTES;
+    sm90::tma_load_tile32<KT, D>(st, &m.vh, bar, it * KT, 0, bh);
+    sm90::tma_load_tile32<KT, D>(st + C::VTile::BYTES, &m.vl, bar, it * KT,
+                                 0, bh);
+  };
+  if (tid == 0) {
+    sm90::mbar_expect_tx(ring.own_bar(), C::OWN);
+    sm90::tma_load_tile32<D, C::ROWS>(ring.smem, &m.qh, ring.own_bar(), 0,
+                                      q0, bh);
+    sm90::tma_load_tile32<D, C::ROWS>(ring.smem + C::QTile::BYTES, &m.ql,
+                                      ring.own_bar(), 0, q0, bh);
+    for (int it = 0; it < C::STAGES && it < n_kt; ++it) load(it);
   }
 
-  float acc[4][DC];
-  float m_i[4], l_i[4];
+  const float sl2 = scale * sm90::kLog2e;  // scores in base 2
+  float o[NO];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m_[2] = {-INFINITY, -INFINITY};  // rows r, r + 8: max raw score
+  float l[2] = {0.f, 0.f};               // this thread's share of the sum
+  const int col0 = 2 * (lane & 3);
 
-  for (int k0 = 0; k0 < N; k0 += kBN) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < kBN * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int gr = k0 + r;
-      const bool ok = gr < N;
-      const long long g = base + (long long)gr * D + c;
-      Ks[r * DP + c] = ok ? k[g] : 0.f;
-      Vs[r * D + c] = ok ? v[g] : 0.f;
-    }
-    __syncthreads();
+  const uint32_t qh = ring.wait_own(), ql = qh + C::QTile::BYTES;
+  const int qrow = 64 * wg;  // this warpgroup's rows of the query tile
+  auto q_hi = [&](int t) { return sm90::desc_k32<D, C::ROWS>(qh, t, qrow); };
+  auto q_lo = [&](int t) { return sm90::desc_k32<D, C::ROWS>(ql, t, qrow); };
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const uint32_t kh = ring.wait(kt), kl = kh + C::KTile::BYTES;
+    const uint32_t vh = kl + C::KTile::BYTES, vl = vh + C::VTile::BYTES;
 
+    // S = Q K^T
+    float sc[NS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = k0 + tx + 16 * j < N;
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 threads of a row are lanes 0-15 or 16-31 of one warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // finite: the first key of every tile is < N
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_i[i] = l_i[i] * alpha + sum;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
+    for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::wg_fence();
+    sm90::split_ss<D / 8>(
+        sc, q_hi, q_lo,
+        [&](int t) { return sm90::desc_k32<D, KT>(kh, t); },
+        [&](int t) { return sm90::desc_k32<D, KT>(kl, t); });
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::fence_regs(sc);
 
-#pragma unroll 4
-    for (int c = 0; c < kBN; ++c) {
-      float pa[4], vb[DC];
+    // online softmax as the bf16 kernel's: register i holds (row r + 8
+    // ((i >> 1) & 1), key 8 (i >> 2) + col0 + (i & 1)); keys past N, only
+    // in the last tile, are masked to -inf
+    if ((kt + 1) * KT > N) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty + 16 * i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) vb[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
+      for (int i = 0; i < NS; ++i)
+        if (kt * KT + 8 * (i >> 2) + col0 + (i & 1) >= N) sc[i] = -INFINITY;
     }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], ms[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_[h], mx[h]);  // finite: key kt * KT < N
+      alpha[h] = sm90::ex2((m_[h] - m_new) * sl2);
+      m_[h] = m_new;
+      ms[h] = -m_new * sl2;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      sc[i] = sm90::ex2(fmaf(sc[i], sl2, ms[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += sc[i];
+    }
+    // O = O alpha + P V, P split in registers, V^T from shared memory
+    uint32_t ph[KT / 8][4], pl[KT / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk)
+      sm90::frag_tf32(sc, kk, ph[kk], pl[kk]);
+    sm90::add_product<KT / 8, D>(o, ph, pl, vh, vl, alpha);
+
+    __syncthreads();  // both warpgroups are done with the stage
+    if (tid == 0 && kt + C::STAGES < n_kt) load(kt + C::STAGES);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const int r0 = q0 + qrow + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
     if (r >= N) continue;
-    const float inv = 1.f / l_i[i];
-    float* o = out + base + (long long)r * D;
+    const float inv = 1.f / l[h];
+    float* dst = out + ((long long)bh * N + r) * D;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = acc[i][j] * inv;
-    if (tx == 0) lse[bh * N + r] = m_i[i] + logf(l_i[i]);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j + col0) =
+          make_float2(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    if ((lane & 3) == 0)
+      lse[(long long)bh * N + r] = m_[h] * scale + logf(l[h]);
   }
 }
 
+// split: 4 BH N D + 2 BH D Np floats of scratch for the split copies
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       float* lse, int BH, int N, float scale,
-                       cudaStream_t stream) {
-  const int n_qtiles = (N + kBM - 1) / kBM;
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, float* split, float* lse, int BH, int N,
+                       float scale, cudaStream_t stream) {
+  using C = F32Fwd<D>;
+  const int Np = sm90::padded_rows(N);
+  const size_t nd = (size_t)BH * N * D;
+  float *qh = split, *ql = qh + nd, *kh = ql + nd, *kl = kh + nd;
+  float *vh = kl + nd, *vl = vh + (size_t)BH * D * Np;
+  FwdMaps m;
+  if (!sm90::make_map32<D, C::ROWS>(&m.qh, qh, BH, N, D) ||
+      !sm90::make_map32<D, C::ROWS>(&m.ql, ql, BH, N, D) ||
+      !sm90::make_map32<D, C::KT>(&m.kh, kh, BH, N, D) ||
+      !sm90::make_map32<D, C::KT>(&m.kl, kl, BH, N, D) ||
+      !sm90::make_map32<C::KT, D>(&m.vh, vh, BH, D, Np) ||
+      !sm90::make_map32<C::KT, D>(&m.vl, vl, BH, D, Np))
+    return cudaErrorInvalidValue;
+  const int n_qtiles = (N + C::ROWS - 1) / C::ROWS;
   const long long blocks = (long long)BH * n_qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  auto kernel = attention_fwd_f32<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      sm90::launch_split<D>(q, qh, ql, nullptr, nullptr, BH, N, stream);
+  if (err == cudaSuccess)
+    err = sm90::launch_split<D>(k, kh, kl, nullptr, nullptr, BH, N, stream);
+  if (err == cudaSuccess)
+    err = sm90::launch_split<D>(v, nullptr, nullptr, vh, vl, BH, N, stream);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, N,
-      n_qtiles, scale);
+  const size_t smem = C::Ring::BYTES;
+  auto kernel = attention_fwd_f32<D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, 128 * C::WG, smem, stream>>>(
+      m, static_cast<float*>(out), lse, N, n_qtiles, scale);
   return cudaGetLastError();
 }
 
@@ -378,33 +426,36 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* out32, float* lse, int BH, int N, float scale,
+                   void* aux, float* lse, int BH, int N, float scale,
                    int is_bf16, cudaStream_t stream) {
-  if (!is_bf16 && out32 != nullptr) return cudaErrorInvalidValue;
-  return is_bf16
-             ? launch_bf16<D>(q, k, v, out, out32, lse, BH, N, scale, stream)
-             : launch_f32<D>(q, k, v, out, lse, BH, N, scale, stream);
+  if (is_bf16)
+    return launch_bf16<D>(q, k, v, out, static_cast<float*>(aux), lse, BH, N,
+                          scale, stream);
+  if (aux == nullptr) return cudaErrorInvalidValue;
+  return launch_f32<D>(q, k, v, out, static_cast<float*>(aux), lse, BH, N,
+                       scale, stream);
 }
 
 }  // namespace
 
-// out32: null, or (bf16 only) the fp32 output for the backward; lse:
-// (BH, N) fp32, written. Returns a cudaError_t.
+// aux: for bf16, null or the fp32 output for the backward; for fp32, the
+// scratch of the split copies, 4 BH N D + 2 BH D Np floats (Np: N rounded
+// up to a multiple of 64). lse: (BH, N) fp32, written. Returns a
+// cudaError_t.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             void* out, void* out32, void* lse, int BH, int N,
+                             void* out, void* aux, void* lse, int BH, int N,
                              int D, float scale, int is_bf16, void* stream) {
   if (BH < 0 || N < 0) return (int)cudaErrorInvalidValue;
   if ((long long)BH * N == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o32 = static_cast<float*>(out32);
   float* l = static_cast<float*>(lse);
   switch (D) {
     case 32:
-      return (int)launch<32>(q, k, v, out, o32, l, BH, N, scale, is_bf16, s);
+      return (int)launch<32>(q, k, v, out, aux, l, BH, N, scale, is_bf16, s);
     case 64:
-      return (int)launch<64>(q, k, v, out, o32, l, BH, N, scale, is_bf16, s);
+      return (int)launch<64>(q, k, v, out, aux, l, BH, N, scale, is_bf16, s);
     case 128:
-      return (int)launch<128>(q, k, v, out, o32, l, BH, N, scale, is_bf16, s);
+      return (int)launch<128>(q, k, v, out, aux, l, BH, N, scale, is_bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,10 +13,12 @@ older commit unpacked with `git archive`); its kernels build there. The
 clock (`chip_smoke.time_ms`: CUDA events, L2 flushed and the launches
 queued before each call) is this file's own checkout's, so both commits are
 timed alike.
-At the flagship's shape (2, 16, 1024, 64) bf16 it times, per call, the
-forward without a gradient (`fused_attention`) and the backward through
-autograd (`torch.autograd.grad` of `fused_attention`'s output), and
-`scaled_dot_product_attention` both ways. Prints the card's name and power
+It times, per call, the forward without a gradient (`fused_attention`)
+and the backward through autograd (`torch.autograd.grad` of
+`fused_attention`'s output), and `scaled_dot_product_attention` both ways:
+at the flagship's shape (2, 16, 1024, 64) in bf16 and in fp32, and in fp32
+at `chip_smoke.ATTN_PATH_CASES`' lengths (B 1, 16 heads, D 64; the
+backward only where that path takes one). Prints the card's name and power
 limit, then one JSON line.
 """
 
@@ -33,6 +35,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SHAPE = (2, 16, 1024, 64)
 ITERS = 20
+PATH_ITERS = 5  # the path lengths' calls take 2-90 ms
 
 
 def load_checkout(args, module, doc):
@@ -59,31 +62,46 @@ def load_checkout(args, module, doc):
     return smoke, mod
 
 
+def time_case(smoke, at, shape, dtype, backward, iters):
+    """ms per call of the checkout's attention and of SDPA at one shape."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
+                  .to(dtype) for _ in range(4))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    with torch.no_grad():
+        ms = {"fwd_ms": smoke.time_ms(lambda: at.fused_attention(q, k, v),
+                                      flush, iters),
+              "sdpa_ms": smoke.time_ms(
+                  lambda: F.scaled_dot_product_attention(q, k, v), flush,
+                  iters)}
+    if backward:
+        ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = at.fused_attention(*ins)
+        lib_out = F.scaled_dot_product_attention(*lib)
+        ms["bwd_ms"] = smoke.time_ms(lambda: torch.autograd.grad(
+            out, ins, g, retain_graph=True), flush, iters)
+        ms["sdpa_bwd_ms"] = smoke.time_ms(lambda: torch.autograd.grad(
+            lib_out, lib, g, retain_graph=True), flush, iters)
+        ms["bwd_ratio"] = ms["bwd_ms"] / ms["sdpa_bwd_ms"]
+    ms["fwd_ratio"] = ms["fwd_ms"] / ms["sdpa_ms"]
+    return ms
+
+
 def main(argv=None):
     args = sys.argv[1:] if argv is None else argv
     smoke, at = load_checkout(args, "ops.attention", __doc__)
-    root = os.path.abspath(args[0])
-    gen = torch.Generator("cuda").manual_seed(0)
-    q, k, v, g = (torch.randn(*SHAPE, generator=gen, device="cuda")
-                  .to(torch.bfloat16) for _ in range(4))
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    lib = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = at.fused_attention(*ins)
-    lib_out = F.scaled_dot_product_attention(*lib)
-    with torch.no_grad():
-        ms = {"fwd_ms": smoke.time_ms(lambda: at.fused_attention(q, k, v),
-                                      flush, ITERS),
-              "sdpa_ms": smoke.time_ms(
-                  lambda: F.scaled_dot_product_attention(q, k, v), flush,
-                  ITERS)}
-    ms["bwd_ms"] = smoke.time_ms(lambda: torch.autograd.grad(
-        out, ins, g, retain_graph=True), flush, ITERS)
-    ms["sdpa_bwd_ms"] = smoke.time_ms(lambda: torch.autograd.grad(
-        lib_out, lib, g, retain_graph=True), flush, ITERS)
-    print(json.dumps({"checkout": root, "shape": SHAPE, **ms,
-                      "fwd_ratio": ms["fwd_ms"] / ms["sdpa_ms"],
-                      "bwd_ratio": ms["bwd_ms"] / ms["sdpa_bwd_ms"]}))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {"flagship_bf16": (SHAPE, torch.bfloat16, True, ITERS),
+             "flagship_fp32": (SHAPE, torch.float32, True, ITERS)}
+    for name, (n, _path, _calls, backward) in smoke.ATTN_PATH_CASES.items():
+        cases[name] = ((1, 16, n, 64), torch.float32, backward, PATH_ITERS)
+    result = {"checkout": os.path.abspath(args[0])}
+    for name, (shape, dtype, backward, iters) in cases.items():
+        result[name] = {"shape": shape, "dtype": str(dtype),
+                        **time_case(smoke, at, shape, dtype, backward, iters)}
+        torch.cuda.empty_cache()
+    print(json.dumps(result))
     return 0
 
 
