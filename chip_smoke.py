@@ -11,7 +11,8 @@ Phases (each failure exits non-zero; nothing is caught):
      printing registers and spills by kernel instantiation, and the
      tensor-core instructions in the attention libraries' SASS by
      instantiation (TF32 and bf16 `HGMMA`, `HMMA`); fails if an fp32
-     attention kernel has no TF32 `HGMMA`;
+     attention kernel has no TF32 `HGMMA`, or if an instantiation of the
+     fused MSDA kernels has a stack frame;
   3. holds each kernel against its plain PyTorch version on the card, fp32
      and bf16, at the flagship's shapes: the forward kernels, and the
      backward kernels reached through the autograd wrappers (so the
@@ -46,20 +47,28 @@ Phases (each failure exits non-zero; nothing is caught):
  10. evaluates the reduced model in fp32 through `run_eval` on two odd-sized
      non-square images (whole mode, ratios 0.75 and 1.0 with flip) on the
      card and on the CPU and compares the confusion matrices.
-Phase 3 also holds the per-level MSDA kernels against their plain versions,
-and the per-level route against the fused kernels, at the shapes of every
-MSDA call that takes that route in phases 8 and 9 (and at a few thousand
-queries in fp32 and bf16), on uniform locations and on locations shaped as
-the model makes them (`msda_model_locations`; msda_level_fwd and _dgrid
-timed there too, under `model_shaped`, and launched twice for bitwise-equal
-outputs), and at other P, widths and a misaligned value
+Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
+plain versions on uniform locations and on locations shaped as the model
+makes them (`msda_model_locations` with each geometry's query set, timed
+there too under the rows' `model_shaped`), launched twice into outputs
+filled with NaN first, the output, d loc and d attn bitwise equal across
+the launches; at other P, widths, level counts and a misaligned value
+(`FUSED_LAYOUTS`); and in fp32 at the shapes where phases 8 and 9 run them
+(`MSDA_PATH_CASES`, the plain versions four heads at a time; the rows'
+`paths`). It also holds the per-level MSDA kernels against their plain
+versions, and the per-level route against the fused kernels, at the shapes
+of every MSDA call that takes that route in phases 8 and 9 (and at a few
+thousand queries in fp32 and bf16), on uniform locations and on locations
+shaped as the model makes them (`msda_model_locations`; msda_level_fwd and
+_dgrid timed there too, under `model_shaped`, and launched twice for
+bitwise-equal outputs), and at other P, widths and a misaligned value
 (`LEVEL_LAYOUTS`); and the fp32 attention at the lengths phases 8 and 9
 give it. The fp32 attention (split TF32 on the tensor cores) is launched
 twice at every case and must give bitwise-equal outputs and gradients; its
 bound is the split-TF32 floor (`attention_bound_ms`), with the CUDA-core
-figure beside it. The last two lines are a JSON object of the
-kernels' numbers (with the TPU kernels each one covers besides the one it
-replaces) and {"ok": true, "device": {...}}.
+figure beside it. The last two lines are a JSON object of the kernels'
+numbers (with the TPU kernels each one covers besides the one it replaces)
+and {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -103,12 +112,19 @@ E2E_RTOL = 1e-3
 # (1.8e-5 seen on the H100)
 TRAIN_RTOL = 1e-3
 
+SPM512 = ((64, 64), (32, 32), (16, 16))   # the SPM pyramid at 512x512
 MSDA_GEOMETRIES = {
     # name: (spatial shapes of the value, Lq, heads, calls per forward)
-    "injector": (((64, 64), (32, 32), (16, 16)), 1024, 16, 4),
+    "injector": (SPM512, 1024, 16, 4),
     "extractor": (((32, 32),), 5376, 16, 6),
-    "pixel_decoder": (((16, 16), (32, 32), (64, 64)), 5376, 32, 6),
+    "pixel_decoder": (SPM512[::-1], 5376, 32, 6),
 }
+# where each flagship geometry's queries sit, for the model-shaped
+# locations (`msda_model_locations`' `grid`): the injectors query the
+# 32x32 token grid, the extractors the SPM pyramid's cells, the pixel
+# decoder its value's own cells
+MSDA_QUERY_GRID = {"injector": (32, 32), "extractor": SPM512,
+                   "pixel_decoder": None}
 ATTN_SHAPE = (2, 16, 1024, 64)   # 24 calls per forward
 ATTN_CALLS = 24
 # fp32 attention at the lengths of the paths that run it, B 1, 16 heads,
@@ -174,6 +190,48 @@ LEVEL_QUERY_GRID = {
     "eval_pixel_decoder": None, "eval_injector": (96, 192),
     "overline_pixel_decoder": None, "overline_injector": (112, 112),
     "pixel_decoder_r1.5": (64, 64), "small_level": (64, 64),
+}
+# the fused MSDA kernels where the paths run them in fp32, B 1, D 32:
+# name: (spatial shapes of the value, Lq, heads, the query grid as
+# `MSDA_QUERY_GRID`'s, the path, its calls there, with a backward). Phase 8
+# at ratio 1.0 (1024x2048: the SPM pyramid (128, 256)/(64, 128)/(32, 64),
+# the 1/16 grid (64, 128)) runs all 16 calls fused, at ratio 1.5 only the
+# extractors ((96, 192)), each twice with the flip: 44 launches; phase 9's
+# extractors (1792x1792: (112, 112)) take a backward too
+R10 = ((32, 64), (64, 128), (128, 256))
+MSDA_PATH_CASES = {
+    "eval_r1.0_injector": (R10[::-1], 8192, 16, (64, 128), "eval_whole", 8,
+                           False),
+    "eval_r1.0_extractor": (((64, 128),), 43008, 16, R10[::-1],
+                            "eval_whole", 12, False),
+    "eval_r1.0_pixel_decoder": (R10, 43008, 32, None, "eval_whole", 12,
+                                False),
+    "eval_r1.5_extractor": (((96, 192),), 96768, 16,
+                            ((192, 384), (96, 192), (48, 96)), "eval_whole",
+                            12, False),
+    "overline_extractor": (((112, 112),), 65856, 16,
+                           ((224, 224), (112, 112), (56, 56)),
+                           "train_overline", 6, True),
+}
+# the fused kernels off the flagship's layout, fp32 and bf16 each: name:
+# (spatial shapes, query grid, heads, D, P, the value 2 or 4 bytes off
+# 16-byte alignment). As `LEVEL_LAYOUTS`: ragged and narrow rows and other
+# P (P 3 at D 32 puts two levels' points in one round of 8 or 4 lanes),
+# one, four and eight levels, and a misaligned value (the scalar
+# instantiation)
+SMALL2 = ((12, 20), (24, 40))
+FUSED_LAYOUTS = {
+    "P3": (SPM512[::-1], (32, 32), 32, 32, 3, False),
+    "ragged_d20": (SMALL2, (16, 32), 4, 20, 4, False),
+    "d64_P3": (SMALL2, (16, 32), 4, 64, 3, False),
+    "d8_P2": (SMALL2, (16, 32), 4, 8, 2, False),
+    "L1": (((24, 40),), SMALL2, 4, 32, 4, False),
+    "L4": (((6, 10), (12, 20), (24, 40), (48, 80)), (16, 32), 4, 32, 4,
+           False),
+    "L8": (tuple((2 * k + 1, 3 * k + 2) for k in range(8)), (16, 32), 4, 32,
+           4, False),
+    "misaligned_d32_P5": (SMALL2, (16, 32), 4, 32, 5, True),
+    "misaligned_d64": (SMALL2, (16, 32), 4, 64, 4, True),
 }
 # the per-level kernels off the paths' layout (P 4, D 32, 16-byte aligned),
 # fp32 and bf16 each: name: (spatial shapes, query grid, heads, D, P, the
@@ -481,7 +539,9 @@ def msda_model_locations(shapes, grid, M, P, gen, device="cuda", B=1):
     N(0, 1) pixels of noise, over the level's (W, H). `grid` None: the
     queries are the value's cells, level by level, each at its own cell's
     centre (the pixel decoder); (h, w): the cell centres of an h x w grid
-    (the injectors' 1/16 token grid). About 10% of the points are snapped
+    (the injectors' 1/16 token grid); a tuple of (h, w) grids: the cell
+    centres of each in turn (the extractors' queries, the SPM pyramid's
+    cells, over the one 1/16 level). About 10% of the points are snapped
     to integer pixel coordinates (loc * size - 0.5 integer) and about 2%
     moved onto a border cell (one coordinate into the map's first or last
     cell). `gen` is a generator on `device`."""
@@ -489,7 +549,9 @@ def msda_model_locations(shapes, grid, M, P, gen, device="cuda", B=1):
 
     L = len(shapes)
     refs = []
-    for h, w in (shapes if grid is None else (grid,)):
+    grids = (shapes if grid is None else (grid,) if isinstance(grid[0], int)
+             else grid)
+    for h, w in grids:
         y, x = torch.meshgrid((torch.arange(h, device=device) + 0.5) / h,
                               (torch.arange(w, device=device) + 0.5) / w,
                               indexing="ij")
@@ -617,14 +679,114 @@ def check_auction(rows, flush, gen):
     return ok
 
 
+def fused_launch(value, shapes, loc, attn, g):
+    """msda_fwd and msda_bwd launched once each, as `msda._kernel_forward`
+    and `_kernel_backward` launch them, into fresh outputs filled with NaN
+    first, so that an entry a kernel leaves unwritten fails every
+    comparison: (out, d value, d loc, d attn)."""
+    from vitadapter_torch.ops import cuda_ext, msda
+
+    B, S, M, D = value.shape
+    Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    nan = float("nan")
+    out = torch.full((B, Lq, M * D), nan, dtype=value.dtype, device="cuda")
+    dvalue = torch.full_like(value, nan)
+    acc = dvalue if value.dtype == F32 else torch.full(
+        value.shape, nan, dtype=F32, device="cuda")
+    dloc, dattn = torch.full_like(loc, nan), torch.full_like(attn, nan)
+    levels, starts, _keep = msda._level_arrays(shapes)
+    bf16 = int(value.dtype == BF16)
+    cuda_ext.launch("msda_fwd", value.device, value.data_ptr(),
+                    loc.data_ptr(), attn.data_ptr(), out.data_ptr(), B, S, M,
+                    D, Lq, L, P, levels, starts, bf16)
+    cuda_ext.launch("msda_bwd", value.device, value.data_ptr(),
+                    loc.data_ptr(), attn.data_ptr(), g.data_ptr(),
+                    acc.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
+                    dattn.data_ptr(), B, S, M, D, Lq, L, P, levels, starts,
+                    bf16)
+    return out, dvalue, dloc, dattn
+
+
+def msda_plain(value, shapes, loc, attn, g, heads=None, backward=True):
+    """`ms_deform_attn_plain` and (with `backward`) its gradients by
+    `ms_deform_attn_plain_backward` on `heads` heads at a time (all by
+    default), joined along the heads: (out, d value, d loc, d attn), or
+    (out,). At the paths' sizes the plain version's gathered corners of
+    all heads would not fit beside the rest."""
+    from vitadapter_torch.ops import msda
+
+    B, Lq, M = loc.shape[:3]
+    D = value.shape[-1]
+    heads = heads or M
+    g4 = g.reshape(B, Lq, M, D)
+    parts = []
+    for h in range(0, M, heads):
+        v, lc, a = (t[:, :, h:h + heads].contiguous()
+                    for t in (value, loc, attn))
+        gh = g4[:, :, h:h + heads].reshape(B, Lq, -1)
+        out = msda.ms_deform_attn_plain(v, shapes, lc, a)
+        grads = (msda.ms_deform_attn_plain_backward(v, shapes, lc, a, gh)
+                 if backward else ())
+        parts.append((out.reshape(B, Lq, -1, D), *grads))
+    out, *grads = (torch.cat(p, 2) for p in zip(*parts))
+    return (out.reshape(B, Lq, M * D), *grads)
+
+
+def check_fused(value, shapes, loc, attn, g, heads=None):
+    """The fused kernels on one set of inputs: launched twice into fresh
+    outputs (`fused_launch`), the output, d loc and d attn bitwise equal
+    across the launches, and each launch against the plain version
+    (`msda_plain`): the output within `TOL`, each gradient within
+    `GRAD_TOL` (d value from atomics, so not bitwise). Returns (ok,
+    words for the log, the output's error, the gradients' largest)."""
+    first, second = (fused_launch(value, shapes, loc, attn, g)
+                     for _ in range(2))
+    same = all(torch.equal(first[i], second[i]) for i in (0, 2, 3))
+    ref = msda_plain(value, shapes, loc, attn, g, heads)
+    torch.cuda.synchronize()
+    fwd = [close(r[0], ref[0], value.dtype) for r in (first, second)]
+    grads = [close_grad(r[i], ref[i]) for r in (first, second)
+             for i in (1, 2, 3)]
+    ok = same and all(c[0] for c in fwd + grads)
+    err = max(c[1] for c in fwd)
+    err_b = max(c[1] for c in grads)
+    words = (f"max_abs_err={err:.3e}, grads (value, loc, attn)="
+             f"{[f'{c[1]:.3e}' for c in grads[:3]]}; relaunch bitwise equal "
+             f"(out, d loc, d attn)={same} ok={ok}")
+    return ok, words, err, err_b
+
+
+def msda_bounds(shapes, value, loc, attn, g):
+    """(forward bound, backward bound) of the fused kernels: the sampling
+    arithmetic is fp32 whatever the value dtype, 2 flops per channel per
+    in-map corner forward, 4 backward (the g.v dot and the scaled scatter
+    into d value); bytes: the value rows the points touch, read once, the
+    output (the size and dtype of g) written once; the backward reads g and
+    writes the whole d value, d loc and d attn."""
+    D = value.shape[-1]
+    corners = msda_corners(shapes, loc)
+    touched = msda_touched_bytes(shapes, value, loc)
+    return (bound_ms(touched + nbytes(loc, attn, g), 2 * D * corners, F32),
+            bound_ms(touched + nbytes(value) + 2 * nbytes(loc, attn)
+                     + nbytes(g), 4 * D * corners, F32))
+
+
 def check_msda(rows, flush, gen):
-    """msda_fwd and msda_bwd (through `MSDeformAttnFunction`)."""
+    """msda_fwd and msda_bwd at the flagship's geometries, fp32 and bf16,
+    on `msda_inputs`' uniform locations (through `MSDeformAttnFunction`,
+    timed beside the plain versions: the rows' numbers) and on
+    `msda_model_locations`' model-shaped ones (the rows' `model_shaped`
+    numbers); on both, `check_fused`'s relaunch. The row sums are bf16's,
+    per forward (msda_fwd) and per train step (msda_bwd)."""
     from vitadapter_torch.ops import msda
 
     ok = True
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (F32, BF16):
         for name, (shapes, Lq, M, calls) in MSDA_GEOMETRIES.items():
             value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen)
+            loc_m = msda_model_locations(shapes, MSDA_QUERY_GRID[name], M, 4,
+                                         gen, B=2)
+            ok &= loc_m.shape == loc.shape
             ins = [t.detach().clone().requires_grad_()
                    for t in (value, loc, attn)]
             got = msda.ms_deform_attn(ins[0], shapes, ins[1], ins[2])
@@ -638,48 +800,124 @@ def check_msda(rows, flush, gen):
             good_b = all(c[0] for c in checks)
             err_b = max(c[1] for c in checks)
             ok &= good and good_b
-            corners = msda_corners(shapes, loc)
-            D = value.shape[-1]
+            del ins, got, ref, ref_g
+            head = f"{name:13s} {str(dtype):14s} B=2 Lq={Lq} M={M}"
+            for kind, lc in (("uniform", loc), ("model-shaped", loc_m)):
+                good_r, words, err_r, err_rb = check_fused(value, shapes, lc,
+                                                           attn, g)
+                ok &= good_r
+                log(f"msda_fwd/msda_bwd {head} {kind} launched twice: "
+                    f"{words}")
+                with torch.no_grad():
+                    k_ms = time_ms(lambda: msda.ms_deform_attn(
+                        value, shapes, lc, attn), flush)
+                    kb_ms = time_ms(lambda: msda._kernel_backward(
+                        value, shapes, lc, attn, g), flush)
+                fb, bb = msda_bounds(shapes, value, lc, attn, g)
+                if kind == "uniform":
+                    with torch.no_grad():
+                        p_ms = time_ms(lambda: msda.ms_deform_attn_plain(
+                            value, shapes, loc, attn), flush, iters=3)
+                    pb_ms = time_ms(lambda: msda.ms_deform_attn_plain_backward(
+                        value, shapes, loc, attn, g), flush, iters=3)
+                    log(f"msda_fwd {head} S={value.shape[1]} max_abs_err="
+                        f"{err:.3e} ok={good} kernel_ms={k_ms:.4f} plain_ms="
+                        f"{p_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]})")
+                    log(f"msda_bwd {head} grads via the autograd wrapper: "
+                        f"max_abs_err (value, loc, attn)="
+                        f"{[f'{c[1]:.3e}' for c in checks]} ok={good_b} "
+                        f"kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
+                        f"bound_ms={bb[0]:.4f} ({bb[1]})")
+                    if dtype == BF16:
+                        add_to_row(rows["msda_fwd"], calls, max(err, err_r),
+                                   k_ms, p_ms, fb)
+                        add_to_row(rows["msda_bwd"], calls,
+                                   max(err_b, err_rb), kb_ms, pb_ms, bb)
+                    continue
+                log(f"msda_fwd {head} model-shaped kernel_ms={k_ms:.4f} "
+                    f"bound_ms={fb[0]:.4f} ({fb[1]}); msda_bwd kernel_ms="
+                    f"{kb_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]})")
+                if dtype == BF16:
+                    for kernel, e, t, b in (("msda_fwd", err_r, k_ms, fb),
+                                            ("msda_bwd", err_rb, kb_ms, bb)):
+                        add_to_row(rows[kernel].setdefault(
+                            "model_shaped", new_row(library=False,
+                                                    plain=False)),
+                                   calls, e, t, None, b)
+            del value, loc, loc_m, attn, g
+    torch.cuda.empty_cache()
+    return ok
 
-            def fwd():
-                return msda.ms_deform_attn(value, shapes, loc, attn)
 
-            def bwd():
-                return msda._kernel_backward(value, shapes, loc, attn, g)
+def check_msda_paths(rows, flush, gen):
+    """msda_fwd and msda_bwd in fp32 at `MSDA_PATH_CASES`, on uniform
+    locations: `check_fused` against the plain versions four heads at a
+    time, then the forward (and, where the path takes one, the backward)
+    timed beside the plain version. The numbers go to the rows' `paths`,
+    summed over each path's calls."""
+    from vitadapter_torch.ops import msda
 
-            def plain_bwd():
-                return msda.ms_deform_attn_plain_backward(value, shapes, loc,
-                                                          attn, g)
-
-            with torch.no_grad():
-                k_ms = time_ms(fwd, flush)
-                p_ms = time_ms(lambda: msda.ms_deform_attn_plain(
-                    value, shapes, loc, attn), flush, iters=3)
-                kb_ms = time_ms(bwd, flush)
-            pb_ms = time_ms(plain_bwd, flush, iters=3)
-            # the sampling arithmetic is fp32 whatever the value dtype:
-            # forward 2 flops per channel per in-map corner, backward 4
-            # (the g.v dot and the scaled scatter into d value); bytes: the
-            # value rows the points touch, read once; the output (the size
-            # and dtype of g) written once; backward reads g and writes the
-            # whole d value, d loc and d attn
-            touched = msda_touched_bytes(shapes, value, loc)
-            fb = bound_ms(touched + nbytes(loc, attn, g), 2 * D * corners,
-                          torch.float32)
-            bb = bound_ms(touched + nbytes(value) + 2 * nbytes(loc, attn)
-                          + nbytes(g), 4 * D * corners, torch.float32)
-            log(f"msda_fwd {name:13s} {str(dtype):14s} B=2 Lq={Lq} M={M} "
-                f"S={value.shape[1]} max_abs_err={err:.3e} ok={good} "
-                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+    ok = True
+    for name, (shapes, Lq, M, _, path, calls, backward) in \
+            MSDA_PATH_CASES.items():
+        value, loc, attn, g = msda_inputs(shapes, Lq, M, F32, gen, B=1)
+        good, words, err, err_b = check_fused(value, shapes, loc, attn, g,
+                                              heads=4)
+        ok &= good
+        fb, bb = msda_bounds(shapes, value, loc, attn, g)
+        with torch.no_grad():
+            k_ms = time_ms(lambda: msda.ms_deform_attn(value, shapes, loc,
+                                                       attn), flush, iters=5)
+            p_ms = time_ms(lambda: msda_plain(value, shapes, loc, attn, g,
+                                              heads=4, backward=False),
+                           flush, iters=1)
+        text = (f"msda {name} fp32 B=1 Lq={Lq} M={M} S={value.shape[1]} "
+                f"({path}, {calls} calls): {words}; msda_fwd kernel_ms="
+                f"{k_ms:.4f} plain_ms={p_ms:.4f} (4 heads at a time) "
                 f"bound_ms={fb[0]:.4f} ({fb[1]})")
-            log(f"msda_bwd {name:13s} {str(dtype):14s} grads via the "
-                f"autograd wrapper: max_abs_err (value, loc, attn)="
-                f"{[f'{c[1]:.3e}' for c in checks]} ok={good_b} "
-                f"kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
-                f"bound_ms={bb[0]:.4f} ({bb[1]})")
-            if dtype == torch.bfloat16:
-                add_to_row(rows["msda_fwd"], calls, err, k_ms, p_ms, fb)
-                add_to_row(rows["msda_bwd"], calls, err_b, kb_ms, pb_ms, bb)
+        add_to_row(rows["msda_fwd"].setdefault("paths", {}).setdefault(
+            path, new_row(library=False)), calls, err, k_ms, p_ms, fb)
+        if backward:
+            with torch.no_grad():
+                kb_ms = time_ms(lambda: msda._kernel_backward(
+                    value, shapes, loc, attn, g), flush, iters=5)
+            pb_ms = time_ms(lambda: msda_plain(value, shapes, loc, attn, g,
+                                               heads=4), flush, iters=1)
+            text += (f"; msda_bwd kernel_ms={kb_ms:.4f} plain_ms="
+                     f"{pb_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]})")
+            add_to_row(rows["msda_bwd"].setdefault("paths", {}).setdefault(
+                path, new_row(library=False)), calls, err_b, kb_ms, pb_ms,
+                bb)
+        log(text)
+        del value, loc, attn, g
+        torch.cuda.empty_cache()
+    return ok
+
+
+def check_msda_fused_layouts(gen):
+    """msda_fwd and msda_bwd at the `FUSED_LAYOUTS` cases (other P, ragged
+    and narrow rows, one to eight levels, a misaligned value), fp32 and
+    bf16, on both sets of locations, through `check_fused`."""
+    ok = True
+    for name, (shapes, grid, M, D, P, misaligned) in FUSED_LAYOUTS.items():
+        loc_m = msda_model_locations(shapes, grid, M, P, gen)
+        Lq = loc_m.shape[1]
+        for dtype in (F32, BF16):
+            value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen, B=1,
+                                              D=D, P=P)
+            if misaligned:
+                buf = torch.empty(value.numel() + 1, dtype=dtype,
+                                  device="cuda")
+                buf[1:].copy_(value.reshape(-1))
+                value = buf[1:].view(value.shape)
+                ok &= value.data_ptr() % 16 != 0
+            for kind, lc in (("uniform", loc), ("model-shaped", loc_m)):
+                good, words, _, _ = check_fused(value, shapes, lc, attn, g)
+                ok &= good
+                log(f"msda_fwd/msda_bwd layout {name} {str(dtype):14s} "
+                    f"{kind} L={len(shapes)} B=1 Lq={Lq} M={M} D={D} P={P}: "
+                    f"{words}")
+    torch.cuda.empty_cache()
     return ok
 
 
@@ -1258,6 +1496,8 @@ def check_kernels(flush):
                                                  "auction"))
             for name in REPLACES}
     ok = check_msda(rows, flush, gen)
+    ok &= check_msda_paths(rows, flush, gen)
+    ok &= check_msda_fused_layouts(gen)
     ok &= check_msda_levels(rows, flush, gen)
     ok &= check_msda_level_layouts(flush, gen)
     ok &= check_attention(rows, flush, gen)
@@ -1716,14 +1956,21 @@ def main():
     logs = cuda_ext.build()
     log(f"built {sorted(cuda_ext.SIGNATURES)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    spills = []
+    spills, frames = [], []
     for name, text in logs.items():
         for kernel, line in ptxas_lines(text):
             log(f"  {name}: {kernel}: {line}")
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and int(m.group(1)):
                 spills.append(f"{name}: {kernel}")
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if name in ("msda_fwd", "msda_bwd") and m and int(m.group(1)):
+                frames.append(f"{name}: {kernel}")
     log(f"  instantiations that spill: {spills or 'none'}")
+    # the fused MSDA kernels keep every value in registers (their level
+    # table in shared memory): no stack frame in any instantiation
+    if frames:
+        raise SystemExit(f"FAIL: a stack frame in {frames}")
     for name in ("attention_fwd", "attention_bwd"):
         counts = sass_counts(cuda_ext.library_path(name))
         log(f"  {name}: tensor-core instructions in the built library's "

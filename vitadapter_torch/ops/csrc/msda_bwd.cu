@@ -1,5 +1,6 @@
-// Multi-scale deformable attention (MSDA) backward, hand-written for Hopper
-// (sm_90a).
+// Multi-scale deformable attention (MSDA) backward, all levels in one
+// launch: d value, d locations and d attention weights; hand-written for
+// Hopper (sm_90a).
 //
 // Replaces: vitadapter/ops/msda_pallas.py::_bwd_ml_kernel (via _backward_ml
 // and _bwd). The TPU kernel rebuilds the relu one-hot interpolation matrices
@@ -7,190 +8,224 @@
 // accumulated over sequential query tiles, and the per-point reductions for
 // the attention weights and the locations.
 //
-// What bounds it on an H100: bytes and atomics. A flagship call reads the
-// value (1-11 MB in bf16), fp32 locations, weights and the incoming gradient,
-// and writes grad_value plus fp32 grad_loc / grad_attn, against a few fp32
-// FMAs per channel per corner, far under the CUDA cores' ridge of about 20
-// FLOP per byte.
+// What bounds it on an H100 (80GB HBM3, 700 W): the atomics that sum
+// d value, then the per-(query, head) work. The bound (the value rows the
+// points touch, fp32 locations, weights and the output gradient read once,
+// d value, d loc and d attn written once) is 0.049 ms at the flagship's
+// bf16 pixel decoder; the first design (one warp per (batch, query, head),
+// lanes on the channels, every lane computing every point's geometry, 32
+// scalar atomics per corner and three 5-step warp reductions per point,
+// the level table read from local memory) took 1.386 ms there. Per
+// flagship bf16 train step now (vitadapter_torch/tools/msda_variants.py):
+// 4.79 ms on uniform locations and 5.65 on model-shaped ones; a variant
+// without the atomics takes 3.04 and 2.94, so they add 1.7 and 2.7 ms, the
+// more where neighbouring queries and a query's own points share corners
+// (with every point on one cell, 30.3 ms: each corner's adds queue on one
+// line).
 //
-// Design: the forward's direct gather, run backwards, as the reference CUDA
-// col2im does. One warp per (batch, query, head), lanes on the channels. For
-// each in-map corner of each point, a lane reads its channel of the value row
-// and of g, adds attn * w * g to grad_value with an fp32 atomicAdd (a warp's
-// 32 lanes hit one 128-byte line), and keeps its share of three dot products:
-// sum_c w_c (g.v_c) for grad_attn and the x / y derivative taps for grad_loc.
-// Three warp reductions per point finish them; lane 0 writes the point's
-// grad_attn and grad_loc. grad_value accumulates in an fp32 buffer; a second
-// kernel casts it to bf16 when the value is bf16 (fp32 values accumulate in
-// the output directly).
+// Design (msda_level.cuh, as msda_fwd.cu): a team of G lanes per (batch,
+// query, head), each lane owning a chunk of four elements of the value row
+// and of g's row (one 16-byte fp32 or 8-byte bf16 load), which it reads
+// once for all points: at D 32, 8 lanes in either dtype. Lane t computes
+// point t's geometry once (`locate_level`) and the team takes it by
+// shuffles; each lane issues its chunk's four corner loads, two points at
+// a time, before it uses any. Per in-map corner c of weight w_c, each lane:
+// - adds attn * w_c * g to its chunk of the corner's fp32 d value row with
+//   one vector atomic (`atomic_add_chunk`, red.global.add.v4.f32), where
+//   the first design issued 32 scalar ones a corner; a team's lanes cover
+//   adjacent 16-byte pieces of the row (with 16-byte bf16 chunks a lane
+//   adds 32 bytes by two atomics, so each instruction's lanes are 32 bytes
+//   apart and fill half of each sector: 8.23 ms per step on uniform
+//   locations);
+// - keeps its share of three sums over the corners: w_c (g . v_c) for
+//   d attn and the derivative taps (+-1) wy (g . v_c) and wx (+-1) (g . v_c)
+//   for d x and d y (the floor convention keeps both taps active at
+//   integer coordinates, msda_pallas.py:1249-1256).
+// The three sums reduce over the team's G lanes by xor shuffles (3 steps
+// at D 32) in a fixed order and lane t keeps point t's; lane t then writes
+// that point's d attn and d loc = (attn * W * d x, attn * H * d y)
+// (msda_pallas.py:1401-1406), so a team's stores fall side by side. A
+// point with no corner on the map (also NaN) gets zeros. The wrapper's
+// fp32 scratch is zeroed first and, for a bf16 value, cast to bf16 after,
+// eight elements a thread.
+// Measured and not kept (msda_variants.py, per bf16 step, uniform /
+// model-shaped locations): a warp's adds to one chunk combined by
+// __match_any_sync before one atomic, 17.57 / 16.71 ms (8.92 with every
+// point on one cell); each team's points rotated by a level, so that the
+// teams of a warp start on different levels, 4.73 / 5.65.
 //
-// Edges follow the forward: corners off the map read zero and get no
-// gradient; coordinates whose corners all lie off the map (also NaN and
-// values too large for an int) are skipped before conversion; the floor
-// convention keeps both derivative taps active at integer coordinates
-// (msda_pallas.py:1249-1256). grad_loc carries the chain-rule factors
-// attn * W and attn * H (msda_pallas.py:1401-1406).
-//
-// Determinism: NOT deterministic. The fp32 atomicAdd into grad_value sums the
-// corners of different queries in an order that changes from run to run
-// (the TPU kernel's contraction is deterministic); grad_loc and grad_attn are
-// deterministic. Checks compare with a tolerance that covers the
-// reassociation, not bit-equality.
+// Determinism: d loc and d attn have one writer and a fixed summation
+// order: deterministic. d value is NOT: the fp32 atomics sum the corners of
+// different queries in an order that changes from run to run (the TPU
+// kernel's contraction is deterministic). Checks compare it with a
+// tolerance that covers the reassociation.
 //
 // Layouts (all contiguous): value (B, S, M, D); loc (B, Lq, M, L, P, 2) fp32;
 // attn (B, Lq, M, L, P) fp32; g (B, Lq, M, D) in the value dtype; dvalue_f32
 // (B, S, M, D) fp32 scratch (zeroed here); dvalue (B, S, M, D) in the value
 // dtype (may alias dvalue_f32 for fp32); dloc, dattn fp32 like loc, attn.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "msda_level.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kThreads = 256;
+using namespace msda_level;
 
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// CPL: channels per lane, ceil(D / 32).
-template <typename T, int CPL>
+template <typename T, int VEC, int G, int K>
 __global__ void __launch_bounds__(kThreads)
 msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ attn, const T* __restrict__ g,
                 float* __restrict__ dvalue, float* __restrict__ dloc,
                 float* __restrict__ dattn, int Lq, int S, int M, int D, int L,
-                int P, long long n_warps, Levels lv) {
-  const int lane = threadIdx.x & 31;
-  const long long warp =
-      (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (warp >= n_warps) return;
-  // warp = (b * Lq + q) * M + m
-  const int m = (int)(warp % M);
-  const long long b = warp / M / Lq;
-  const long long row_stride = (long long)M * D;  // one value row s
-  const long long vb_off = b * S * row_stride + (long long)m * D;
-  const float* lp = loc + warp * (L * P * 2);
-  const float* ap = attn + warp * (L * P);
-  float* dlp = dloc + warp * (L * P * 2);
-  float* dap = dattn + warp * (L * P);
+                int P, LevelTable table) {
+  __shared__ int4 levels[kMaxLevels];
+  stage_levels(table, levels);
+  const Lanes ln = lanes<G>(Lq, M);
+  const int C = D / VEC;  // chunks of a row
+  const int LP = L * P;
+  const long long rs = (long long)M * D;
+  const long long vb_off = (long long)ln.b * S * rs + ln.m * D;
+  const T* vb = value + vb_off;
+  float* dvb = dvalue + vb_off;
+  const long long pbase = ln.bqm * LP;
+  const float* lp = loc + 2 * pbase;
+  const float* ap = attn + pbase;
 
-  float gv[CPL];
+  // this lane's chunks of g's row, read once for all points
+  float gv[K][VEC];
 #pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int d = lane + 32 * j;
-    gv[j] = d < D ? to_float(g[warp * D + d]) : 0.f;
+  for (int k = 0; k < K; ++k) {
+    const int ch = ln.gl + G * k;
+    if (ln.active && ch < C) {
+      load_chunk<VEC>(g + ln.bqm * D + ch * VEC, gv[k]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) gv[k][e] = 0.f;
+    }
   }
 
-  for (int l = 0; l < L; ++l) {
-    const int H = lv.h[l];
-    const int W = lv.w[l];
-    const long long lvl_off = vb_off + (long long)lv.start[l] * row_stride;
-    for (int p = 0; p < P; ++p) {
-      const int i = l * P + p;
-      const float a = ap[i];
-      // loc * size, then - 0.5, each rounded, as the plain version and
-      // JAX round them (__fmul_rn is never contracted into an FMA)
-      const float x = __fmul_rn(lp[2 * i], (float)W) - 0.5f;
-      const float y = __fmul_rn(lp[2 * i + 1], (float)H) - 0.5f;
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      // no corner on the map (also NaN and values too large for int):
-      // every gradient of this point is zero
-      if (!(x0f >= -1.f && x0f <= (float)(W - 1) && y0f >= -1.f &&
-            y0f <= (float)(H - 1))) {
-        if (lane == 0) {
-          dap[i] = 0.f;
-          dlp[2 * i] = 0.f;
-          dlp[2 * i + 1] = 0.f;
-        }
-        continue;
-      }
-      const float lx = x - x0f;
-      const float ly = y - y0f;
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
+  // rounds of G points, one point's geometry per lane; the same trip
+  // counts in every lane, so the shuffles see the whole warp
+  for (int first = 0; first < LP; first += G) {
+    const int i = first + ln.gl;
+    const bool has = ln.active && i < LP;
+    int H, W;
+    const Point mine = locate_level(lp, ap, i, P, has, levels, H, W);
+    // the sums of this lane's own point, i
+    float o_attn = 0.f, o_x = 0.f, o_y = 0.f;
+    const int n = LP - first < G ? LP - first : G;
+    // two points' corner loads in flight
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      const Point pt = broadcast(mine, ln.base + j);
+      const int Wp = (int)(pt.mask >> 4);
+      float v[4][K][VEC];
+      load_corners<T, VEC, G, K>(vb, rs, pt, Wp, ln.gl, C, v);
       float s_attn = 0.f, s_x = 0.f, s_y = 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
+        if (!((pt.mask >> c) & 1u)) continue;
         const int dx = c & 1;
         const int dy = c >> 1;
-        const int xi = x0 + dx;
-        const int yi = y0 + dy;
-        if (xi < 0 || xi >= W || yi < 0 || yi >= H) continue;
-        const float wx = dx ? lx : 1.f - lx;
-        const float wy = dy ? ly : 1.f - ly;
-        // floor convention: d wx / dx is -1 at x0, +1 at x0 + 1
-        const float sx = dx ? 1.f : -1.f;
-        const float sy = dy ? 1.f : -1.f;
-        const float w = wx * wy;
-        const long long row = lvl_off + ((long long)yi * W + xi) * row_stride;
+        const float wx = dx ? pt.fx : 1.f - pt.fx;
+        const float wy = dy ? pt.fy : 1.f - pt.fy;
+        float* row = dvb + (long long)(pt.row0 + dx + dy * Wp) * rs;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int ch = ln.gl + G * k;
+          if (ch < C) atomic_add_chunk<VEC>(row + ch * VEC, gv[k],
+                                            pt.a * (wx * wy));
+        }
         float dot = 0.f;
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) {
-          const int d = lane + 32 * j;
-          if (d < D) {
-            dot = fmaf(gv[j], to_float(value[row + d]), dot);
-            atomicAdd(dvalue + row + d, a * w * gv[j]);
-          }
-        }
-        s_attn = fmaf(w, dot, s_attn);
-        s_x = fmaf(sx * wy, dot, s_x);
-        s_y = fmaf(wx * sy, dot, s_y);
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            dot = fmaf(gv[k][e], v[c][k][e], dot);
+        s_attn = fmaf(wx * wy, dot, s_attn);
+        s_x = fmaf(dx ? wy : -wy, dot, s_x);
+        s_y = fmaf(dy ? wx : -wx, dot, s_y);
       }
-      s_attn = warp_sum(s_attn);
-      s_x = warp_sum(s_x);
-      s_y = warp_sum(s_y);
-      if (lane == 0) {
-        dap[i] = s_attn;
-        dlp[2 * i] = s_x * a * (float)W;
-        dlp[2 * i + 1] = s_y * a * (float)H;
+      // the team's lanes: a fixed tree, so a fixed order
+#pragma unroll
+      for (int off = 1; off < G; off <<= 1) {
+        s_attn += __shfl_xor_sync(0xffffffffu, s_attn, off);
+        s_x += __shfl_xor_sync(0xffffffffu, s_x, off);
+        s_y += __shfl_xor_sync(0xffffffffu, s_y, off);
       }
+      if (ln.gl == j) {
+        o_attn = s_attn;
+        o_x = s_x;
+        o_y = s_y;
+      }
+    }
+    // lane t writes point first + t: a team's stores fall side by side
+    if (has) {
+      const bool ok = (mine.mask & 15u) != 0u;
+      dattn[pbase + i] = ok ? o_attn : 0.f;
+      dloc[2 * (pbase + i)] = ok ? o_x * mine.a * (float)W : 0.f;
+      dloc[2 * (pbase + i) + 1] = ok ? o_y * mine.a * (float)H : 0.f;
     }
   }
 }
 
+// The fp32 d value rounded to bf16, eight elements a thread (two 16-byte
+// loads, one 16-byte store) when both buffers are 16-byte aligned, else
+// one.
+template <int E>
 __global__ void cast_to_bf16(const float* __restrict__ src,
                              __nv_bfloat16* __restrict__ dst, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) dst[i] = __float2bfloat16(src[i]);
+  const long long i = E * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (E == 8 && i + 8 <= n) {
+    float f[8];
+    load_chunk<4>(src + i, f);
+    load_chunk<4>(src + i + 4, f + 4);
+    store_chunk<8>(dst + i, f);
+  } else {
+    for (long long j = i; j < i + E && j < n; ++j)
+      dst[j] = __float2bfloat16(src[j]);
+  }
+}
+
+template <typename T, int VEC, int G, int K>
+void run(const Shape& s, const void* value, const void* loc,
+         const void* attn, const void* g, float* dvalue, float* dloc,
+         float* dattn, int S, int M, int D, int Lq, int L, int P,
+         const LevelTable& table, cudaStream_t stream) {
+  msda_bwd_kernel<T, VEC, G, K><<<s.grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(value), static_cast<const float*>(loc),
+      static_cast<const float*>(attn), static_cast<const T*>(g), dvalue, dloc,
+      dattn, Lq, S, M, D, L, P, table);
 }
 
 template <typename T>
 cudaError_t launch(const void* value, const void* loc, const void* attn,
                    const void* g, float* dvalue_f32, float* dloc,
                    float* dattn, int B, int S, int M, int D, int Lq, int L,
-                   int P, const Levels& lv, cudaStream_t stream) {
-  const long long n_warps = (long long)B * Lq * M;
-  const long long blocks = (n_warps + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const T* v = static_cast<const T*>(value);
-  const float* lc = static_cast<const float*>(loc);
-  const float* at = static_cast<const float*>(attn);
-  const T* gg = static_cast<const T*>(g);
-  if (D <= 32)
-    msda_bwd_kernel<T, 1><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        v, lc, at, gg, dvalue_f32, dloc, dattn, Lq, S, M, D, L, P, n_warps,
-        lv);
-  else
-    msda_bwd_kernel<T, 2><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        v, lc, at, gg, dvalue_f32, dloc, dattn, Lq, S, M, D, L, P, n_warps,
-        lv);
+                   int P, const LevelTable& table, cudaStream_t stream) {
+  // four elements a chunk in both dtypes (8-byte bf16 loads), so a lane's
+  // atomic covers its whole chunk and a team's lanes cover adjacent bytes
+  const Shape s = shape<T, 4>(D, aligned16(value) && aligned16(g) &&
+                                     aligned16(dvalue_f32),
+                              B, Lq, M);
+  if (!s.fits) return cudaErrorInvalidConfiguration;
+  constexpr int V = 4;
+#define MSDA_BWD_RUN(VEC, G, K)                                          \
+  run<T, VEC, G, K>(s, value, loc, attn, g, dvalue_f32, dloc, dattn, S, M, \
+                    D, Lq, L, P, table, stream)
+  if (!s.vec) {
+    if (s.K == 1) MSDA_BWD_RUN(1, 32, 1);
+    else MSDA_BWD_RUN(1, 32, 2);
+  } else {
+    switch (s.G) {
+      case 1: MSDA_BWD_RUN(V, 1, 1); break;
+      case 2: MSDA_BWD_RUN(V, 2, 1); break;
+      case 4: MSDA_BWD_RUN(V, 4, 1); break;
+      case 8: MSDA_BWD_RUN(V, 8, 1); break;
+      default: MSDA_BWD_RUN(V, 16, 1); break;
+    }
+  }
+#undef MSDA_BWD_RUN
   return cudaGetLastError();
 }
 
@@ -213,27 +248,32 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
       cudaMemsetAsync(dvalue_f32, 0, sizeof(float) * n_value, s);
   if (err != cudaSuccess) return (int)err;
   if ((long long)B * Lq * M > 0) {
-    Levels lv = {};
+    LevelTable table = {};
     for (int l = 0; l < L; ++l) {
-      lv.h[l] = shapes[2 * l];
-      lv.w[l] = shapes[2 * l + 1];
-      lv.start[l] = starts[l];
+      table.h[l] = shapes[2 * l];
+      table.w[l] = shapes[2 * l + 1];
+      table.start[l] = starts[l];
     }
     float* dv = static_cast<float*>(dvalue_f32);
     float* dl = static_cast<float*>(dloc);
     float* da = static_cast<float*>(dattn);
     err = is_bf16 ? launch<__nv_bfloat16>(value, loc, attn, g, dv, dl, da, B,
-                                          S, M, D, Lq, L, P, lv, s)
+                                          S, M, D, Lq, L, P, table, s)
                   : launch<float>(value, loc, attn, g, dv, dl, da, B, S, M,
-                                  D, Lq, L, P, lv, s);
+                                  D, Lq, L, P, table, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (is_bf16 && n_value > 0) {
-    const long long blocks = (n_value + 255) / 256;
+    const float* src = static_cast<const float*>(dvalue_f32);
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(dvalue);
+    const bool vec = aligned16(src) && aligned16(dst);
+    const long long per_block = 256LL * (vec ? 8 : 1);
+    const long long blocks = (n_value + per_block - 1) / per_block;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    cast_to_bf16<<<(unsigned)blocks, 256, 0, s>>>(
-        static_cast<const float*>(dvalue_f32),
-        static_cast<__nv_bfloat16*>(dvalue), n_value);
+    if (vec)
+      cast_to_bf16<8><<<(unsigned)blocks, 256, 0, s>>>(src, dst, n_value);
+    else
+      cast_to_bf16<1><<<(unsigned)blocks, 256, 0, s>>>(src, dst, n_value);
     err = cudaGetLastError();
   }
   return (int)err;

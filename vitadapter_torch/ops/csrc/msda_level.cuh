@@ -1,6 +1,6 @@
-// Shared by the per-level MSDA kernels msda_level_fwd.cu and
-// msda_level_dgrid.cu: one thread mapping, one geometry, one edge
-// convention.
+// Shared by the MSDA kernels msda_level_fwd.cu and msda_level_dgrid.cu
+// (one level a launch) and msda_fwd.cu and msda_bwd.cu (all levels in one
+// launch): one thread mapping, one geometry, one edge convention.
 //
 // Thread mapping. A warp is cut into teams of G lanes, one team per
 // (batch, query, head); lane gl of a team owns the 16-byte chunks gl,
@@ -16,23 +16,21 @@
 // variant of it that loaded nothing took most of its time).
 //
 // Two instantiations of each kernel, chosen at launch:
-// - vector: a row of D * sizeof(T) bytes, a multiple of 16, at 16-byte
-//   aligned pointers; VEC = 16 / sizeof(T) elements a chunk (one float4 or
-//   eight bf16), G = the next power of two of the row's chunks (lanes past
-//   the last chunk of a ragged row idle), K = 1 chunk a lane: at D 32, 8
-//   lanes (fp32) or 4 (bf16) per (query, head);
+// - vector: a row of D elements, a multiple of VEC, at 16-byte aligned
+//   pointers; VEC = 16 / sizeof(T) elements a chunk (one float4 or eight
+//   bf16) unless a kernel says otherwise, K chunks a lane, G = the next
+//   power of two of the row's chunks over K (lanes past the last chunk of a
+//   ragged row idle): at D 32 and K = 1, 8 lanes (fp32) or 4 (bf16) per
+//   (query, head);
 // - scalar: any other row or pointer; VEC = 1, G = 32, K = ceil(D / 32)
 //   elements a lane (D <= 64), one team per warp.
 // A team takes its points in rounds of G, one point per lane, so any P.
+// The multi-level kernels walk the L * P points of a (batch, query, head)
+// level by level in those rounds: lane t finds its point's level (i / P)
+// in a table staged in shared memory (a kernel parameter indexed by a
+// runtime level is copied to local memory) and hands the team that
+// level's row width with the point (`locate_level`).
 //
-// Geometry and edges (the plain versions' and JAX's): pixel x = loc * W -
-// 0.5, with the product rounded on its own (__fmul_rn is never contracted
-// into an FMA; a contracted one was 2.4e-5 off at 384-wide levels); floor,
-// so both derivative taps stay active at integer coordinates; a corner off
-// the map contributes zero (grid_sample's zeros padding); a point with no
-// corner on the map, NaN included, is caught before any float-to-int
-// conversion.
-
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +41,7 @@ namespace msda_level {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLevels = 8;
 
 // VEC elements of a row from p as fp32: one 16-byte load (VEC = 4 fp32 or
 // 8 bf16), or one element (VEC = 1). The value and g are read only.
@@ -74,11 +73,66 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
       out[2 * i] = __uint_as_float(w[i] << 16);
       out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
+  } else if constexpr (VEC == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    out[0] = __uint_as_float(v.x << 16);
+    out[1] = __uint_as_float(v.x & 0xffff0000u);
+    out[2] = __uint_as_float(v.y << 16);
+    out[3] = __uint_as_float(v.y & 0xffff0000u);
   } else {
-    static_assert(VEC == 1, "bf16 chunks are 8 elements or 1");
+    static_assert(VEC == 1, "bf16 chunks are 8, 4 or 1 elements");
     const unsigned short bits =
         __ldg(reinterpret_cast<const unsigned short*>(p));
     out[0] = __uint_as_float((uint32_t)bits << 16);
+  }
+}
+
+// VEC fp32 sums stored as VEC elements of T at p (16-byte aligned for
+// VEC > 1): one 16-byte store.
+template <int VEC>
+__device__ __forceinline__ void store_chunk(float* p, const float* in) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  } else {
+    static_assert(VEC == 1, "fp32 chunks are 4 elements or 1");
+    p[0] = in[0];
+  }
+}
+
+// Rounded to nearest even, as the plain version's `.to(torch.bfloat16)`.
+template <int VEC>
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* p,
+                                            const float* in) {
+  if constexpr (VEC == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16(in[2 * i])) |
+             ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(in[2 * i + 1]))
+              << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    static_assert(VEC == 1, "bf16 chunks are 8 elements or 1");
+    p[0] = __float2bfloat16(in[0]);
+  }
+}
+
+// Adds s * in[e] to the VEC fp32 elements at p (16-byte aligned for VEC >
+// 1): one vector atomic per four elements (sm_90's red.global.add.v4.f32),
+// a scalar one for VEC = 1. The result is not read, so these compile to
+// reductions that do not wait for the memory.
+template <int VEC>
+__device__ __forceinline__ void atomic_add_chunk(float* p, const float* in,
+                                                 float s) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i)
+      atomicAdd(reinterpret_cast<float4*>(p) + i,
+                make_float4(s * in[4 * i], s * in[4 * i + 1],
+                            s * in[4 * i + 2], s * in[4 * i + 3]));
+  } else {
+    static_assert(VEC == 1, "chunks are 4, 8 or 1 elements");
+    atomicAdd(p, s * in[0]);
   }
 }
 
@@ -177,6 +231,50 @@ __device__ __forceinline__ void load_corners(const T* __restrict__ vl,
   }
 }
 
+// The levels of a multi-level value: level l is an (h[l], w[l]) map at
+// value rows [start[l], start[l] + h[l] * w[l]).
+struct LevelTable {
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int start[kMaxLevels];
+};
+
+// Copies the table into shared memory as (H, W, start) of each level, each
+// entry read at a constant index, so the parameter stays in the constant
+// bank. Every thread of the block calls it (it synchronises the block).
+__device__ __forceinline__ void stage_levels(const LevelTable& t, int4* s) {
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l)
+    if (threadIdx.x == l) s[l] = make_int4(t.h[l], t.w[l], t.start[l], 0);
+  __syncthreads();
+}
+
+// Point i of the L * P points (level-major) of the lane's (batch, query,
+// head), whose locations and weights start at lp and ap, as this lane
+// computes it for its team; `has` false gives an empty mask. The corner
+// row is the value row (the level's start added), and mask bits 4 and up
+// carry the level's W for the lanes that take the point by `broadcast`.
+// H and W are the point's level's.
+__device__ __forceinline__ Point locate_level(const float* __restrict__ lp,
+                                              const float* __restrict__ ap,
+                                              int i, int P, bool has,
+                                              const int4* levels, int& H,
+                                              int& W) {
+  const int4 lv = levels[has ? i / P : 0];
+  H = lv.x;
+  W = lv.y;
+  float lx = 0.f, ly = 0.f, a = 0.f;
+  if (has) {
+    lx = lp[2 * i];
+    ly = lp[2 * i + 1];
+    a = ap[i];
+  }
+  Point pt = locate(lx, ly, a, has, H, W);
+  pt.row0 += lv.z;
+  pt.mask |= (unsigned)W << 4;
+  return pt;
+}
+
 inline int next_pow2(int v) {
   int p = 1;
   while (p < v) p <<= 1;
@@ -196,14 +294,16 @@ struct Shape {
 };
 
 // `aligned`: the pointers the vector loads read or write are 16-byte
-// aligned.
-template <typename T>
-inline Shape shape(int D, bool aligned, int B, int Lq, int M) {
+// aligned. V: the elements of a vector chunk (16 bytes by default); K: the
+// chunks a lane of the vector instantiation owns, so the team is the
+// next power of two of the row's chunks over K.
+template <typename T, int V = 16 / sizeof(T)>
+inline Shape shape(int D, bool aligned, int B, int Lq, int M, int K = 1) {
   Shape s;
-  s.vec = aligned && (D * (int)sizeof(T)) % 16 == 0;
+  s.vec = aligned && D % V == 0;
   if (s.vec) {
-    s.G = next_pow2(D * (int)sizeof(T) / 16);
-    s.K = 1;
+    s.G = next_pow2((D / V + K - 1) / K);
+    s.K = K;
   } else {
     s.G = 32;
     s.K = (D + 31) / 32;

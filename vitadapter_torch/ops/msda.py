@@ -32,7 +32,7 @@ from vitadapter_torch.layers.linear import Linear
 from vitadapter_torch.ops import cuda_ext
 
 SpatialShapes = Tuple[Tuple[int, int], ...]
-MAX_LEVELS = 8   # csrc/msda_fwd.cu kMaxLevels
+MAX_LEVELS = 8   # csrc/msda_level.cuh kMaxLevels
 MAX_HEAD_DIM = 64
 # one head's value (S * D * itemsize) above this takes the per-level route
 # (`msda_pallas.ML_MAX_VALUE_BYTES`)
