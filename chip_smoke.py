@@ -12,15 +12,17 @@ Phases (each failure exits non-zero; nothing is caught):
      tensor-core instructions in the attention libraries' SASS by
      instantiation (TF32 and bf16 `HGMMA`, `HMMA`); fails if an fp32
      attention kernel has no TF32 `HGMMA`, or if an instantiation of the
-     fused MSDA kernels has a stack frame;
+     fused MSDA kernels, `msda_level_dv` or the auction has a stack frame;
   3. holds each kernel against its plain PyTorch version on the card, fp32
      and bf16, at the flagship's shapes: the forward kernels, and the
      backward kernels reached through the autograd wrappers (so the
      gradients of MSDA and attention on the card are checked too, and the
      log-sum-exp the attention forward saves for its backward); the
-     auction (fp32 costs only) for equal matches and for a total cost within
-     its bound of scipy's optimum. It times each kernel (CUDA events, L2
-     flushed before each call, the launches queued ahead) beside
+     auction (fp32 costs only; contested, partly valid and tied costs) for
+     equal matches and rounds and for a total cost within its bound of
+     scipy's optimum, with its microseconds per round. It times each
+     kernel (CUDA events, L2 flushed before each call, the launches queued
+     ahead) beside
      its bound, its plain version and, where one PyTorch call computes the
      same function, that call (`scaled_dot_product_attention` and its
      backward, `F.grid_sample` and its backward);
@@ -59,9 +61,10 @@ the launches; at other P, widths, level counts and a misaligned value
 versions, and the per-level route against the fused kernels, at the shapes
 of every MSDA call that takes that route in phases 8 and 9 (and at a few
 thousand queries in fp32 and bf16), on uniform locations and on locations
-shaped as the model makes them (`msda_model_locations`; msda_level_fwd and
-_dgrid timed there too, under `model_shaped`, and launched twice for
-bitwise-equal outputs), and at other P, widths and a misaligned value
+shaped as the model makes them (`msda_model_locations`; all three timed
+there too, under `model_shaped`; msda_level_fwd and _dgrid launched twice
+for bitwise-equal outputs; msda_level_dv's atomic payload and its rate
+logged), and at other P, widths and a misaligned value and d value buffer
 (`LEVEL_LAYOUTS`); and the fp32 attention at the lengths phases 8 and 9
 give it. The fp32 attention (split TF32 on the tensor cores) is launched
 twice at every case and must give bitwise-equal outputs and gradients; its
@@ -235,11 +238,13 @@ FUSED_LAYOUTS = {
 }
 # the per-level kernels off the paths' layout (P 4, D 32, 16-byte aligned),
 # fp32 and bf16 each: name: (spatial shapes, query grid, heads, D, P, the
-# value 2 or 4 bytes off 16-byte alignment). Rows of 20 fp32 leave a ragged
-# team (5 chunks on 8 lanes) and 20 bf16 take the scalar instantiation;
-# 64 wide rows take 16 (fp32) or 8 (bf16) lanes a (query, head), 8 wide
-# rows 2 or 1 (then P 2 takes two rounds of points); a misaligned value
-# takes the scalar instantiation
+# value 2 or 4 bytes off 16-byte alignment, and then msda_level_dv's fp32
+# buffer 4 bytes off). Rows of 20 fp32 leave a ragged team (5 chunks on 8
+# lanes) and 20 bf16 take the scalar instantiation of the forward and
+# d grid (msda_level_dv takes 4-element chunks in both dtypes: 5 on 8
+# lanes); 64 wide rows take 16 (fp32) or 8 (bf16) lanes a (query, head), 8
+# wide rows 2 or 1 (then P 2 takes two rounds of points); a misaligned
+# value or buffer takes the scalar instantiation
 LEVEL_LAYOUTS = {
     "P3": (R15, (64, 64), 32, 32, 3, False),
     "ragged_d20": (((12, 20), (24, 40)), (16, 32), 4, 20, 4, False),
@@ -295,6 +300,10 @@ COVERS = {
 }
 
 
+# kernels that keep every value in registers (the fused MSDA kernels'
+# level table in shared memory): phase 2 fails on a stack frame in any of
+# their instantiations
+NO_FRAME = ("msda_fwd", "msda_bwd", "msda_level_dv", "auction")
 # `time_ms`'s spin before each call: about 1 ms at the H100's SM clock
 SPIN_CYCLES = 2_000_000
 
@@ -621,21 +630,43 @@ def scipy_totals(cost, n_valid):
     return out
 
 
+def auction_cases(gen):
+    """{case: (cost (B, Q, G) fp32, n_valid (B,))} of the auction's checks
+    and timings at `AUCTION_SHAPE`'s Q and G: "flagship", the flagship
+    step's 20 matrices with every gt valid and contested costs (the timed
+    case); "n_valid", 8 matrices of independent costs with 0 to 60 valid
+    gts; "ties", 20 matrices of integer costs 0-3 with every gt valid (as
+    `tests/test_torch_train_ops.py::_auction_case("ties")` makes them):
+    ties among queries and among equal bids."""
+    B, Q, G = AUCTION_SHAPE
+    nv = [G, 37, 7, 1, 0, G, 12, 2]
+    full = torch.full((B,), G, device="cuda")
+    cases = {"flagship": (auction_costs(gen, B, Q, G, contested=True), full),
+             "n_valid": (auction_costs(gen, len(nv), Q, G, contested=False),
+                         torch.tensor(nv, device="cuda"))}
+    cases["ties"] = (torch.randint(0, 4, (B, Q, G), generator=gen,
+                                   device="cuda").float(), full)
+    return cases
+
+
 def check_auction(rows, flush, gen):
     """auction: the kernel against the plain auction on the card (the same
-    matches), and its total matched cost against scipy's optimum: within
-    n_valid * eps above it (the auction's bound) plus fp32 rounding. At the
-    flagship step's shapes with every gt valid and contested costs (the
-    timed case), then on independent costs with 0 to 60 valid gts."""
-    from vitadapter_torch.ops import matching as mt
+    matches and the same rounds), and its total matched cost against
+    scipy's optimum: within n_valid * eps above it (the auction's bound)
+    plus fp32 rounding, at `auction_cases`. The log gives microseconds per
+    round: the kernel's time over the most rounds of any matrix (the
+    blocks run side by side). Then the shared memory the kernel asks for
+    (`auction.cu`'s `smem_bytes` and `kStaticSmem`) against
+    `matching.auction_smem_bytes`, which `check_kernel_inputs` applies: at
+    Q = 200 the largest G the formula lets through must launch and give
+    the plain version's matches, and one more gt must be refused by the
+    formula and by the kernel's entry point alike."""
+    from vitadapter_torch.ops import cuda_ext, matching as mt
 
     ok = True
     B, Q, G = AUCTION_SHAPE
-    for case, nv in (("flagship", [G] * B),
-                     ("n_valid", [G, 37, 7, 1, 0, G, 12, 2])):
-        cost = auction_costs(gen, len(nv), Q, G,
-                             contested=case == "flagship")
-        n_valid = torch.tensor(nv, device="cuda")
+    for case, (cost, n_valid) in auction_cases(gen).items():
+        nv = n_valid.tolist()
         owner, iters = mt._kernel_auction(cost, n_valid)
         ref, ref_iters = mt.auction_assign_plain(cost, n_valid)
         torch.cuda.synchronize()
@@ -667,15 +698,52 @@ def check_auction(rows, flush, gen):
         rounds = iters.long().tolist()
         ops = sum(4 * G * Q * r for r in rounds)
         b = bound_ms(nbytes(cost, n_valid, owner, iters), ops, torch.float32)
+        us_round = k_ms * 1e3 / max(max(rounds), 1)
         log(f"auction {case:8s} ({len(nv)}, {Q}, {G}) fp32 n_valid={nv[:8]} "
-            f"same matches as plain={same} max_abs_err={err:.1f} total - "
-            f"scipy optimum max {max(gap):.3e} within n_valid*eps={within} "
-            f"rounds min/mean/max {min(rounds)}/"
+            f"same matches and rounds as plain={same} max_abs_err={err:.1f} "
+            f"total - scipy optimum max {max(gap):.3e} within "
+            f"n_valid*eps={within} rounds min/mean/max {min(rounds)}/"
             f"{sum(rounds) / len(rounds):.1f}/{max(rounds)} ok={good} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-            f"scipy_host_ms={scipy_ms:.2f} bound_ms={b[0]:.6f} ({b[1]})")
+            f"kernel_ms={k_ms:.4f} us_per_round={us_round:.3f} "
+            f"plain_ms={p_ms:.4f} scipy_host_ms={scipy_ms:.2f} "
+            f"bound_ms={b[0]:.6f} ({b[1]})")
         if case == "flagship":
             add_to_row(rows["auction"], 1, err, k_ms, p_ms, b)
+            rows["auction"]["us_per_round"] = us_round
+
+    def refused(fn, exc, words):
+        try:
+            fn()
+        except exc as e:
+            return words in str(e)
+        return False
+
+    g_max = max(g for g in range(1, 4096)
+                if mt.auction_smem_bytes(Q, g) <= mt.SMEM_OPTIN)
+    big = auction_costs(gen, 1, Q, g_max + 1, contested=False).contiguous()
+    fits = big[..., :g_max].contiguous()
+    nv1 = torch.tensor([G], device="cuda")
+    mt.check_kernel_inputs(fits, nv1)
+    owner, iters = mt._kernel_auction(fits, nv1)
+    ref, ref_iters = mt.auction_assign_plain(fits, nv1)
+    same = bool((owner.long() == ref).all()) and bool(
+        (iters.long() == ref_iters).all())
+    by_formula = refused(lambda: mt.check_kernel_inputs(big, nv1), ValueError,
+                         "shared memory")
+    nv32 = nv1.int()
+    out = torch.empty((1, Q), dtype=torch.int32, device="cuda")
+    by_kernel = refused(lambda: cuda_ext.launch(
+        "auction", big.device, big.data_ptr(), nv32.data_ptr(),
+        out.data_ptr(), iters.data_ptr(), 1, Q, g_max + 1, mt.EPS_DIV,
+        mt.MAX_ITERS), RuntimeError, "invalid argument")
+    torch.cuda.synchronize()
+    good = same and by_formula and by_kernel
+    ok &= good
+    log(f"auction shared memory: (1, {Q}, {g_max}) takes "
+        f"{mt.auction_smem_bytes(Q, g_max)} of {mt.SMEM_OPTIN} bytes, "
+        f"launches, same matches and rounds as plain={same}; "
+        f"(1, {Q}, {g_max + 1}) refused by auction_smem_bytes={by_formula}, "
+        f"by the kernel's entry point={by_kernel} ok={good}")
     return ok
 
 
@@ -939,14 +1007,18 @@ def check_level(value, shapes, lvl, loc, attn, g, flush, gen, full):
     """One level of the per-level route on one set of locations:
     msda_level_fwd and msda_level_dgrid against their plain versions
     (`_sample_one_level`, `level_dgrid_plain`), each launched twice into
-    fresh outputs that must agree bit for bit, and with `full` also
-    msda_level_dv against `level_dv_plain`. Times each launch beside its
-    bound and `F.grid_sample` (forward; backward to the grid for d loc, to
-    the input for d value), with `full` beside its plain version too.
-    Bounds count the value rows the points touch, read once, and each
-    output written once: the forward's fp32 (B, Lq, M, D), d value's whole
-    level, d loc's and d attn's level slices. Returns (ok, {kernel: (err,
-    ms, plain ms or None, bound, library ms)}, words for the log)."""
+    fresh outputs that must agree bit for bit, and msda_level_dv against
+    `level_dv_plain` (`close_grad`: its sums come from atomics) in a
+    zeroed fp32 buffer whose rows off the level must stay zero; the buffer
+    is 4 bytes off 16-byte alignment when the value is (the scalar
+    instantiation). Times each launch beside its bound and `F.grid_sample`
+    (forward; backward to the grid for d loc, to the input for d value),
+    with `full` beside its plain version too; msda_level_dv's words give
+    its atomic payload (in-map corners x D x 4 bytes) and that payload's
+    rate. Bounds count the value rows the points touch, read once, and
+    each output written once: the forward's fp32 (B, Lq, M, D), d value's
+    whole level, d loc's and d attn's level slices. Returns (ok, {kernel:
+    (err, ms, plain ms or None, bound, library ms)}, words for the log)."""
     from vitadapter_torch.ops import msda
 
     B, S, M, D = value.shape
@@ -1004,31 +1076,40 @@ def check_level(value, shapes, lvl, loc, attn, g, flush, gen, full):
     words["msda_level_fwd"] += (
         f" bitwise-equal twice={same}; touched {touched / 2 ** 20:.1f} of "
         f"the level's {nbytes(value_l) / 2 ** 20:.1f} MiB of value")
+    off = int(value.data_ptr() % 16 != 0)
+    dv = torch.zeros(B * S * M * D + off, dtype=F32, device="cuda")[off:]
+    dv = dv.view(B, S, M, D)
+    msda.level_grad_value(value, shapes, lvl, loc, attn, g, dv)
+    ref_dv = msda.level_dv_plain(loc_l, attn_l, g4, H, W)
+    torch.cuda.synchronize()
+    good_v, err_v = close_grad(dv[:, start:start + H * W], ref_dv)
+    good_v &= not (dv[:, :start].any() or dv[:, start + H * W:].any())
+    ok &= good_v
+    del ref_dv
+    vb = bound_ms(la + nbytes(g) + B * H * W * M * D * 4, ops, F32)
+    with torch.no_grad():
+        k_v = time_ms(lambda: msda.level_grad_value(
+            value, shapes, lvl, loc, attn, g, dv), flush)
+    l_v = time_ms(lambda: torch.autograd.grad(lib_out, inp, go,
+                                              retain_graph=True), flush)
+    payload = corners * D * 4
+    numbers["msda_level_dv"] = [err_v, k_v, None, vb, l_v]
+    words["msda_level_dv"] = (
+        f"max_abs_err={err_v:.3e} ok={good_v} (dv 16-byte aligned="
+        f"{dv.data_ptr() % 16 == 0}); atomic payload "
+        f"{payload / 1e9:.4f} GB at {payload / k_v / 1e9:.3f} TB/s")
+    del dv
     if full:
-        dv = torch.zeros((B, S, M, D), dtype=F32, device="cuda")
-        msda.level_grad_value(value, shapes, lvl, loc, attn, g, dv)
-        ref_dv = msda.level_dv_plain(loc_l, attn_l, g4, H, W)
-        torch.cuda.synchronize()
-        good_v, err_v = close_grad(dv[:, start:start + H * W], ref_dv)
-        ok &= good_v
-        del ref_dv
-        vb = bound_ms(la + nbytes(g) + B * H * W * M * D * 4, ops, F32)
         with torch.no_grad():
-            k_v = time_ms(lambda: msda.level_grad_value(
-                value, shapes, lvl, loc, attn, g, dv), flush)
             numbers["msda_level_fwd"][2] = time_ms(
                 lambda: msda._sample_one_level(value_l, loc_l, attn_l, H, W),
                 flush, iters=3)
         numbers["msda_level_dgrid"][2] = time_ms(
             lambda: msda.level_dgrid_plain(value_l, loc_l, attn_l, g4, H, W),
             flush, iters=3)
-        p_v = time_ms(lambda: msda.level_dv_plain(loc_l, attn_l, g4, H, W),
-                      flush, iters=3)
-        l_v = time_ms(lambda: torch.autograd.grad(lib_out, inp, go,
-                                                  retain_graph=True), flush)
-        numbers["msda_level_dv"] = [err_v, k_v, p_v, vb, l_v]
-        words["msda_level_dv"] = f"max_abs_err={err_v:.3e} ok={good_v}"
-        del dv
+        numbers["msda_level_dv"][2] = time_ms(
+            lambda: msda.level_dv_plain(loc_l, attn_l, g4, H, W), flush,
+            iters=3)
     return ok, numbers, words
 
 
@@ -1046,9 +1127,9 @@ def log_level(words, numbers, head):
 def check_msda_levels(rows, flush, gen):
     """msda_level_fwd, msda_level_dv and msda_level_dgrid at every
     `LEVEL_GEOMETRIES` shape, level by level (`check_level`), on two sets
-    of locations: `msda_inputs`' uniform ones (all three kernels, the
-    numbers of the kernels' rows) and `msda_model_locations`' model-shaped
-    ones (fwd and dgrid, the rows' `model_shaped` numbers); then the whole
+    of locations: `msda_inputs`' uniform ones (the numbers of the kernels'
+    rows, plain versions timed) and `msda_model_locations`' model-shaped
+    ones (the rows' `model_shaped` numbers); then the whole
     per-level route through the wrapper (`MSDeformAttnLevelFunction`)
     against `ms_deform_attn_plain` and its autograd, and in fp32 against
     the fused kernels (`MSDeformAttnFunction`, which takes any S): output
@@ -1057,6 +1138,7 @@ def check_msda_levels(rows, flush, gen):
     from vitadapter_torch.ops import msda
 
     ok = True
+    payload_gb = {}  # msda_level_dv's atomic payload per over-line step
     for name, (shapes, Lq, M, dtypes, on_path) in LEVEL_GEOMETRIES.items():
         for dtype in dtypes:
             value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen, B=1)
@@ -1090,6 +1172,14 @@ def check_msda_levels(rows, flush, gen):
                             row = row.setdefault("model_shaped", new_row(
                                 plain=False))
                         add_to_row(row, on_path[1], err, k_ms, p_ms, b, l_ms)
+                        if kernel == "msda_level_dv":
+                            # in-map corners x D x 4 bytes, as check_level
+                            # logs it; a log line, not a row's number
+                            gb = corners_in_map(lc[:, :, :, lvl, :, 0],
+                                                lc[:, :, :, lvl, :, 1], H,
+                                                W) * D * 4 / 1e9
+                            payload_gb[kind] = (payload_gb.get(kind, 0.0)
+                                                + on_path[1] * gb)
                     if dtype == F32 and H * W <= 1024:
                         err, k_ms, p_ms, b, l_ms = numbers["msda_level_fwd"]
                         row = rows["msda_level_fwd"].setdefault(
@@ -1143,13 +1233,19 @@ def check_msda_levels(rows, flush, gen):
                 + vs_fused)
             del value, loc, loc_m, attn, g, ins, got
             torch.cuda.empty_cache()
+    dv = rows["msda_level_dv"]
+    for kind, row in (("uniform", dv), ("model-shaped", dv["model_shaped"])):
+        log(f"msda_level_dv per over-line step ({kind}): atomic payload "
+            f"{payload_gb[kind]:.2f} GB in {row['ms']:.3f} ms, "
+            f"{payload_gb[kind] / row['ms']:.3f} TB/s")
     return ok
 
 
 def check_msda_level_layouts(flush, gen):
-    """msda_level_fwd and msda_level_dgrid at the `LEVEL_LAYOUTS` cases
-    (another P, ragged and narrow rows, a misaligned value), fp32 and bf16,
-    on both sets of locations, through `check_level`."""
+    """msda_level_fwd, msda_level_dv and msda_level_dgrid at the
+    `LEVEL_LAYOUTS` cases (another P, ragged and narrow rows, a misaligned
+    value and d value buffer), fp32 and bf16, on both sets of locations,
+    through `check_level`."""
     ok = True
     for name, (shapes, grid, M, D, P, misaligned) in LEVEL_LAYOUTS.items():
         Lq = grid[0] * grid[1]
@@ -1964,11 +2060,9 @@ def main():
             if m and int(m.group(1)):
                 spills.append(f"{name}: {kernel}")
             m = re.search(r"(\d+) bytes stack frame", line)
-            if name in ("msda_fwd", "msda_bwd") and m and int(m.group(1)):
+            if name in NO_FRAME and m and int(m.group(1)):
                 frames.append(f"{name}: {kernel}")
     log(f"  instantiations that spill: {spills or 'none'}")
-    # the fused MSDA kernels keep every value in registers (their level
-    # table in shared memory): no stack frame in any instantiation
     if frames:
         raise SystemExit(f"FAIL: a stack frame in {frames}")
     for name in ("attention_fwd", "attention_bwd"):
@@ -2040,7 +2134,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("paths", "small_level", "model_shaped")
+            **{key: r[key] for key in ("paths", "small_level", "model_shaped",
+                                       "us_per_round")
                if key in r},
             "per": per + f"; launches over the {path} phase"})
     print(json.dumps({"kernels": kernels}))

@@ -488,6 +488,19 @@ def test_auction_kernel_input_checks():
         tmatching.check_kernel_inputs(cost, nv[:1])
 
 
+def test_auction_shared_memory_formula():
+    """`auction_smem_bytes`, the bytes `check_kernel_inputs` holds a cost
+    matrix to, as `csrc/auction.cu` lays them out: 8 bytes of bid key and
+    4 each of price and owner a query, the (G, Q) fp32 benefit matrix,
+    two free lists and the bid slots of G ints, and 76 static bytes. At
+    Q = 200, a block's 227 KiB hold G up to 282."""
+    assert tmatching.auction_smem_bytes(200, 60) == 51996
+    assert tmatching.auction_smem_bytes(1, 1) == 8 + 4 * (1 + 2 + 3) + 76
+    fits = [G for G in range(1, 1000)
+            if tmatching.auction_smem_bytes(200, G) <= tmatching.SMEM_OPTIN]
+    assert max(fits) == 282 and len(fits) == 282
+
+
 def test_present_classes_and_gt_points_match_jax():
     _, _, label = _preds(35)
     want_l, want_v = jloss.present_classes(jnp.asarray(label), 7, 6)

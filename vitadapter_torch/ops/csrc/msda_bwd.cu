@@ -16,7 +16,8 @@
 // lanes on the channels, every lane computing every point's geometry, 32
 // scalar atomics per corner and three 5-step warp reductions per point,
 // the level table read from local memory) took 1.386 ms there. Per
-// flagship bf16 train step now (vitadapter_torch/tools/msda_variants.py):
+// flagship bf16 train step now (vitadapter_torch/tools/msda_variants.py at
+// commit 09b25cb, whose ablations tools/kernel_variants.py carries on):
 // 4.79 ms on uniform locations and 5.65 on model-shaped ones; a variant
 // without the atomics takes 3.04 and 2.94, so they add 1.7 and 2.7 ms, the
 // more where neighbouring queries and a query's own points share corners
@@ -48,7 +49,7 @@
 // point with no corner on the map (also NaN) gets zeros. The wrapper's
 // fp32 scratch is zeroed first and, for a bf16 value, cast to bf16 after,
 // eight elements a thread.
-// Measured and not kept (msda_variants.py, per bf16 step, uniform /
+// Measured and not kept (msda_variants.py at 09b25cb, per bf16 step, uniform /
 // model-shaped locations): a warp's adds to one chunk combined by
 // __match_any_sync before one atomic, 17.57 / 16.71 ms (8.92 with every
 // point on one cell); each team's points rotated by a level, so that the

@@ -15,7 +15,8 @@
 // load a lane per corner, the level table read from local memory) took
 // 0.796 ms there, bound by instruction issue as the per-level kernels'
 // first design was (msda_level.cuh). Now the per-(query, head) work sets
-// the time (vitadapter_torch/tools/msda_variants.py): per flagship bf16
+// the time (vitadapter_torch/tools/msda_variants.py at commit 09b25cb, whose
+// ablations tools/kernel_variants.py carries on): per flagship bf16
 // forward 1.70 ms on uniform locations, 1.64 on model-shaped ones and 1.38
 // with every point on one cell (every corner after the first an L1 hit); a
 // variant that loads no value (geometry, shuffles and sums only) takes

@@ -1,6 +1,7 @@
-// Shared by the MSDA kernels msda_level_fwd.cu and msda_level_dgrid.cu
-// (one level a launch) and msda_fwd.cu and msda_bwd.cu (all levels in one
-// launch): one thread mapping, one geometry, one edge convention.
+// Shared by the MSDA kernels msda_level_fwd.cu, msda_level_dv.cu and
+// msda_level_dgrid.cu (one level a launch) and msda_fwd.cu and msda_bwd.cu
+// (all levels in one launch): one thread mapping, one geometry, one edge
+// convention.
 //
 // Thread mapping. A warp is cut into teams of G lanes, one team per
 // (batch, query, head); lane gl of a team owns the 16-byte chunks gl,

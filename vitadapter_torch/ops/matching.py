@@ -76,6 +76,15 @@ def auction_assign_plain(cost: torch.Tensor, n_valid: torch.Tensor
     return owner, iters
 
 
+def auction_smem_bytes(Q: int, G: int) -> int:
+    """Shared memory, bytes, one block of `csrc/auction.cu` takes for a
+    (Q, G) cost matrix: its `smem_bytes` (an 8-byte bid key, the price and
+    the owner of each query, the (G, Q) fp32 benefit matrix, two free lists
+    and the bid slots of G ints) plus its static `kStaticSmem` (a float
+    for each of its 16 warps, 3 ints)."""
+    return 8 * Q + 4 * (G * Q + 2 * Q + 3 * G) + 4 * 16 + 4 * 3
+
+
 def check_kernel_inputs(cost: torch.Tensor, n_valid: torch.Tensor) -> None:
     """Raise ValueError on anything the auction kernel does not take."""
     if cost.dim() != 3 or cost.dtype != torch.float32:
@@ -90,7 +99,7 @@ def check_kernel_inputs(cost: torch.Tensor, n_valid: torch.Tensor) -> None:
                              f"{t.device}")
     if not cost.is_contiguous():
         raise ValueError("cost must be contiguous")
-    smem = 4 * (G * Q + 2 * Q + 3 * G) + 64
+    smem = auction_smem_bytes(Q, G)
     if smem > SMEM_OPTIN:
         raise ValueError(f"a ({Q}, {G}) cost matrix needs {smem} bytes of "
                          f"shared memory; one block has {SMEM_OPTIN}")
