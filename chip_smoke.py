@@ -12,7 +12,10 @@ Phases (each failure exits non-zero; nothing is caught):
      tensor-core instructions in the attention libraries' SASS by
      instantiation (TF32 and bf16 `HGMMA`, `HMMA`); fails if an fp32
      attention kernel has no TF32 `HGMMA`, or if an instantiation of the
-     fused MSDA kernels, `msda_level_dv` or the auction has a stack frame;
+     fused MSDA kernels, `msda_level_dv`, the auction or `point_sample_bwd`
+     has a stack frame; logs `point_sample_bwd`'s launch plan (cluster
+     size, rows and shared memory a CTA, row groups) for each of its calls
+     in phase 3;
   3. holds each kernel against its plain PyTorch version on the card, fp32
      and bf16, at the flagship's shapes: the forward kernels, and the
      backward kernels reached through the autograd wrappers (so the
@@ -69,9 +72,13 @@ logged), and at other P, widths and a misaligned value and d value buffer
 give it. The fp32 attention (split TF32 on the tensor cores) is launched
 twice at every case and must give bitwise-equal outputs and gradients; its
 bound is the split-TF32 floor (`attention_bound_ms`), with the CUDA-core
-figure beside it. The last two lines are a JSON object of the kernels'
-numbers (with the TPU kernels each one covers besides the one it replaces)
-and {"ok": true, "device": {...}}.
+figure beside it. point_sample_bwd is launched into NaN-filled outputs at
+the flagship's call and at `POINT_BWD_LAYOUTS` (unsorted points, points
+off the map and NaN, one mask, no points, one row or column, rows of 127
+and 130, the over-line step's 448x448 masks, timed under the row's
+`paths`, and a map larger than a cluster holds). The last two lines are a
+JSON object of the kernels' numbers (with the TPU kernels each one covers
+besides the one it replaces) and {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -151,6 +158,29 @@ POINT_GEOMETRIES = {
     "loss_gt": (400, 512, 512, 12544, True, 10),
 }
 POINT_BWD = "loss_pred"          # the one sampling call with a gradient
+# point_sample_bwd beside the flagship's call (phase 3), fp32 and bf16
+# masks, each case launched into a NaN-filled output so that a cell left
+# unwritten fails: name: (masks N, H, W, points per mask, points, None or
+# (the path, calls per step there)). Points "sorted" by y as the loss
+# sorts them, "unsorted", or "edges": unsorted, with points off the map,
+# NaN coordinates, pixel centres and the map's borders (`point_bwd_points`).
+# W 127 and 130 leave bands that do not start or end on 16 bytes; 448x448
+# is the over-line step's call (phase 9: 1792 / 4, bf16 since the loss
+# casts the mask logits); 1024x1024 is more than a cluster holds (row
+# groups).
+POINT_BWD_LAYOUTS = {
+    "unsorted": (400, 128, 128, 12544, "unsorted", None),
+    "edges": (400, 128, 128, 12544, "edges", None),
+    "n1": (1, 128, 128, 12544, "sorted", None),
+    "p0": (16, 128, 128, 0, "sorted", None),
+    "h1": (64, 1, 300, 2000, "edges", None),
+    "w1": (64, 300, 1, 2000, "edges", None),
+    "h1w1": (8, 1, 1, 500, "edges", None),
+    "w127": (64, 127, 127, 4000, "sorted", None),
+    "w130": (64, 96, 130, 4000, "edges", None),
+    "overline": (200, 448, 448, 12544, "sorted", ("train_overline", 10)),
+    "row_groups": (2, 1024, 1024, 100000, "unsorted", None),
+}
 # the assignment of one flagship train step: 10 decoder outputs x batch 2
 # cost matrices of 200 queries x 60 gts, solved in one launch
 AUCTION_SHAPE = (20, 200, 60)
@@ -303,7 +333,8 @@ COVERS = {
 # kernels that keep every value in registers (the fused MSDA kernels'
 # level table in shared memory): phase 2 fails on a stack frame in any of
 # their instantiations
-NO_FRAME = ("msda_fwd", "msda_bwd", "msda_level_dv", "auction")
+NO_FRAME = ("msda_fwd", "msda_bwd", "msda_level_dv", "auction",
+            "point_sample_bwd")
 # `time_ms`'s spin before each call: about 1 ms at the H100's SM clock
 SPIN_CYCLES = 2_000_000
 
@@ -1504,6 +1535,109 @@ def check_attention_paths(rows, flush, gen):
     return ok
 
 
+def point_bwd_points(N, P, kind, H, W, gen):
+    """Points (N, P, 2) of a `POINT_BWD_LAYOUTS` kind on the card."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    pts = torch.rand(N, P, 2, generator=gen, device="cuda")
+    if kind == "sorted":
+        return ps.sort_points_by_y(pts)
+    if kind == "edges":
+        r = torch.rand(N, P, 1, generator=gen, device="cuda")
+        size = torch.tensor([W, H], dtype=torch.float32, device="cuda")
+        pts = pts * 1.2 - 0.1
+        pts = torch.where(r < 0.05, (torch.floor(pts.clamp(0, 1) * size)
+                                     + 0.5) / size, pts)   # pixel centres
+        pts = torch.where((r >= 0.05) & (r < 0.15), pts * 7.0 - 3.0, pts)
+        pts = torch.where((r >= 0.15) & (r < 0.2),
+                          torch.round(pts.clamp(0, 1)), pts)  # the borders
+        nan = torch.cat([(r >= 0.2) & (r < 0.22),
+                         (r >= 0.21) & (r < 0.23)], dim=-1)
+        pts = torch.where(nan, float("nan"), pts)
+    return pts.contiguous()
+
+
+def point_bwd_nan_filled(masks, pts, g):
+    """point_sample_bwd launched once into a NaN-filled d masks, against
+    `point_sample_plain_backward` (`close_grad`)."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    out = torch.full_like(masks, float("nan"))
+    ps._launch_backward(pts, g, out)
+    torch.cuda.synchronize()
+    return close_grad(out, ps.point_sample_plain_backward(masks, pts, g))
+
+
+def plan_words(H, W):
+    from vitadapter_torch.ops import point_sample as ps
+
+    p = ps.bwd_plan(H, W)
+    return (f"plan: cluster {p.cluster}, {p.rows} rows and {p.smem_bytes} "
+            f"bytes of shared memory a CTA, {p.groups} row group(s)")
+
+
+def log_point_bwd_plans():
+    """Phase 2: the launch plan of each point_sample_bwd call of phase 3."""
+    N, H, W = POINT_GEOMETRIES[POINT_BWD][:3]
+    log(f"  point_sample_bwd {POINT_BWD} ({N}, {H}, {W}) {plan_words(H, W)}")
+    for name, (N, H, W, *_) in POINT_BWD_LAYOUTS.items():
+        log(f"  point_sample_bwd {name} ({N}, {H}, {W}) {plan_words(H, W)}")
+
+
+def time_point_bwd(masks, pts, g, flush):
+    """ms of the kernel (through `_kernel_backward`), the plain version and
+    `F.grid_sample`'s backward on fp32 copies of the masks, and the bound,
+    for one point_sample_bwd call."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    H, W = masks.shape[1:]
+    m4r = masks.float()[:, None].detach().clone().requires_grad_()
+    lib_out = F.grid_sample(m4r, (pts * 2 - 1)[:, None], mode="bilinear",
+                            padding_mode="zeros", align_corners=False)
+    g4 = g[:, None, None, :]
+    with torch.no_grad():
+        kb_ms = time_ms(lambda: ps._kernel_backward(masks, pts, g), flush)
+    pb_ms = time_ms(lambda: ps.point_sample_plain_backward(
+        masks, pts, g), flush, iters=3)
+    libb_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, m4r, g4, retain_graph=True), flush)
+    corners = corners_in_map(pts[..., 0], pts[..., 1], H, W)
+    bb = bound_ms(nbytes(pts, g, masks), 2 * corners, torch.float32)
+    return kb_ms, pb_ms, libb_ms, bb
+
+
+def check_point_bwd_layouts(rows, flush, gen):
+    """point_sample_bwd at `POINT_BWD_LAYOUTS`, fp32 and bf16, each launched
+    into a NaN-filled output; the path cases timed (bf16, the path's
+    dtype) under the row's `paths`."""
+    ok = True
+    for name, (N, H, W, P, kind, on_path) in POINT_BWD_LAYOUTS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            masks = torch.randn(N, H, W, generator=gen, device="cuda") \
+                .to(dtype)
+            pts = point_bwd_points(N, P, kind, H, W, gen)
+            g = torch.randn(N, P, generator=gen, device="cuda")
+            good, err = point_bwd_nan_filled(masks, pts, g)
+            ok &= good
+            text = (f"point_sample_bwd layout {name:10s} {str(dtype):14s} "
+                    f"({N}, {H}, {W}) x {P} {kind} points, {plan_words(H, W)}"
+                    f": NaN-filled output max_abs_err={err:.3e} ok={good}")
+            if on_path is not None and dtype == torch.bfloat16:
+                path, calls = on_path
+                kb_ms, pb_ms, libb_ms, bb = time_point_bwd(masks, pts, g,
+                                                           flush)
+                text += (f"; {path}, {calls} calls: kernel_ms={kb_ms:.4f} "
+                         f"plain_ms={pb_ms:.4f} grid_sample_bwd_ms="
+                         f"{libb_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]})")
+                add_to_row(rows["point_sample_bwd"].setdefault(
+                    "paths", {}).setdefault(path, new_row()), calls, err,
+                    kb_ms, pb_ms, bb, libb_ms)
+            log(text)
+            del masks, pts, g
+        torch.cuda.empty_cache()
+    return ok
+
+
 def check_point_sample(rows, flush, gen):
     """point_sample_fwd and point_sample_bwd (through
     `PointSampleFunction`). The yardstick is `F.grid_sample` on fp32 copies
@@ -1528,7 +1662,7 @@ def check_point_sample(rows, flush, gen):
                 g = torch.randn(N, P, generator=gen, device="cuda")
                 got.backward(g)
                 checks = [close_grad(m_in.grad, ps.point_sample_plain_backward(
-                    masks, pts, g))]
+                    masks, pts, g)), point_bwd_nan_filled(masks, pts, g)]
             torch.cuda.synchronize()
             good_b = all(c[0] for c in checks)
             ok &= good and good_b
@@ -1554,27 +1688,18 @@ def check_point_sample(rows, flush, gen):
                            fb, lib_ms)
             if not has_grad:
                 continue
-            m4r = m4.detach().clone().requires_grad_()
-            lib_out = F.grid_sample(m4r, grid, mode="bilinear",
-                                    padding_mode="zeros", align_corners=False)
-            g4 = g[:, None, None, :]
-            with torch.no_grad():
-                kb_ms = time_ms(lambda: ps._kernel_backward(masks, pts, g),
-                                flush)
-            pb_ms = time_ms(lambda: ps.point_sample_plain_backward(
-                masks, pts, g), flush, iters=3)
-            libb_ms = time_ms(lambda: torch.autograd.grad(
-                lib_out, m4r, g4, retain_graph=True), flush)
-            bb = bound_ms(nbytes(pts, g, masks), 2 * corners, torch.float32)
+            kb_ms, pb_ms, libb_ms, bb = time_point_bwd(masks, pts, g, flush)
+            err_b = max(c[1] for c in checks)
             log(f"point_sample_bwd {name:12s} {str(dtype):14s} d masks via "
-                f"the autograd wrapper: max_abs_err={checks[0][1]:.3e} "
-                f"ok={good_b} kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
-                f"grid_sample_bwd_ms={libb_ms:.4f} bound_ms={bb[0]:.4f} "
-                f"({bb[1]})")
+                f"the autograd wrapper and launched into a NaN-filled "
+                f"output, {plan_words(H, W)}: max_abs_err={checks[0][1]:.3e}"
+                f", {checks[1][1]:.3e} ok={good_b} kernel_ms={kb_ms:.4f} "
+                f"plain_ms={pb_ms:.4f} grid_sample_bwd_ms={libb_ms:.4f} "
+                f"bound_ms={bb[0]:.4f} ({bb[1]})")
             if dtype == torch.bfloat16:
-                add_to_row(rows["point_sample_bwd"], calls, checks[0][1],
-                           kb_ms, pb_ms, bb, libb_ms)
-    return ok
+                add_to_row(rows["point_sample_bwd"], calls, err_b, kb_ms,
+                           pb_ms, bb, libb_ms)
+    return ok & check_point_bwd_layouts(rows, flush, gen)
 
 
 def check_kernels(flush):
@@ -2063,6 +2188,7 @@ def main():
             if name in NO_FRAME and m and int(m.group(1)):
                 frames.append(f"{name}: {kernel}")
     log(f"  instantiations that spill: {spills or 'none'}")
+    log_point_bwd_plans()
     if frames:
         raise SystemExit(f"FAIL: a stack frame in {frames}")
     for name in ("attention_fwd", "attention_bwd"):

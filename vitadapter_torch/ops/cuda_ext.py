@@ -45,7 +45,8 @@ SIGNATURES = {
     "attention_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _P],
     "attention_bwd": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _P],
     "point_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "point_sample_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # points, g, dmask, N, H, W, P, is_bf16, cluster, rows, stream
+    "point_sample_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "auction": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 

@@ -6,16 +6,20 @@ Counterpart of `vitadapter/ops/point_sample.py` and
 `vitadapter/ops/point_sample_pallas.py`. The kernels are
 `csrc/point_sample_fwd.cu` (it replaces `point_sample_pallas._fwd_kernel`)
 and `csrc/point_sample_bwd.cu` (it replaces `point_sample_pallas._bwd_kernel`).
-Semantics are `F.grid_sample(mode='bilinear', padding_mode='zeros',
-align_corners=False)` on (x, y) points in [0, 1]: a point maps to pixel
-(x * W - 0.5, y * H - 0.5) and corners off the map contribute zero. As in
+The backward kernel sums each mask's gradient in the shared memory of a
+thread-block cluster, each CTA owning a band of rows (`bwd_plan` picks the
+cluster size and the rows from H x W), and writes every cell once in the
+mask dtype: no fp32 scratch, no global atomics. Semantics are
+`F.grid_sample(mode='bilinear', padding_mode='zeros', align_corners=False)`
+on (x, y) points in [0, 1]: a point maps to pixel (x * W - 0.5, y * H -
+0.5); corners off the map contribute zero, and so does a NaN point. As in
 the Pallas kernel, the gradient of the points is zero by definition (every
 caller detaches them), so the autograd function returns none for them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -23,6 +27,49 @@ from vitadapter_torch.ops import cuda_ext
 
 # a callable (shape) -> uniform [0, 1) fp32 tensor: the loss's random draws
 Sampler = Callable[[Sequence[int]], torch.Tensor]
+
+# the backward kernel's launch plan (`bwd_plan`)
+BWD_MAX_CLUSTER = 8            # CTAs in a cluster: the portable limit
+BWD_MAX_CTA_BYTES = 232448     # shared memory a CTA may take (227 KB)
+# the band a CTA is given when a cluster of at most BWD_MAX_CLUSTER can
+# cut the map that fine: small enough that several CTAs share an SM
+BWD_CTA_BYTES = 32 * 1024
+
+
+class BwdPlan(NamedTuple):
+    """How `point_sample_bwd.cu` covers an (H, W) map: `groups` row groups,
+    one cluster of `cluster` CTAs each per mask; CTA r of group k owns the
+    rows [(k * cluster + r) * rows, + rows) clipped to H, an fp32 band of
+    `smem_bytes` in its shared memory."""
+    cluster: int
+    rows: int
+    groups: int
+    smem_bytes: int
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(H: int, W: int) -> BwdPlan:
+    """The smallest cluster (1, 2, 4 or 8 CTAs) whose bands hold at most
+    BWD_CTA_BYTES; else 8 CTAs with the largest bands a CTA holds, the map
+    cut into as few row groups as that needs and the rows spread evenly
+    over them. Raises ValueError when one row does not fit a CTA."""
+    row_bytes = 4 * W
+    if H < 1 or W < 1 or row_bytes > BWD_MAX_CTA_BYTES:
+        raise ValueError(f"point_sample_bwd takes maps of 1 to "
+                         f"{BWD_MAX_CTA_BYTES // 4} columns, got {H}x{W}")
+    cluster = 1
+    while cluster < BWD_MAX_CLUSTER and \
+            _ceil_div(H, cluster) * row_bytes > BWD_CTA_BYTES:
+        cluster *= 2
+    rows = _ceil_div(H, cluster)
+    if rows * row_bytes > BWD_MAX_CTA_BYTES:
+        groups = _ceil_div(H, cluster * (BWD_MAX_CTA_BYTES // row_bytes))
+        rows = _ceil_div(H, cluster * groups)
+    return BwdPlan(cluster, rows, _ceil_div(H, cluster * rows),
+                   rows * row_bytes)
 
 
 def uniform_sampler(generator: torch.Generator) -> Sampler:
@@ -40,15 +87,15 @@ def _corners(points: torch.Tensor, H: int, W: int):
     y0 = torch.floor(y)
     lx = x - x0
     ly = y - y0
-    x0i = x0.long()
-    y0i = y0.long()
     out = []
     for dx, dy, w in ((0, 0, (1 - lx) * (1 - ly)), (1, 0, lx * (1 - ly)),
                       (0, 1, (1 - lx) * ly), (1, 1, lx * ly)):
-        xi = x0i + dx
-        yi = y0i + dy
-        valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        idx = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        xi = x0 + dx
+        yi = y0 + dy
+        # in float, so that a NaN point is off the map on every device
+        valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        idx = (torch.where(valid, yi, 0.0).long() * W
+               + torch.where(valid, xi, 0.0).long())
         out.append((idx, valid, w))
     return out
 
@@ -114,16 +161,22 @@ def _kernel_forward(masks, points) -> torch.Tensor:
     return out
 
 
+def _launch_backward(points, g, dmask) -> None:
+    """One launch of `point_sample_bwd.cu` on `bwd_plan`'s clusters: d
+    masks into `dmask` (N, H, W) of the mask dtype, every cell written, from
+    points (N, P, 2) and the fp32 output gradient g (N, P), all contiguous
+    on one device."""
+    N, H, W = dmask.shape
+    plan = bwd_plan(H, W)
+    cuda_ext.launch("point_sample_bwd", dmask.device, points.data_ptr(),
+                    g.data_ptr(), dmask.data_ptr(), N, H, W, points.shape[1],
+                    int(dmask.dtype == torch.bfloat16), plan.cluster,
+                    plan.rows)
+
+
 def _kernel_backward(masks, points, grad_out) -> torch.Tensor:
-    N, H, W = masks.shape
-    P = points.shape[1]
-    g = grad_out.float().contiguous()
     dmask = torch.empty_like(masks)
-    acc = dmask if masks.dtype == torch.float32 else torch.empty(
-        masks.shape, dtype=torch.float32, device=masks.device)
-    cuda_ext.launch("point_sample_bwd", masks.device, points.data_ptr(),
-                    g.data_ptr(), acc.data_ptr(), dmask.data_ptr(), N, H, W,
-                    P, int(masks.dtype == torch.bfloat16))
+    _launch_backward(points, grad_out.float().contiguous(), dmask)
     return dmask
 
 

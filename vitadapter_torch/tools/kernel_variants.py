@@ -2,33 +2,44 @@
 """Card time of variants of the port's kernels beside the kernels as they
 are, on `chip_smoke.py`'s clock: the measurements behind the design notes
 in the sources of the fused MSDA kernels (`csrc/msda_fwd.cu`,
-`csrc/msda_bwd.cu`), the per-level d value (`csrc/msda_level_dv.cu`) and
-the auction (`csrc/auction.cu`).
+`csrc/msda_bwd.cu`), the per-level d value (`csrc/msda_level_dv.cu`), the
+auction (`csrc/auction.cu`) and the point sampling backward
+(`csrc/point_sample_bwd.cu`).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 vitadapter_torch/tools/kernel_variants.py [KERNEL ...]
 
-KERNEL (msda_fwd, msda_bwd, msda_level_dv, auction; all when none is
-given) picks the kernels whose variants are built and timed. Each variant
-is the checked-in source with a few lines replaced (`VARIANTS`), built
-with the port's nvcc flags into `vitadapter_torch/_build/variants/` and
-called through its C entry point. A variant whose old text is no longer
-in the source (the kernel changed since) is reported as stale and
-skipped; the rest still run. Two kinds, each behind a number in its
-kernel's source note:
+KERNEL (msda_fwd, msda_bwd, msda_level_dv, auction, point_sample_bwd; all
+when none is given) picks the kernels whose variants are built and timed.
+Each variant is the checked-in source with a few lines replaced
+(`VARIANTS`), built with the port's nvcc flags into
+`vitadapter_torch/_build/variants/` and called through its C entry
+point. A variant whose old text is no longer in the source (the kernel
+changed since) is reported as stale and skipped; the rest still run. Two
+kinds, each behind a number in its kernel's source note:
 - ablations, whose results are wrong on purpose and are not checked: the
   forward without its value loads, the backward without its d value
   atomics, the per-level d value with plain stores in place of its
   atomics and with a head-major buffer (what is left is the rest of the
-  kernel's work, or its writes with another address pattern);
+  kernel's work, or its writes with another address pattern); the point
+  sampling backward with integer atomics on the float bits (a native
+  shared-memory atomic, where fp32 needs a compare-and-swap loop), with
+  plain adds and with no adds;
 - designs measured and not kept: in the per-level d value one atomic per
   corner and point (no merging), heads as the fastest grid dimension (a
   block's teams take the heads of one query) and a warp's teams on
   neighbouring heads; in the auction, the bid search as a shuffle tree of
   (best, query, second) triples with one query's loads at a time, bids
   resolved without atomics (each bidder scanning the round's bids), the
-  next list's appends aggregated by warp, and 128, 256 and 1024 threads.
+  next list's appends aggregated by warp, and 128, 256 and 1024 threads;
+  in the point sampling backward, every add through DSMEM (the CTA's own
+  band too), no prefetch of the next point, the local add as a
+  hand-written atomicCAS loop or as two atomic exchanges, a warp's lanes
+  spread over the points, other thread counts and register caps, and, on
+  the kept build, other launch plans (`PS_PLANS`:
+  one CTA a mask, bands that each scan all the mask's points with no
+  DSMEM, clusters of 2, 4 and 8).
   (The fused kernels' designs not kept were measured by
   `tools/msda_variants.py` of commit 09b25cb.)
 The fused kernels are timed at the flagship's geometries
@@ -40,7 +51,14 @@ model-shaped and one-cell locations (as `msda_ab.py`), each d value
 variant with its largest difference from `level_dv_plain`. The auction is
 timed at `chip_smoke.auction_cases`, ms per launch, each variant with
 whether it gives the plain version's owners and rounds. Prints the card's
-name and power limit, then one JSON line.
+name and power limit, then one JSON line. The point sampling backward is
+timed in bf16 at the flagship's call (`chip_smoke.POINT_GEOMETRIES`'
+"loss_pred") on sorted and unsorted points and at the over-line step's
+(`chip_smoke.POINT_BWD_LAYOUTS`' "overline"), summed per step, each
+variant and plan with its largest difference from
+`point_sample_plain_backward`. (The design it replaced, global atomics
+into an fp32 scratch and a cast, is timed by `tools/point_sample_ab.py`
+on its commit.)
 """
 
 import ctypes
@@ -279,7 +297,96 @@ _AUCTION_WARP_APPEND = """\
       if (freed >= 0) next[at + __popc(m & ((1u << lane) - 1u))] = freed;
     }
 """
-KERNELS = ("msda_fwd", "msda_bwd", "msda_level_dv", "auction")
+# point_sample_bwd.cu's add of one corner, as kept: a shared-memory atomic
+# (a compare-and-swap loop) for the CTA's own band, a DSMEM reduction for a
+# neighbour's; the ablations replace the first with a native integer
+# atomic on the float's bits, a plain add, or (both) nothing
+_PS_LOCAL = "atomicAdd(acc + band_row * W + xi, v);"
+_PS_ADD = f"""\
+      if (owner == rank)
+        {_PS_LOCAL}
+      else
+        add_remote(acc, band_row * W + xi, (unsigned)owner, v);
+"""
+_PS_ALL_DSMEM = (_PS_ADD, "      add_remote(acc, band_row * W + xi, "
+                 "(unsigned)owner, v);\n")
+_PS_INT = (_PS_LOCAL, "atomicAdd(reinterpret_cast<int*>(acc) + band_row * W "
+                      "+ xi,\n                  __float_as_int(v));")
+_PS_PLAIN = (_PS_LOCAL, "acc[band_row * W + xi] += v;")
+_PS_NONE = (_PS_ADD,
+            "      if (v == -1.2345e-30f) acc[band_row * W + xi] = v;\n")
+# the points loop as kept: the next point's loads issued before this
+# point's adds
+_PS_PREFETCH_LOOP = """    float2 pt_next = pt;
+    float gv_next = 0.f;
+    if (j < p_hi) {
+      pt_next = __ldg(pts + j);
+      gv_next = __ldg(gn + j);
+    }
+    add_point(acc, pt, gv, H, W, rows, g0, g1, rank);
+    pt = pt_next;
+    gv = gv_next;
+"""
+_PS_NO_PREFETCH = (_PS_PREFETCH_LOOP, """\
+    add_point(acc, pt, gv, H, W, rows, g0, g1, rank);
+    if (j < p_hi) {
+      pt = __ldg(pts + j);
+      gv = __ldg(gn + j);
+    }
+""")
+
+# the local add as a hand-written atomicCAS loop (the compiler's atomicAdd
+# loop uses a compare-and-swap that reports only success), and as two
+# atomic exchanges (take the cell's value out, put the sum back, carry on
+# with whatever another thread left there meanwhile)
+_PS_HELPERS = "__device__ __forceinline__ void store16(float* out"
+_PS_CAS_LOOP = [(_PS_HELPERS, """\
+__device__ __forceinline__ void cas_add(float* a, float v) {
+  int* ai = reinterpret_cast<int*>(a);
+  int old = *reinterpret_cast<volatile int*>(ai);
+  int assumed;
+  do {
+    assumed = old;
+    old = atomicCAS(ai, assumed, __float_as_int(__int_as_float(assumed) + v));
+  } while (old != assumed);
+}
+
+""" + _PS_HELPERS), (_PS_LOCAL, "cas_add(acc + band_row * W + xi, v);")]
+_PS_EXCH = [(_PS_HELPERS, """\
+__device__ __forceinline__ void exch_add(float* a, float v) {
+  while ((v = atomicExch(a, atomicExch(a, 0.f) + v)) != 0.f) {
+  }
+}
+
+""" + _PS_HELPERS), (_PS_LOCAL, "exch_add(acc + band_row * W + xi, v);")]
+# a warp's lanes on points kThreads / 32 apart (fewer lanes of a warp on
+# one cell when the points are sorted; loads less coalesced)
+_PS_SPREAD = ("  int i = p_lo + threadIdx.x;",
+              "  int i = p_lo + (threadIdx.x & 31) * (kThreads / 32) +\n"
+              "          (threadIdx.x >> 5);")
+
+
+def _ps_threads(n, min_blocks):
+    """point_sample_bwd with n threads a CTA and a register cap of
+    min_blocks CTAs an SM."""
+    return [("constexpr int kThreads = 384;",
+             f"constexpr int kThreads = {n};"),
+            ("constexpr int kMinBlocks = 4;",
+             f"constexpr int kMinBlocks = {min_blocks};")]
+
+
+# point_sample_bwd's plans beside `bwd_plan`'s, at the shapes of the
+# flagship's call (128x128) and the over-line step's (448x448): name:
+# (cluster, rows per CTA)
+PS_PLANS = {
+    128: {"one_cta_a_mask": (1, 128), "bands_scan_all_2": (1, 64),
+          "bands_scan_all_4": (1, 32), "cluster_2": (2, 64),
+          "cluster_4": (4, 32), "cluster_8": (8, 16)},
+    448: {"bands_scan_all_8": (1, 56), "cluster_4": (4, 112),
+          "cluster_8": (8, 56)},
+}
+KERNELS = ("msda_fwd", "msda_bwd", "msda_level_dv", "auction",
+           "point_sample_bwd")
 # name: (kernel or "all", [(file, old text, new text), ...])
 VARIANTS = {
     "kept": ("all", []),
@@ -351,6 +458,22 @@ VARIANTS = {
     "auction_1024_threads": ("auction", [(
         "auction.cu", "constexpr int kThreads = 512;",
         "constexpr int kThreads = 1024;")]),
+    **{name: ("point_sample_bwd",
+              [("point_sample_bwd.cu", old, new) for old, new in edits])
+       for name, edits in (
+           ("ps_all_dsmem", [_PS_ALL_DSMEM]),
+           ("ps_no_prefetch", [_PS_NO_PREFETCH]),
+           ("ps_cas_loop", _PS_CAS_LOOP),
+           ("ps_exchange_add", _PS_EXCH),
+           ("ps_spread_lanes", [_PS_SPREAD]),
+           ("ps_128_threads", _ps_threads(128, 12)),
+           ("ps_256_threads", _ps_threads(256, 6)),
+           ("ps_512_threads", _ps_threads(512, 3)),
+           ("ps_512_threads_32_registers", _ps_threads(512, 4)),
+           ("ps_1024_threads_32_registers", _ps_threads(1024, 2)),
+           ("ps_int_atomics", [_PS_INT]),
+           ("ps_no_atomics", [_PS_PLAIN]),
+           ("ps_no_adds", [_PS_NONE]))},
 }
 
 
@@ -390,6 +513,10 @@ def build(cuda_ext, csrc, kernels):
     libs = {}
     for (name, k), (proc, lib) in procs.items():
         log = proc.communicate()[0]
+        for line in log.splitlines():
+            if k == "point_sample_bwd" and ("registers" in line
+                                            or "spill" in line):
+                print(f"{name} {k}: {line.strip()}", flush=True)
         if proc.returncode:
             raise SystemExit(f"FAIL: variant {name} {k} did not build:\n"
                              + log[-4000:])
@@ -516,6 +643,49 @@ def time_auction(smoke, mt, libs, flush, gen, sums):
                                                                 ITERS)
 
 
+def time_point_sample_bwd(smoke, ps, libs, flush, gen, sums):
+    """point_sample_bwd's variants (with `bwd_plan`'s plan) and the kept
+    kernel on `PS_PLANS`, bf16 masks, at the flagship's call on sorted and
+    unsorted points and at the over-line step's on sorted points, summed
+    per step (10 calls each); and each one's largest difference from
+    `point_sample_plain_backward` over the largest entry of the plain
+    result (an ablation's is wrong on purpose)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    bwd = {key: fn for key, fn in libs.items() if key[1] == "point_sample_bwd"}
+    N, H, W, P, _, calls = smoke.POINT_GEOMETRIES["loss_pred"]
+    N2, H2, W2, P2, _, _ = smoke.POINT_BWD_LAYOUTS["overline"]
+    for shape, sort in (((N, H, W, P), True), ((N, H, W, P), False),
+                        ((N2, H2, W2, P2), True)):
+        N, H, W, P = shape
+        masks = torch.randn(N, H, W, generator=gen, device="cuda") \
+            .bfloat16()
+        pts = torch.rand(N, P, 2, generator=gen, device="cuda")
+        if sort:
+            pts = ps.sort_points_by_y(pts)
+        g = torch.randn(N, P, generator=gen, device="cuda")
+        ref = ps.point_sample_plain_backward(masks, pts, g).float()
+        out = torch.empty_like(masks)
+        plan = ps.bwd_plan(H, W)
+        plans = {"bwd_plan": (plan.cluster, plan.rows), **PS_PLANS[H]}
+        runs = [(f"{v} plan {name}", fn, c, r) for (v, _), fn in bwd.items()
+                for name, (c, r) in plans.items()]
+        where = (f"{H}x{W}, {'sorted' if sort else 'unsorted'} "
+                 f"({N} masks, {P} points)")
+        for variant, fn, cluster, rows in runs:
+            def call():
+                checked(variant, "point_sample_bwd", fn(
+                    pts.data_ptr(), g.data_ptr(), out.data_ptr(), N, H, W, P,
+                    1, cluster, rows, stream))
+            out.fill_(float("nan"))
+            call()
+            sums[f"{variant} point_sample_bwd error / max ({where})"] = float(
+                (out.float() - ref).abs().max() / ref.abs().max())
+            sums[f"{variant} point_sample_bwd per step ({where})"] = \
+                calls * smoke.time_ms(call, flush, ITERS)
+        del masks, pts, g, ref, out
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     kernels = (sys.argv[1:] if argv is None else argv) or list(KERNELS)
     if not set(kernels) <= set(KERNELS):
@@ -528,6 +698,7 @@ def main(argv=None):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from vitadapter_torch.ops import cuda_ext, matching, msda
+    from vitadapter_torch.ops import point_sample
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -542,6 +713,8 @@ def main(argv=None):
         time_level_dv(smoke, msda, libs, flush, gen, sums)
     if "auction" in kernels:
         time_auction(smoke, matching, libs, flush, gen, sums)
+    if "point_sample_bwd" in kernels:
+        time_point_sample_bwd(smoke, point_sample, libs, flush, gen, sums)
     print(json.dumps({"results": sums}))
     return 0
 
