@@ -51,7 +51,17 @@ Phases (each failure exits non-zero; nothing is caught):
      launch counts of all ten kernels;
  10. evaluates the reduced model in fp32 through `run_eval` on two odd-sized
      non-square images (whole mode, ratios 0.75 and 1.0 with flip) on the
-     card and on the CPU and compares the confusion matrices.
+     card and on the CPU and compares the confusion matrices;
+ 11. drives the config entry points in this process on the 640 px
+     BEiT-Adapter-L + Mask2Former config (fp32, batch 1, 100 queries):
+     `tools.train.main` for 4 steps on synthetic data (checkpoints, the
+     eval hook), `--resume` for a fifth, then `tools.test.main` on two
+     ADE20K-layout images without and with `--aug-test`, against
+     `run_eval` called directly; checks the launches of each train step
+     and that no per-level or attention kernel runs;
+ 12. runs that config reduced to depth 4 at 256 px, full width, fp32, on
+     the card and on the CPU, and compares the logits and one train
+     step's loss and gradient norm (the CPU on the card's assignment).
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -60,7 +70,9 @@ filled with NaN first, the output, d loc and d attn bitwise equal across
 the launches; at other P, widths, level counts and a misaligned value
 (`FUSED_LAYOUTS`); and in fp32 at the shapes where phases 8 and 9 run them
 (`MSDA_PATH_CASES`, the plain versions four heads at a time; the rows'
-`paths`). It also holds the per-level MSDA kernels against their plain
+`paths`; phase 11's cases on model-shaped locations too). Point sampling
+and the auction are also checked at phase 11's shapes (`POINT_CLI`,
+`AUCTION_CLI`; the rows' `paths["cli"]`). It also holds the per-level MSDA kernels against their plain
 versions, and the per-level route against the fused kernels, at the shapes
 of every MSDA call that takes that route in phases 8 and 9 (and at a few
 thousand queries in fp32 and bf16), on uniform locations and on locations
@@ -181,9 +193,21 @@ POINT_BWD_LAYOUTS = {
     "overline": (200, 448, 448, 12544, "sorted", ("train_overline", 10)),
     "row_groups": (2, 1024, 1024, 100000, "unsorted", None),
 }
+# point sampling in one train step of phase 11 (batch 1, 100 queries, 60
+# gt classes, 10 decoder outputs, 160x160 mask logits at 640x640), as
+# `POINT_GEOMETRIES`' entries
+POINT_CLI = {
+    "assign_pred": (1000, 160, 160, 12544, True, 1),
+    "assign_gt": (60, 640, 640, 125440, True, 1),
+    "uncertainty": (100, 160, 160, 37632, False, 10),
+    "loss_pred": (100, 160, 160, 12544, True, 10),
+    "loss_gt": (100, 640, 640, 12544, True, 10),
+}
 # the assignment of one flagship train step: 10 decoder outputs x batch 2
-# cost matrices of 200 queries x 60 gts, solved in one launch
+# cost matrices of 200 queries x 60 gts, solved in one launch; phase 11's:
+# 10 x batch 1 of 100 queries x 60 gts
 AUCTION_SHAPE = (20, 200, 60)
+AUCTION_CLI = (10, 100, 60)
 SERVE_REQUESTS = 4   # batch-2 requests of the main path (phase 4)
 TRAIN_STEPS = 6      # flagship train steps (phase 6)
 TRAIN_LAUNCHES = {   # kernel launches per train step
@@ -232,6 +256,7 @@ LEVEL_QUERY_GRID = {
 # extractors ((96, 192)), each twice with the flip: 44 launches; phase 9's
 # extractors (1792x1792: (112, 112)) take a backward too
 R10 = ((32, 64), (64, 128), (128, 256))
+SPM640 = ((80, 80), (40, 40), (20, 20))
 MSDA_PATH_CASES = {
     "eval_r1.0_injector": (R10[::-1], 8192, 16, (64, 128), "eval_whole", 8,
                            False),
@@ -245,6 +270,13 @@ MSDA_PATH_CASES = {
     "overline_extractor": (((112, 112),), 65856, 16,
                            ((224, 224), (112, 112), (56, 56)),
                            "train_overline", 6, True),
+    # phase 11's train step (BEiT-Adapter-L + Mask2Former at 640x640,
+    # batch 1, fp32): the SPM pyramid (80, 80)/(40, 40)/(20, 20) and the
+    # 1/16 grid (40, 40); every call fused (about 1.1 MB of values a head)
+    # and checked on model-shaped locations too
+    "cli_injector": (SPM640, 1600, 16, (40, 40), "cli", 4, True),
+    "cli_extractor": (((40, 40),), 8400, 16, SPM640, "cli", 6, True),
+    "cli_pixel_decoder": (SPM640[::-1], 8400, 32, None, "cli", 6, True),
 }
 # the fused kernels off the flagship's layout, fp32 and bf16 each: name:
 # (spatial shapes, query grid, heads, D, P, the value 2 or 4 bytes off
@@ -307,6 +339,24 @@ OVERLINE_LAUNCHES = {
 # labelled pixels predicted differently (argmax flips where two classes'
 # probabilities tie within float reassociation)
 EVAL_CM_SHARE = 1e-3
+# phase 11: the config CLI on the 640 px BEiT-Adapter-L + Mask2Former
+# config, synthetic data, with these overrides; then two ADE20K-layout
+# images for the test CLI (a slide crop of 640 at stride 426 takes two
+# crops of each)
+CLI_CONFIG = "configs/ade20k/mask2former_beit_adapter_large_640_160k_ade20k_ss.py"
+CLI_STEPS = 4
+CLI_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=2",
+               "evaluation.interval=4", "evaluation.max_images=2"]
+CLI_IMAGES = ((512, 683), (683, 512))
+# `--aug-test` at ratios of at least 1: below 1 the slide crops of these
+# images are smaller than img_size, whose grid the BEiT relative-position
+# tables span (ROADMAP.md §3); the default ratios must raise that error
+CLI_AUG_RATIOS = "aug_test.img_ratios=[1.0,1.25,1.5,1.75]"
+CLI_STEP_LAUNCHES = {"msda_fwd": 16, "msda_bwd": 16, "point_sample_fwd": 32,
+                     "point_sample_bwd": 10, "auction": 1}
+# kernels that phase 11 must never launch
+CLI_NEVER = ("msda_level_fwd", "msda_level_dv", "msda_level_dgrid",
+             "attention_fwd", "attention_bwd")
 REPLACES = {
     "msda_fwd": "vitadapter/ops/msda_pallas.py:316",
     "msda_bwd": "vitadapter/ops/msda_pallas.py:1179",
@@ -677,6 +727,12 @@ def auction_cases(gen):
                          torch.tensor(nv, device="cuda"))}
     cases["ties"] = (torch.randint(0, 4, (B, Q, G), generator=gen,
                                    device="cuda").float(), full)
+    # phase 11's step: contested and tied costs at AUCTION_CLI
+    B, Q, G = AUCTION_CLI
+    full = torch.full((B,), G, device="cuda")
+    cases["cli"] = (auction_costs(gen, B, Q, G, contested=True), full)
+    cases["cli_ties"] = (torch.randint(0, 4, (B, Q, G), generator=gen,
+                                       device="cuda").float(), full)
     return cases
 
 
@@ -695,8 +751,8 @@ def check_auction(rows, flush, gen):
     from vitadapter_torch.ops import cuda_ext, matching as mt
 
     ok = True
-    B, Q, G = AUCTION_SHAPE
     for case, (cost, n_valid) in auction_cases(gen).items():
+        B, Q, G = cost.shape
         nv = n_valid.tolist()
         owner, iters = mt._kernel_auction(cost, n_valid)
         ref, ref_iters = mt.auction_assign_plain(cost, n_valid)
@@ -741,6 +797,9 @@ def check_auction(rows, flush, gen):
         if case == "flagship":
             add_to_row(rows["auction"], 1, err, k_ms, p_ms, b)
             rows["auction"]["us_per_round"] = us_round
+        elif case == "cli":
+            add_to_row(rows["auction"].setdefault("paths", {}).setdefault(
+                "cli", new_row(library=False)), 1, err, k_ms, p_ms, b)
 
     def refused(fn, exc, words):
         try:
@@ -749,6 +808,7 @@ def check_auction(rows, flush, gen):
             return words in str(e)
         return False
 
+    B, Q, G = AUCTION_SHAPE
     g_max = max(g for g in range(1, 4096)
                 if mt.auction_smem_bytes(Q, g) <= mt.SMEM_OPTIN)
     big = auction_costs(gen, 1, Q, g_max + 1, contested=False).contiguous()
@@ -950,19 +1010,28 @@ def check_msda(rows, flush, gen):
 
 def check_msda_paths(rows, flush, gen):
     """msda_fwd and msda_bwd in fp32 at `MSDA_PATH_CASES`, on uniform
-    locations: `check_fused` against the plain versions four heads at a
-    time, then the forward (and, where the path takes one, the backward)
-    timed beside the plain version. The numbers go to the rows' `paths`,
-    summed over each path's calls."""
+    locations (phase 11's cases on model-shaped ones too): `check_fused`
+    against the plain versions four heads at a time, then the forward (and,
+    where the path takes one, the backward) timed beside the plain version
+    on the uniform locations. The numbers go to the rows' `paths`, summed
+    over each path's calls."""
     from vitadapter_torch.ops import msda
 
     ok = True
-    for name, (shapes, Lq, M, _, path, calls, backward) in \
+    for name, (shapes, Lq, M, grid, path, calls, backward) in \
             MSDA_PATH_CASES.items():
         value, loc, attn, g = msda_inputs(shapes, Lq, M, F32, gen, B=1)
         good, words, err, err_b = check_fused(value, shapes, loc, attn, g,
                                               heads=4)
         ok &= good
+        if path == "cli":
+            loc_m = msda_model_locations(shapes, grid, M, 4, gen)
+            good_m, words_m, err_m, err_mb = check_fused(
+                value, shapes, loc_m, attn, g, heads=4)
+            ok &= good_m and loc_m.shape == loc.shape
+            err, err_b = max(err, err_m), max(err_b, err_mb)
+            words += f"; model-shaped: {words_m}"
+            del loc_m
         fb, bb = msda_bounds(shapes, value, loc, attn, g)
         with torch.no_grad():
             k_ms = time_ms(lambda: msda.ms_deform_attn(value, shapes, loc,
@@ -1580,6 +1649,9 @@ def log_point_bwd_plans():
     """Phase 2: the launch plan of each point_sample_bwd call of phase 3."""
     N, H, W = POINT_GEOMETRIES[POINT_BWD][:3]
     log(f"  point_sample_bwd {POINT_BWD} ({N}, {H}, {W}) {plan_words(H, W)}")
+    N, H, W = POINT_CLI[POINT_BWD][:3]
+    log(f"  point_sample_bwd cli {POINT_BWD} ({N}, {H}, {W}) "
+        f"{plan_words(H, W)}")
     for name, (N, H, W, *_) in POINT_BWD_LAYOUTS.items():
         log(f"  point_sample_bwd {name} ({N}, {H}, {W}) {plan_words(H, W)}")
 
@@ -1638,15 +1710,24 @@ def check_point_bwd_layouts(rows, flush, gen):
     return ok
 
 
-def check_point_sample(rows, flush, gen):
+def check_point_sample(rows, flush, gen, geometries=POINT_GEOMETRIES,
+                       path=None):
     """point_sample_fwd and point_sample_bwd (through
-    `PointSampleFunction`). The yardstick is `F.grid_sample` on fp32 copies
+    `PointSampleFunction`) at `geometries`, fp32 and bf16 masks; the bf16
+    numbers (the loss samples bf16 mask logits) go to the rows, or to
+    their `paths[path]`. The yardstick is `F.grid_sample` on fp32 copies
     of the masks, the points mapped to [-1, 1]."""
     from vitadapter_torch.ops import point_sample as ps
 
+    def row(name):
+        if path is None:
+            return rows[name]
+        return rows[name].setdefault("paths", {}).setdefault(path, new_row())
+
     ok = True
+    head = "" if path is None else f"{path} "
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (N, H, W, P, sort, calls) in POINT_GEOMETRIES.items():
+        for name, (N, H, W, P, sort, calls) in geometries.items():
             masks = torch.randn(N, H, W, generator=gen, device="cuda") \
                 .to(dtype)
             pts = torch.rand(N, P, 2, generator=gen, device="cuda")
@@ -1678,28 +1759,29 @@ def check_point_sample(rows, flush, gen):
                     align_corners=False), flush)
             fb = bound_ms(nbytes(masks, pts) + N * P * 4, 2 * corners,
                           torch.float32)
-            log(f"point_sample_fwd {name:12s} {str(dtype):14s} "
-                f"({N}, {H}, {W}) x {P} points max_abs_err={err:.3e} "
-                f"ok={good} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"grid_sample_ms={lib_ms:.4f} bound_ms={fb[0]:.4f} "
-                f"({fb[1]})")
+            log(f"point_sample_fwd {head}{name:12s} {str(dtype):14s} "
+                f"({N}, {H}, {W}) x {P} {'sorted' if sort else 'unsorted'} "
+                f"points max_abs_err={err:.3e} ok={good} kernel_ms="
+                f"{k_ms:.4f} plain_ms={p_ms:.4f} grid_sample_ms={lib_ms:.4f} "
+                f"bound_ms={fb[0]:.4f} ({fb[1]}), {calls} calls a step")
             if dtype == torch.bfloat16:
-                add_to_row(rows["point_sample_fwd"], calls, err, k_ms, p_ms,
+                add_to_row(row("point_sample_fwd"), calls, err, k_ms, p_ms,
                            fb, lib_ms)
             if not has_grad:
                 continue
             kb_ms, pb_ms, libb_ms, bb = time_point_bwd(masks, pts, g, flush)
             err_b = max(c[1] for c in checks)
-            log(f"point_sample_bwd {name:12s} {str(dtype):14s} d masks via "
-                f"the autograd wrapper and launched into a NaN-filled "
-                f"output, {plan_words(H, W)}: max_abs_err={checks[0][1]:.3e}"
-                f", {checks[1][1]:.3e} ok={good_b} kernel_ms={kb_ms:.4f} "
-                f"plain_ms={pb_ms:.4f} grid_sample_bwd_ms={libb_ms:.4f} "
-                f"bound_ms={bb[0]:.4f} ({bb[1]})")
+            log(f"point_sample_bwd {head}{name:12s} {str(dtype):14s} d "
+                f"masks via the autograd wrapper and launched into a "
+                f"NaN-filled output, {plan_words(H, W)}: max_abs_err="
+                f"{checks[0][1]:.3e}, {checks[1][1]:.3e} ok={good_b} "
+                f"kernel_ms={kb_ms:.4f} plain_ms={pb_ms:.4f} "
+                f"grid_sample_bwd_ms={libb_ms:.4f} bound_ms={bb[0]:.4f} "
+                f"({bb[1]}), {calls} calls a step")
             if dtype == torch.bfloat16:
-                add_to_row(rows["point_sample_bwd"], calls, err_b, kb_ms,
+                add_to_row(row("point_sample_bwd"), calls, err_b, kb_ms,
                            pb_ms, bb, libb_ms)
-    return ok & check_point_bwd_layouts(rows, flush, gen)
+    return ok
 
 
 def check_kernels(flush):
@@ -1724,6 +1806,8 @@ def check_kernels(flush):
     ok &= check_attention(rows, flush, gen)
     ok &= check_attention_paths(rows, flush, gen)
     ok &= check_point_sample(rows, flush, gen)
+    ok &= check_point_sample(rows, flush, gen, POINT_CLI, "cli")
+    ok &= check_point_bwd_layouts(rows, flush, gen)
     ok &= check_auction(rows, flush, gen)
     if not ok:
         raise SystemExit("FAIL: a kernel disagrees with its plain version")
@@ -1800,7 +1884,8 @@ def randomize(model, gen):
             elif p.ndim == 1:
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
             elif name.endswith(("sampling_offsets.weight",
-                                "attention_weights.weight")):
+                                "attention_weights.weight",
+                                "relative_position_bias_table")):
                 p.copy_(torch.randn(p.shape, generator=gen)
                         / p.shape[1] ** 0.5)
         for m in model.modules():
@@ -2158,6 +2243,303 @@ def eval_card_vs_cpu():
         raise SystemExit("FAIL: run_eval card vs CPU")
 
 
+def write_ade_images(root, sizes, seed):
+    """uint8 JPEG images and PNG labels in 0..150 (0 is ADE20K's ignored
+    label) in the ADE20K layout under `root`, in blocks of 64 pixels."""
+    import numpy as np
+    from PIL import Image
+
+    img_dir = os.path.join(root, "images", "validation")
+    ann_dir = os.path.join(root, "annotations", "validation")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    host = torch.Generator().manual_seed(seed)
+    for i, (h, w) in enumerate(sizes):
+        img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8,
+                            generator=host).numpy()
+        Image.fromarray(img).save(os.path.join(img_dir, f"{i:04d}.jpg"),
+                                  quality=95)
+        lab = block_labels(host, h, w, 151, 64).astype(np.uint8)
+        Image.fromarray(lab).save(os.path.join(ann_dir, f"{i:04d}.png"))
+
+
+def launch_diff(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def config_cli():
+    """Phase 11: the config entry points on the 640 px BEiT-Adapter-L +
+    Mask2Former config (fp32, batch 1, 100 queries, 150 classes), in this
+    process so that the launch counters can be read: `tools.train.main`
+    for `CLI_STEPS` steps on synthetic data (checkpoints every 2 steps, the
+    eval hook at the last), `--resume` for one more step, then
+    `tools.test.main` on two ADE20K-layout images, slide mode, without and
+    with `--aug-test`, and `run_eval` called directly on the same weights.
+    Everything is written into a temporary directory, removed at the end.
+    Returns the launches of the first run's train steps."""
+    import tempfile
+
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.tools import test as test_cli
+    from vitadapter_torch.tools import train as train_cli
+    from vitadapter_torch.train.loop import (build_dataset, eval_config,
+                                             run_eval)
+    from vitadapter_torch.utils.checkpoint_io import load_model_weights
+    from vitadapter_torch.utils.config import Config
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        work, root = os.path.join(tmp, "work"), os.path.join(tmp, "ade")
+        lines, marks = [], {}
+
+        def log_fn(line):
+            log(f"  | {line}")
+            lines.append(line)
+            m = re.match(r"iter (\d+)/", line)
+            if m:       # the step's launches, before its checkpoint or eval
+                marks[int(m.group(1))] = dict(cuda_ext.launches)
+
+        train_args = [CLI_CONFIG, "--synthetic-data", "--work-dir", work,
+                      "--cfg-options", *CLI_OPTIONS]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ext.launches.clear()
+        t0 = time.perf_counter()
+        state = train_cli.main(train_args + ["--max-iters", str(CLI_STEPS)],
+                               log_fn=log_fn)
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in state.model.parameters())
+        del state
+        torch.cuda.empty_cache()
+        first_run = dict(cuda_ext.launches)
+        steps = [launch_diff(marks[k], marks.get(k - 1, {}))
+                 for k in range(1, CLI_STEPS + 1)]
+        train_counts = marks[CLI_STEPS]
+        iters = [l for l in lines if re.match(r"iter \d+/", l)]
+        secs = [float(re.search(r"time=([0-9.]+)s", l).group(1))
+                for l in iters]
+        vals = {k: [float(re.search(rf"{k}=(\S+)", l).group(1)) for l in iters]
+                for k in ("loss", "grad_norm")}
+        ckpts = [(int(a), float(b)) for a, b in
+                 re.findall(r"checkpoint of step \d+: (\d+) bytes in "
+                            r"([0-9.]+) s", "\n".join(lines))]
+        built = next(l for l in lines if "parameters;" in l)
+
+        mark = len(lines)
+        state = train_cli.main(train_args + ["--max-iters",
+                                             str(CLI_STEPS + 1), "--resume"],
+                               log_fn=log_fn)
+        resumed = lines[mark:]
+        resumed_ok = (f"resumed from step {CLI_STEPS}" in resumed
+                      and state.step == CLI_STEPS + 1
+                      and any(l.startswith(f"iter {CLI_STEPS + 1}/")
+                              for l in resumed))
+        del state
+        torch.cuda.empty_cache()
+
+        write_ade_images(root, CLI_IMAGES, 13)
+        ckpt = os.path.join(work, "ckpt")
+
+        def test_args(flags, options=()):
+            return [CLI_CONFIG, ckpt, "--eval", "mIoU", *flags,
+                    "--cfg-options", f"data.data_root={root}", *options]
+
+        aug = ["--aug-test", "--max-images", "1"]
+        results, eval_s = {}, {}
+        before = dict(cuda_ext.launches)
+        for kind, args in (("slide", test_args([])),
+                           ("aug_test", test_args(aug, [CLI_AUG_RATIOS]))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[kind] = test_cli.main(args, log_fn=log_fn)
+            torch.cuda.synchronize()
+            eval_s[kind] = time.perf_counter() - t0
+        eval_counts = launch_diff(cuda_ext.launches, before)
+
+        # the default --aug-test ratios give crops smaller than img_size
+        try:
+            test_cli.main(test_args(aug), log_fn=lambda *_: None)
+            refused = False
+        except ValueError as e:
+            refused = "patch grid" in str(e)
+
+        cfg = Config.fromfile(CLI_CONFIG)
+        cfg.merge_from_options({"data.data_root": root})
+        model = load_model_weights(ckpt, build_model(dict(cfg.model)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = run_eval(eval_config(cfg), model,
+                          build_dataset(cfg.data, "val"),
+                          log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        eval_s["run_eval"] = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    same_cm = bool((results["slide"]["confusion"]
+                    == direct["confusion"]).all())
+    finite = all(v == v and abs(v) != float("inf")
+                 for v in vals["loss"] + vals["grad_norm"]
+                 + [r["mIoU"] for r in results.values()])
+    never = {k: v for k, v in first_run.items() if k in CLI_NEVER}
+    never.update({k: v for k, v in eval_counts.items() if k in CLI_NEVER})
+    log(f"config CLI {CLI_CONFIG}: {built}")
+    log(f"config CLI train steps (s, CUDA events): {secs}; "
+        f"{sum(secs[1:]) / (len(secs) - 1):.3f} s/step over steps "
+        f"2..{CLI_STEPS}, first step {secs[0]:.3f} s; losses {vals['loss']}; "
+        f"grad norms {vals['grad_norm']}; peak memory {peak:.2f} GiB; "
+        f"{n_params} parameters; {train_s:.1f} s for the run with its "
+        f"checkpoints and eval hook")
+    log(f"config CLI checkpoints (bytes, s to write): {ckpts}")
+    log(f"config CLI launches per train step: {steps} (want "
+        f"{CLI_STEP_LAUNCHES} each); resumed at step {CLI_STEPS} and took "
+        f"step {CLI_STEPS + 1}: {resumed_ok}")
+    n_img = len(CLI_IMAGES)
+    log(f"config CLI test (host clock to a synchronize, the model's build "
+        f"and weight load included): slide {eval_s['slide']:.2f} s for "
+        f"{n_img} images, {eval_s['slide'] / n_img:.2f} s/image (mIoU "
+        f"{results['slide']['mIoU']:.4f}, random weights); --aug-test "
+        f"{CLI_AUG_RATIOS} with flip {eval_s['aug_test']:.2f} s/image (mIoU "
+        f"{results['aug_test']['mIoU']:.4f}); run_eval alone "
+        f"{eval_s['run_eval'] / n_img:.2f} s/image; launches {eval_counts}; "
+        f"confusion equal to run_eval's={same_cm}; default --aug-test "
+        f"ratios refused for crops under img_size={refused}")
+    if not (finite and resumed_ok and same_cm and refused):
+        raise SystemExit("FAIL: config CLI (non-finite loss, grad norm or "
+                         "mIoU, resume, the test CLI's confusion matrix, or "
+                         "the small-crop refusal)")
+    if any(st != CLI_STEP_LAUNCHES for st in steps) or never:
+        raise SystemExit(f"FAIL: config CLI launches per step {steps}, "
+                         f"kernels that must not run {never}")
+    return train_counts
+
+
+def assignment_cost(cost, owner):
+    """Total matched cost of each matrix (B, Q, G) under owners (B, Q)."""
+    got = cost.gather(2, owner.clamp(min=0)[..., None])[..., 0]
+    return torch.where(owner >= 0, got, 0.0).double().sum(1)
+
+
+def beit_card_vs_cpu():
+    """Phase 12: the 640 config reduced to depth 4 (one block per
+    interaction) at img_size 256, full width, fp32, TF32 off, drop path 0:
+    the card's eval logits against the CPU's (E2E_RTOL of their scale), then
+    one train step each (1024 points, the same sampler draws) compared by
+    loss and gradient norm (TRAIN_RTOL). The auction is eps-optimal, so two
+    sides whose costs differ by float rounding may match a near-tied
+    matrix differently (one decoder layer of this step did on the H100),
+    and that moves the loss by a whole layer's difference: the CPU step
+    therefore takes the card's assignment, and its own auction's is
+    reported beside it (the matrices that differ, and whether the card's
+    total cost on the CPU's costs is within n_valid * eps of the CPU's).
+    The card's auction kernel runs in its step, and phase 3 holds it to
+    the plain auction exactly."""
+    from vitadapter_torch.heads import mask2former_loss as loss_mod
+    from vitadapter_torch.ops import matching as mt
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.ops.point_sample import uniform_sampler
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_m2f_train_step
+    from vitadapter_torch.utils.config import Config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(CLI_CONFIG)
+    cfg.merge_from_options({
+        "model.backbone.depth": 4, "model.backbone.img_size": 256,
+        "model.backbone.drop_path_rate": 0.0,
+        "model.backbone.interaction_indexes": [[0, 0], [1, 1], [2, 2],
+                                               [3, 3]]})
+    gen = torch.Generator().manual_seed(14)
+    cpu = build_model(dict(cfg.model), device="cpu", generator=gen)
+    randomize(cpu, gen)
+    card = copy.deepcopy(cpu).cuda()
+    img = torch.randint(0, 256, (1, 256, 256, 3), dtype=torch.uint8,
+                        generator=gen)
+    before = dict(cuda_ext.launches)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu(normalize(img))
+        t_cpu = time.perf_counter() - t0
+        got = card(normalize(img.cuda())).cpu()
+    used = launch_diff(cuda_ext.launches, before)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    ok = (err <= E2E_RTOL * scale and tuple(got.shape) == (1, 256, 256, 150)
+          and bool(torch.isfinite(got).all()))
+    log(f"BEiT-Adapter-L + Mask2Former (depth 4, full width, 256 px) fp32 "
+        f"card vs CPU: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+        f"rel={err / scale:.3e} (tol {E2E_RTOL}) ok={ok}; CPU forward "
+        f"{t_cpu:.1f} s; kernel launches {used}")
+    if not ok or used != {"msda_fwd": 16}:
+        raise SystemExit("FAIL: BEiT-Adapter card vs CPU logits")
+
+    ids = torch.randint(0, 150, (1, 8), generator=gen)
+    cells = torch.randint(0, 8, (1, 16), generator=gen)
+    label = ids.gather(1, cells).reshape(1, 4, 4)
+    batch = {"image": torch.randn(1, 256, 256, 3, generator=gen),
+             "label": label.repeat_interleave(64, 1).repeat_interleave(64, 2)}
+    results, card_assign, cpu_assign = {}, [], []
+
+    def card_auction(cost, n_valid):
+        owner = mt.hungarian_assign(cost, n_valid)
+        card_assign.append(owner.cpu())
+        return owner
+
+    def cpu_auction(cost, n_valid):
+        cpu_assign.append((cost, n_valid, mt.hungarian_assign(cost, n_valid)))
+        return card_assign[0]
+
+    for side, model, auction in (("cuda", card, card_auction),
+                                 ("cpu", cpu, cpu_auction)):
+        opt, _ = make_optimizer(model, depth=4, total_steps=1000,
+                                warmup_steps=0, grad_clip=0.01)
+        step = make_m2f_train_step(model, num_classes=150, num_points=1024)
+        b = {k: v.to(side) for k, v in batch.items()}
+        sampler = uniform_sampler(torch.Generator().manual_seed(15))
+        before = dict(cuda_ext.launches)
+        loss_mod.hungarian_assign = auction
+        try:
+            t0 = time.perf_counter()
+            _, logs = step(TrainState.create(model, opt), b,
+                           torch.Generator(side).manual_seed(16), sampler)
+            logs = {k: float(v) for k, v in logs.items()}
+        finally:
+            loss_mod.hungarian_assign = mt.hungarian_assign
+        results[side] = (logs, time.perf_counter() - t0,
+                         launch_diff(cuda_ext.launches, before))
+    (ref, t_cpu, _), (got, t_card, used) = results["cpu"], results["cuda"]
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+           for k in ("loss", "grad_norm")}
+    cost, n_valid, own = cpu_assign[0]
+    differ = int((own != card_assign[0]).any(1).sum())
+    span = torch.where(torch.arange(cost.shape[2])[None, None]
+                       < n_valid[:, None, None], cost.abs(), 0.0).amax(
+        dim=(1, 2)).clamp(min=1e-6)
+    gap = assignment_cost(cost, card_assign[0]) - assignment_cost(cost, own)
+    eps_ok = bool((gap.abs() <= n_valid * span / mt.EPS_DIV + 1e-5
+                   * assignment_cost(cost, own).abs()).all())
+    ok = all(r <= TRAIN_RTOL for r in rel.values()) and eps_ok
+    log(f"BEiT-Adapter-L + Mask2Former (depth 4, full width, 256 px) fp32 "
+        f"train step card vs CPU, the CPU on the card's assignment: card "
+        f"{got} CPU {ref} rel {rel} (tol {TRAIN_RTOL}); the CPU's own "
+        f"auction matches {differ} of {len(own)} matrices otherwise, the "
+        f"card's total cost on the CPU's costs minus the CPU's "
+        f"{[round(float(g), 6) for g in gap]} within n_valid*eps={eps_ok}; "
+        f"ok={ok}; CPU step {t_cpu:.1f} s, card step {t_card:.2f} s; kernel "
+        f"launches {used}")
+    if not ok or used != CLI_STEP_LAUNCHES:
+        raise SystemExit("FAIL: BEiT-Adapter train step card vs CPU "
+                         f"(launches {used}, want {CLI_STEP_LAUNCHES})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2229,8 +2611,15 @@ def main():
     # phase 10: run_eval, card against CPU
     eval_card_vs_cpu()
 
+    # phase 11: the config CLI on the 640 BEiT-Adapter-L + Mask2Former config
+    cli_counts = config_cli()
+
+    # phase 12: BEiT-Adapter, card against CPU
+    beit_card_vs_cpu()
+
     paths = {"serve": serve_counts, "train": train_counts,
-             "eval_whole": eval_counts, "train_overline": overline_counts}
+             "eval_whole": eval_counts, "train_overline": overline_counts,
+             "cli": cli_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -2250,6 +2639,9 @@ def main():
                    "each train step)")
         else:
             per = "times per flagship bf16 batch-2 train step"
+        if "cli" in r.get("paths", {}):
+            per += ("; paths.cli: per phase 11 train step (640 px, batch "
+                    "1, fp32; point sampling in bf16, as the loss samples)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",

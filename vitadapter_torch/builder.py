@@ -1,0 +1,88 @@
+"""Registry-style model construction from config dicts (counterpart of
+`vitadapter/builder.py`): configs say `dict(type='BEiTAdapter', ...)` and
+`build` resolves the class.
+
+Modules are built on the meta device, then allocated on `device` and
+initialized from a `torch.Generator`, as `zoo.mask2former_vit_adapter` does.
+The port's `Mask2FormerHead` takes the backbone's channels (`in_channels`),
+which the flax head infers from its input: `build` supplies
+`[embed_dim] * 4` from the backbone it built.
+"""
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from vitadapter_torch.heads.mask2former import Mask2FormerHead
+from vitadapter_torch.models.beit_adapter import BEiTAdapter
+from vitadapter_torch.models.mask2former_segmentor import \
+    EncoderDecoderMask2Former
+from vitadapter_torch.models.vit_adapter import ViTAdapter
+from vitadapter_torch.zoo import materialize, resolve_device
+
+REGISTRY: Dict[str, Any] = {
+    "ViTAdapter": ViTAdapter,
+    "BEiTAdapter": BEiTAdapter,
+    "Mask2FormerHead": Mask2FormerHead,
+    "EncoderDecoderMask2Former": EncoderDecoderMask2Former,
+}
+
+# the JAX package's other component types, by the ROADMAP.md §1 item that
+# will port them
+NOT_PORTED = {
+    **dict.fromkeys(("EncoderDecoder", "UPerHead", "FCNHead", "BEiT",
+                     "TIMMVisionTransformer", "ViTBaseline", "BEiTBaseline"),
+                    "item 2 (EncoderDecoder with UPerHead / FCNHead)"),
+    "MaskFormerHead": "item 3 (MaskFormerHead and panoptic)",
+    **dict.fromkeys(("MaskRCNN", "CascadeRCNN", "ATSS", "SparseRCNN", "DINO"),
+                    "item 7 (detection)"),
+    **dict.fromkeys(("GroundingDINO", "UniPerceiverAdapter",
+                     "UnifiedBertEncoder"), "item 8 (grounding)"),
+}
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _lookup(name: str):
+    if name in REGISTRY:
+        return REGISTRY[name]
+    if name in NOT_PORTED:
+        raise KeyError(f"component type {name!r} is not ported yet: "
+                       f"ROADMAP.md §1 {NOT_PORTED[name]}")
+    raise KeyError(f"unknown component type {name!r}; known: "
+                   f"{sorted(REGISTRY)}")
+
+
+def build(cfg: Dict[str, Any], device="meta"):
+    """Recursively build {'type': Name, **kwargs} on `device`: nested dicts
+    with a 'type' key become submodules, lists become tuples and `dtype`
+    strings torch dtypes. A `Mask2FormerHead` under a segmentor gets
+    `in_channels` from the backbone's `embed_dim` unless it sets them."""
+    if not isinstance(cfg, dict) or "type" not in cfg:
+        return cfg
+    cfg = dict(cfg)
+    cls = _lookup(cfg.pop("type"))
+    if cls is EncoderDecoderMask2Former:
+        backbone = build(cfg.pop("backbone"), device)
+        head = dict(cfg.pop("decode_head"))
+        head.setdefault("in_channels", [backbone.embed_dim] * 4)
+        return cls(backbone, build(head, device), **cfg)
+    kwargs = {}
+    for k, v in cfg.items():
+        if isinstance(v, dict) and "type" in v:
+            v = build(v, device)
+        elif isinstance(v, list):
+            v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+        elif k == "dtype" and isinstance(v, str):
+            v = DTYPES[v]
+        kwargs[k] = v
+    return cls(device=device, **kwargs)
+
+
+def build_model(model_cfg: Dict[str, Any], device=None,
+                generator: Optional[torch.Generator] = None):
+    """The model of a config's `model` dict on `device` (CUDA when None;
+    raises where there is none), initialized from `generator` (seed 0 on
+    `device` by default), in eval mode."""
+    device = resolve_device(device)
+    return materialize(build(model_cfg), device, generator)

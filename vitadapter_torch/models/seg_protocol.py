@@ -55,17 +55,39 @@ def variant_plan(ho: int, wo: int, img_scale: Tuple[int, int], ratio: float,
     return (h1, w1), (h2, w2)
 
 
+def _two_taps(m: np.ndarray):
+    """A bilinear interpolation matrix (n_out, n_in) as each row's two taps:
+    (first column, its weight, last column, its weight or 0 where the row
+    has one nonzero)."""
+    nz = m != 0
+    rows = np.arange(m.shape[0])
+    first = nz.argmax(1)
+    last = m.shape[1] - 1 - nz[:, ::-1].argmax(1)
+    w_last = np.where(last != first, m[rows, last], 0).astype(np.float32)
+    return first, m[rows, first], last, w_last
+
+
+def _resize_axis0(m: np.ndarray, x: np.ndarray) -> np.ndarray:
+    i0, w0, i1, w1 = _two_taps(m)
+    shape = (-1,) + (1,) * (x.ndim - 1)
+    return w0.reshape(shape) * x[i0] + w1.reshape(shape) * x[i1]
+
+
 def resize_np(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     """Exact-bilinear (H, W, C) resize on the host by the interpolation
-    matrices (half-pixel centres, as mmcv/cv2 INTER_LINEAR)."""
+    matrices (half-pixel centres, as mmcv/cv2 INTER_LINEAR): rows, then
+    columns. Each output takes the two taps of its matrix row, the product
+    by the matrix without its zero terms, so the result is bitwise the
+    JAX package's `np.einsum` by the whole matrices, in a small part of
+    the time."""
     h, w = img.shape[:2]
     ho, wo = out_hw
+    x = np.asarray(img, np.float32)
     if (h, w) == (ho, wo):
-        return np.asarray(img, np.float32)
-    mh = resize_matrix(h, ho)
-    mw = resize_matrix(w, wo)
-    out = np.einsum("oh,hwc->owc", mh, np.asarray(img, np.float32))
-    return np.einsum("ow,hwc->hoc", mw, out)
+        return x
+    x = _resize_axis0(resize_matrix(h, ho), x)
+    x = _resize_axis0(resize_matrix(w, wo), x.transpose(1, 0, 2))
+    return np.ascontiguousarray(x.transpose(1, 0, 2))
 
 
 def prepare_variant_image(img: np.ndarray, h1w1: Tuple[int, int],
@@ -73,11 +95,14 @@ def prepare_variant_image(img: np.ndarray, h1w1: Tuple[int, int],
     """Steps 1-3 of the protocol on the host: two successive resizes (the
     reference applies Resize then ResizeToMultiple as separate bilinear
     passes, not one direct resize), then the horizontal flip."""
-    x = resize_np(img, h1w1)
-    x = resize_np(x, h2w2)
-    if flip:
-        x = x[:, ::-1]
-    return np.ascontiguousarray(x, np.float32)
+    x = resize_np(resize_np(img, h1w1), h2w2)
+    return flipped(x) if flip else np.ascontiguousarray(x, np.float32)
+
+
+def flipped(x: np.ndarray) -> np.ndarray:
+    """The horizontal flip of a prepared (H, W, C) image (it comes after
+    both resizes, so flipping the resized image gives the same pixels)."""
+    return np.ascontiguousarray(x[:, ::-1], np.float32)
 
 
 def slide_grid(size: int, crop: int, stride: int) -> List[int]:

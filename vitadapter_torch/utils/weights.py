@@ -3,8 +3,9 @@
 `state_dict_from_flax(params, batch_stats)` turns a flax variable tree (numpy
 arrays or anything `np.asarray` takes) into a PyTorch `state_dict` with the
 reference's key names: the inverse of the JAX package's checkpoint
-converters for the ViT-Adapter backbone and the Mask2Former head. Layout
-rules (flax -> torch):
+converters for the ViT-Adapter and BEiT-Adapter backbones
+(`convert_vit_adapter_backbone`, `convert_beit_backbone`) and the
+Mask2Former head. Layout rules (flax -> torch):
 
   Dense kernel (in, out)                 -> Linear weight (out, in)
   Conv kernel (kh, kw, I, O)             -> Conv2d weight (O, I, kh, kw)
@@ -143,13 +144,35 @@ def vit_adapter_from_flax(p: Tree, s: Tree) -> StateDict:
     vit = p["vit"]
     sd = {"pos_embed": _t(vit["pos_embed"]),
           **_prefixed("patch_embed.proj", _conv(vit["patch_embed"]["proj"])),
-          "level_embed": _t(p["level_embed"]),
-          **_prefixed("spm", spm_from_flax(p["spm"], s["spm"])),
-          **_prefixed("up", _conv_transpose(p["up"]))}
+          **_adapter_from_flax(p, s)}
     i = 0
     while f"blocks_{i}" in vit:
         sd.update(_prefixed(f"blocks.{i}", block_from_flax(vit[f"blocks_{i}"])))
         i += 1
+    return sd
+
+
+def beit_block_from_flax(p: Tree) -> StateDict:
+    """`BEiTBlock`: the qkv kernel without bias, q/v biases, the
+    relative-position table and the `gamma_1`/`gamma_2` layer scale."""
+    attn = p["attn"]
+    return {**_prefixed("norm1", _norm(p["norm1"])),
+            **_prefixed("norm2", _norm(p["norm2"])),
+            **_prefixed("attn.qkv", _linear(attn["qkv"])),
+            **_prefixed("attn.proj", _linear(attn["proj"])),
+            **_prefixed("mlp.fc1", _linear(p["mlp"]["fc1"])),
+            **_prefixed("mlp.fc2", _linear(p["mlp"]["fc2"])),
+            **{f"attn.{k}": _t(attn[k]) for k in (
+                "q_bias", "v_bias", "relative_position_bias_table")},
+            "gamma_1": _t(p["gamma_1"]), "gamma_2": _t(p["gamma_2"])}
+
+
+def _adapter_from_flax(p: Tree, s: Tree) -> StateDict:
+    """The adapter side that ViT-Adapter and BEiT-Adapter share (the JAX
+    `convert_adapter_keys`)."""
+    sd = {"level_embed": _t(p["level_embed"]),
+          **_prefixed("spm", spm_from_flax(p["spm"], s["spm"])),
+          **_prefixed("up", _conv_transpose(p["up"]))}
     i = 0
     while f"interactions_{i}" in p:
         sd.update(_prefixed(f"interactions.{i}",
@@ -158,6 +181,28 @@ def vit_adapter_from_flax(p: Tree, s: Tree) -> StateDict:
     for n in (1, 2, 3, 4):
         sd.update(_prefixed(f"norm{n}", _bn(p[f"norm{n}"], s[f"norm{n}"])))
     return sd
+
+
+def beit_adapter_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`BEiTAdapter` (flax `beit` subtree flattened, as in the reference):
+    the inverse of the JAX `convert_beit_backbone`."""
+    beit = p["beit"]
+    sd = {"cls_token": _t(beit["cls_token"]),
+          **_prefixed("patch_embed.proj", _conv(beit["patch_embed"]["proj"])),
+          **_adapter_from_flax(p, s)}
+    i = 0
+    while f"blocks_{i}" in beit:
+        sd.update(_prefixed(f"blocks.{i}",
+                            beit_block_from_flax(beit[f"blocks_{i}"])))
+        i += 1
+    return sd
+
+
+def backbone_from_flax(p: Tree, s: Tree) -> StateDict:
+    """A ViT-Adapter or a BEiT-Adapter, by its trunk's subtree."""
+    if "beit" in p:
+        return beit_adapter_from_flax(p, s)
+    return vit_adapter_from_flax(p, s)
 
 
 def _ffn(fc1: Tree, fc2: Tree) -> StateDict:
@@ -236,17 +281,17 @@ def state_dict_from_flax(params: Tree,
                          batch_stats: Optional[Tree] = None) -> StateDict:
     """A flax variable tree -> the port's `state_dict`. Takes the tree of a
     whole `EncoderDecoderMask2Former` (`backbone`, `decode_head`), or of one
-    of its modules: `ViTAdapter`, `Mask2FormerHead`, the pixel decoder, an
-    `InteractionBlock`, the `SpatialPriorModule`, a ViT `Block` or an
-    `MSDeformAttn`."""
+    of its modules: `ViTAdapter`, `BEiTAdapter`, `Mask2FormerHead`, the
+    pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a ViT
+    `Block`, a `BEiTBlock` or an `MSDeformAttn`."""
     s = batch_stats or {}
     if "backbone" in params and "decode_head" in params:
-        return {**_prefixed("backbone", vit_adapter_from_flax(
+        return {**_prefixed("backbone", backbone_from_flax(
                     params["backbone"], s["backbone"])),
                 **_prefixed("decode_head", mask2former_head_from_flax(
                     params["decode_head"]))}
-    if "vit" in params:
-        return vit_adapter_from_flax(params, s)
+    if "vit" in params or "beit" in params:
+        return backbone_from_flax(params, s)
     if "pixel_decoder" in params:
         return mask2former_head_from_flax(params)
     if "encoder_layers" in params:
@@ -255,6 +300,8 @@ def state_dict_from_flax(params: Tree,
         return interaction_from_flax(params)
     if "stem1_conv" in params:
         return spm_from_flax(params, s)
+    if "gamma_1" in params:
+        return beit_block_from_flax(params)
     if "mlp" in params:
         return block_from_flax(params)
     if "sampling_offsets" in params:

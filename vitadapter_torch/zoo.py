@@ -49,7 +49,7 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _materialize(model: nn.Module, device: torch.device,
+def materialize(model: nn.Module, device: torch.device,
                  generator: Optional[torch.Generator]) -> nn.Module:
     model = model.to_empty(device=device)
     if generator is None:
@@ -70,7 +70,7 @@ def vit_adapter(variant: str = "tiny", device=None,
     device = resolve_device(device)
     model = ViTAdapter(dtype=dtype, device="meta",
                        **_vit_adapter_cfg(variant, overrides))
-    return _materialize(model, device, generator)
+    return materialize(model, device, generator)
 
 
 def mask2former_vit_adapter(variant: str = "large", num_classes: int = 150,
@@ -101,4 +101,4 @@ def mask2former_vit_adapter(variant: str = "large", num_classes: int = 150,
     head = Mask2FormerHead([dim] * 4, num_classes=num_classes, dtype=dtype,
                            device="meta", **head_cfg)
     model = EncoderDecoderMask2Former(backbone, head)
-    return _materialize(model, device, generator)
+    return materialize(model, device, generator)
