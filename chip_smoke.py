@@ -61,7 +61,19 @@ Phases (each failure exits non-zero; nothing is caught):
      and that no per-level or attention kernel runs;
  12. runs that config reduced to depth 4 at 256 px, full width, fp32, on
      the card and on the CPU, and compares the logits and one train
-     step's loss and gradient norm (the CPU on the card's assignment).
+     step's loss and gradient norm (the CPU on the card's assignment);
+ 13. drives the config entry points likewise on the AugReg-L UperNet
+     config at full width as shipped (ViT-Adapter-L in fp32 with
+     `with_cp`, drop path 0.4; UPerHead 1024 and FCNHead 256 wide in bf16;
+     batch 2 at 512x512): 4 train steps on synthetic data, `--resume` for
+     a fifth, then the test CLI on the two ADE20K-layout images in slide
+     mode and with `--aug-test` at the reference ratios, against `run_eval`
+     called directly; checks the launches of each train step and of each
+     model call, and that no point sampling, auction or per-level kernel
+     runs;
+ 14. runs that config reduced to depth 4 at 256 px, full width, all fp32,
+     drop path and dropout 0, on the card and on the CPU, and compares the
+     logits and one seg train step's loss and gradient norm.
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -70,7 +82,8 @@ filled with NaN first, the output, d loc and d attn bitwise equal across
 the launches; at other P, widths, level counts and a misaligned value
 (`FUSED_LAYOUTS`); and in fp32 at the shapes where phases 8 and 9 run them
 (`MSDA_PATH_CASES`, the plain versions four heads at a time; the rows'
-`paths`; phase 11's cases on model-shaped locations too). Point sampling
+`paths`; phases 11's and 13's cases on model-shaped locations too).
+Point sampling
 and the auction are also checked at phase 11's shapes (`POINT_CLI`,
 `AUCTION_CLI`; the rows' `paths["cli"]`). It also holds the per-level MSDA kernels against their plain
 versions, and the per-level route against the fused kernels, at the shapes
@@ -81,16 +94,18 @@ there too, under `model_shaped`; msda_level_fwd and _dgrid launched twice
 for bitwise-equal outputs; msda_level_dv's atomic payload and its rate
 logged), and at other P, widths and a misaligned value and d value buffer
 (`LEVEL_LAYOUTS`); and the fp32 attention at the lengths phases 8 and 9
-give it. The fp32 attention (split TF32 on the tensor cores) is launched
+give it, and at phase 13's (batch 2, N 1024, with a backward). The fp32
+attention (split TF32 on the tensor cores) is launched
 twice at every case and must give bitwise-equal outputs and gradients; its
 bound is the split-TF32 floor (`attention_bound_ms`), with the CUDA-core
 figure beside it. point_sample_bwd is launched into NaN-filled outputs at
 the flagship's call and at `POINT_BWD_LAYOUTS` (unsorted points, points
 off the map and NaN, one mask, no points, one row or column, rows of 127
 and 130, the over-line step's 448x448 masks, timed under the row's
-`paths`, and a map larger than a cluster holds). The last two lines are a
-JSON object of the kernels' numbers (with the TPU kernels each one covers
-besides the one it replaces) and {"ok": true, "device": {...}}.
+`paths`, and a map larger than a cluster holds). The last three lines are
+the card's name and power limit again, a JSON object of the kernels'
+numbers (with the TPU kernels each one covers besides the one it replaces)
+and {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -149,15 +164,18 @@ MSDA_QUERY_GRID = {"injector": (32, 32), "extractor": SPM512,
                    "pixel_decoder": None}
 ATTN_SHAPE = (2, 16, 1024, 64)   # 24 calls per forward
 ATTN_CALLS = 24
-# fp32 attention at the lengths of the paths that run it, B 1, 16 heads,
-# head dim 64: name: (N, path, calls there, with a backward). The
+# fp32 attention at the shapes of the paths that run it, 16 heads, head
+# dim 64: name: (B, N, path, forward calls there, backward calls). The
 # whole-image evaluation's 1/16 token grid is 64x128 at ratio 1.0 and
 # 96x192 at 1.5 (24 calls per forward, 2 forwards each with the flip); the
-# over-line step's is 112x112 (4 blocks)
+# over-line step's is 112x112 (4 blocks); phase 13's UperNet step runs 24
+# blocks at batch 2 on the 32x32 grid, each forward twice (`with_cp`
+# recomputes the blocks in the backward)
 ATTN_PATH_CASES = {
-    "eval_r1.0": (8192, "eval_whole", 48, False),
-    "eval_r1.5": (18432, "eval_whole", 48, False),
-    "overline": (12544, "train_overline", 4, True),
+    "eval_r1.0": (1, 8192, "eval_whole", 48, 0),
+    "eval_r1.5": (1, 18432, "eval_whole", 48, 0),
+    "overline": (1, 12544, "train_overline", 4, 4),
+    "upernet": (2, 1024, "upernet", 48, 24),
 }
 # point sampling in one flagship train step (batch 2, 200 queries, 60 gt
 # classes, 10 decoder outputs, 12544 points):
@@ -277,7 +295,18 @@ MSDA_PATH_CASES = {
     "cli_injector": (SPM640, 1600, 16, (40, 40), "cli", 4, True),
     "cli_extractor": (((40, 40),), 8400, 16, SPM640, "cli", 6, True),
     "cli_pixel_decoder": (SPM640[::-1], 8400, 32, None, "cli", 6, True),
+    # phase 13's train step (AugReg-L + UperNet at 512x512, batch 2, fp32):
+    # the flagship's injector and extractor geometries in fp32, checked on
+    # model-shaped locations too
+    "upernet_injector": (SPM512, 1024, 16, (32, 32), "upernet", 4, True),
+    "upernet_extractor": (((32, 32),), 5376, 16, SPM512, "upernet", 6,
+                          True),
 }
+# the batch of each path's MSDA calls in `MSDA_PATH_CASES` (1 elsewhere)
+PATH_BATCH = {"upernet": 2}
+# the paths whose `MSDA_PATH_CASES` are also checked on model-shaped
+# locations
+MODEL_SHAPED_PATHS = ("cli", "upernet")
 # the fused kernels off the flagship's layout, fp32 and bf16 each: name:
 # (spatial shapes, query grid, heads, D, P, the value 2 or 4 bytes off
 # 16-byte alignment). As `LEVEL_LAYOUTS`: ragged and narrow rows and other
@@ -357,6 +386,20 @@ CLI_STEP_LAUNCHES = {"msda_fwd": 16, "msda_bwd": 16, "point_sample_fwd": 32,
 # kernels that phase 11 must never launch
 CLI_NEVER = ("msda_level_fwd", "msda_level_dv", "msda_level_dgrid",
              "attention_fwd", "attention_bwd")
+# phase 13: the config CLI on the AugReg-L UperNet config as shipped (ViT-L
+# in fp32 with `with_cp`, drop path 0.4; UPerHead 1024 and FCNHead 256 wide
+# in bf16; batch 2 at 512x512; slide evaluation, crop 512, stride 341),
+# synthetic data, with these overrides; the test CLI on `CLI_IMAGES`, then
+# with `--aug-test` at the reference ratios 0.5-1.75 (ViT-Adapter resamples
+# its position embedding, so any crop grid runs)
+UPERNET_CONFIG = "configs/ade20k/upernet_augreg_adapter_large_512_160k_ade20k.py"
+UPERNET_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=4",
+                   "evaluation.interval=4", "evaluation.max_images=2"]
+UPERNET_STEP_LAUNCHES = {"attention_fwd": 48, "attention_bwd": 24,
+                         "msda_fwd": 10, "msda_bwd": 10}
+UPERNET_FORWARD_LAUNCHES = {"attention_fwd": 24, "msda_fwd": 10}
+UPERNET_NEVER = ("msda_level_fwd", "msda_level_dv", "msda_level_dgrid",
+                 "point_sample_fwd", "point_sample_bwd", "auction")
 REPLACES = {
     "msda_fwd": "vitadapter/ops/msda_pallas.py:316",
     "msda_bwd": "vitadapter/ops/msda_pallas.py:1179",
@@ -1010,7 +1053,8 @@ def check_msda(rows, flush, gen):
 
 def check_msda_paths(rows, flush, gen):
     """msda_fwd and msda_bwd in fp32 at `MSDA_PATH_CASES`, on uniform
-    locations (phase 11's cases on model-shaped ones too): `check_fused`
+    locations (phases 11's and 13's cases on model-shaped ones too, at the
+    path's batch, `PATH_BATCH`): `check_fused`
     against the plain versions four heads at a time, then the forward (and,
     where the path takes one, the backward) timed beside the plain version
     on the uniform locations. The numbers go to the rows' `paths`, summed
@@ -1020,12 +1064,13 @@ def check_msda_paths(rows, flush, gen):
     ok = True
     for name, (shapes, Lq, M, grid, path, calls, backward) in \
             MSDA_PATH_CASES.items():
-        value, loc, attn, g = msda_inputs(shapes, Lq, M, F32, gen, B=1)
+        B = PATH_BATCH.get(path, 1)
+        value, loc, attn, g = msda_inputs(shapes, Lq, M, F32, gen, B=B)
         good, words, err, err_b = check_fused(value, shapes, loc, attn, g,
                                               heads=4)
         ok &= good
-        if path == "cli":
-            loc_m = msda_model_locations(shapes, grid, M, 4, gen)
+        if path in MODEL_SHAPED_PATHS:
+            loc_m = msda_model_locations(shapes, grid, M, 4, gen, B=B)
             good_m, words_m, err_m, err_mb = check_fused(
                 value, shapes, loc_m, attn, g, heads=4)
             ok &= good_m and loc_m.shape == loc.shape
@@ -1039,7 +1084,7 @@ def check_msda_paths(rows, flush, gen):
             p_ms = time_ms(lambda: msda_plain(value, shapes, loc, attn, g,
                                               heads=4, backward=False),
                            flush, iters=1)
-        text = (f"msda {name} fp32 B=1 Lq={Lq} M={M} S={value.shape[1]} "
+        text = (f"msda {name} fp32 B={B} Lq={Lq} M={M} S={value.shape[1]} "
                 f"({path}, {calls} calls): {words}; msda_fwd kernel_ms="
                 f"{k_ms:.4f} plain_ms={p_ms:.4f} (4 heads at a time) "
                 f"bound_ms={fb[0]:.4f} ({fb[1]})")
@@ -1518,14 +1563,16 @@ def check_attention_paths(rows, flush, gen):
     whole-image evaluation's forwards (phase 8; `fused_attention` without a
     gradient) and the over-line step (phase 9; forward, saved output and
     log-sum-exp, and the three gradients through `FusedAttentionFunction`),
-    against the plain versions taken four heads at a time. The numbers go
-    to the attention rows' `paths`, summed over each path's calls."""
+    against the plain versions taken four heads at a time; and phase 13's
+    UperNet step (batch 2, N 1024, with a backward). The numbers go to the
+    attention rows' `paths`, summed over each path's calls."""
     from vitadapter_torch.ops import attention as at
 
     ok = True
     sdpa = F.scaled_dot_product_attention
-    for name, (N, path, calls, backward) in ATTN_PATH_CASES.items():
-        shape = (1, 16, N, 64)
+    for name, (B, N, path, calls, bwd_calls) in ATTN_PATH_CASES.items():
+        backward = bwd_calls > 0
+        shape = (B, 16, N, 64)
         scale = 64 ** -0.5
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                       for _ in range(4))
@@ -1574,7 +1621,8 @@ def check_attention_paths(rows, flush, gen):
             path, new_row())
         add_to_row(row, calls, err, k_ms, p_ms, fb, lib_ms)
         add_cuda_core_bound(row, calls, fcc)
-        text = (f"attention {name} {shape} fp32 ({path}, {calls} calls): "
+        text = (f"attention {name} {shape} fp32 ({path}, {calls} forward "
+                f"and {bwd_calls} backward calls): "
                 f"{line} ok={good}; forward kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
                 f"bound_ms={fb[0]:.4f} ({fb[1]}{cuda_core_note(fcc)})")
@@ -1591,9 +1639,9 @@ def check_attention_paths(rows, flush, gen):
                 lib_out, lib, g, retain_graph=True), flush, iters=3)
             row = rows["attention_bwd"].setdefault("paths", {}).setdefault(
                 path, new_row())
-            add_to_row(row, calls, max(c[1] for c in checks), kb_ms, pb_ms,
-                       bb, libb_ms)
-            add_cuda_core_bound(row, calls, bcc)
+            add_to_row(row, bwd_calls, max(c[1] for c in checks), kb_ms,
+                       pb_ms, bb, libb_ms)
+            add_cuda_core_bound(row, bwd_calls, bcc)
             text += (f"; backward kernel_ms={kb_ms:.4f} plain_ms="
                      f"{pb_ms:.4f} sdpa_bwd_ms={libb_ms:.4f} bound_ms="
                      f"{bb[0]:.4f} ({bb[1]}{cuda_core_note(bcc)})")
@@ -2268,19 +2316,27 @@ def launch_diff(after, before):
             if v != before.get(k, 0)}
 
 
-def config_cli():
-    """Phase 11: the config entry points on the 640 px BEiT-Adapter-L +
-    Mask2Former config (fp32, batch 1, 100 queries, 150 classes), in this
-    process so that the launch counters can be read: `tools.train.main`
-    for `CLI_STEPS` steps on synthetic data (checkpoints every 2 steps, the
-    eval hook at the last), `--resume` for one more step, then
-    `tools.test.main` on two ADE20K-layout images, slide mode, without and
-    with `--aug-test`, and `run_eval` called directly on the same weights.
-    Everything is written into a temporary directory, removed at the end.
-    Returns the launches of the first run's train steps."""
+def run_config_cli(name, config, options, step_launches, never, aug_options,
+                   forward_launches=None, refuse_small_crops=False):
+    """The config entry points in this process, so that the launch counters
+    can be read: `tools.train.main` for `CLI_STEPS` steps on synthetic data
+    with `options` (checkpoints, the eval hook), `--resume` for one more
+    step, then `tools.test.main` on two ADE20K-layout images (`CLI_IMAGES`),
+    slide mode, without and with `--aug-test` (one image, `aug_options`),
+    and `run_eval` called directly on the same weights. Checks the launches
+    of each train step (`step_launches`), those of each model call of the
+    test CLI (`forward_launches`, when given), that no kernel of `never`
+    runs, the resume, finite losses and mIoU, and the test CLI's confusion
+    matrix against `run_eval`'s; with `refuse_small_crops`, that the
+    default `--aug-test` ratios raise (BEiT's tables). Everything is
+    written into a temporary directory, removed at the end. Logs under
+    `name`; returns the launches of the first run's train steps."""
     import tempfile
 
     from vitadapter_torch.builder import build_model
+    from vitadapter_torch.models.segmentor import EncoderDecoder
+    from vitadapter_torch.models.mask2former_segmentor import \
+        EncoderDecoderMask2Former
     from vitadapter_torch.ops import cuda_ext
     from vitadapter_torch.tools import test as test_cli
     from vitadapter_torch.tools import train as train_cli
@@ -2290,7 +2346,20 @@ def config_cli():
     from vitadapter_torch.utils.config import Config
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    steps = CLI_STEPS
+    calls = [0]
+    forwards = {cls: cls.forward for cls in (EncoderDecoder,
+                                             EncoderDecoderMask2Former)}
+
+    def counted(cls):
+        def forward(self, *a, **kw):
+            calls[0] += 1
+            return forwards[cls](self, *a, **kw)
+        return forward
+
     try:
+        for cls in forwards:
+            cls.forward = counted(cls)
         work, root = os.path.join(tmp, "work"), os.path.join(tmp, "ade")
         lines, marks = [], {}
 
@@ -2301,13 +2370,13 @@ def config_cli():
             if m:       # the step's launches, before its checkpoint or eval
                 marks[int(m.group(1))] = dict(cuda_ext.launches)
 
-        train_args = [CLI_CONFIG, "--synthetic-data", "--work-dir", work,
-                      "--cfg-options", *CLI_OPTIONS]
+        train_args = [config, "--synthetic-data", "--work-dir", work,
+                      "--cfg-options", *options]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda_ext.launches.clear()
         t0 = time.perf_counter()
-        state = train_cli.main(train_args + ["--max-iters", str(CLI_STEPS)],
+        state = train_cli.main(train_args + ["--max-iters", str(steps)],
                                log_fn=log_fn)
         train_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2315,9 +2384,9 @@ def config_cli():
         del state
         torch.cuda.empty_cache()
         first_run = dict(cuda_ext.launches)
-        steps = [launch_diff(marks[k], marks.get(k - 1, {}))
-                 for k in range(1, CLI_STEPS + 1)]
-        train_counts = marks[CLI_STEPS]
+        per_step = [launch_diff(marks[k], marks.get(k - 1, {}))
+                    for k in range(1, steps + 1)]
+        train_counts = marks[steps]
         iters = [l for l in lines if re.match(r"iter \d+/", l)]
         secs = [float(re.search(r"time=([0-9.]+)s", l).group(1))
                 for l in iters]
@@ -2329,13 +2398,12 @@ def config_cli():
         built = next(l for l in lines if "parameters;" in l)
 
         mark = len(lines)
-        state = train_cli.main(train_args + ["--max-iters",
-                                             str(CLI_STEPS + 1), "--resume"],
-                               log_fn=log_fn)
+        state = train_cli.main(train_args + ["--max-iters", str(steps + 1),
+                                             "--resume"], log_fn=log_fn)
         resumed = lines[mark:]
-        resumed_ok = (f"resumed from step {CLI_STEPS}" in resumed
-                      and state.step == CLI_STEPS + 1
-                      and any(l.startswith(f"iter {CLI_STEPS + 1}/")
+        resumed_ok = (f"resumed from step {steps}" in resumed
+                      and state.step == steps + 1
+                      and any(l.startswith(f"iter {steps + 1}/")
                               for l in resumed))
         del state
         torch.cuda.empty_cache()
@@ -2344,29 +2412,33 @@ def config_cli():
         ckpt = os.path.join(work, "ckpt")
 
         def test_args(flags, options=()):
-            return [CLI_CONFIG, ckpt, "--eval", "mIoU", *flags,
+            return [config, ckpt, "--eval", "mIoU", *flags,
                     "--cfg-options", f"data.data_root={root}", *options]
 
         aug = ["--aug-test", "--max-images", "1"]
-        results, eval_s = {}, {}
-        before = dict(cuda_ext.launches)
+        results, eval_s, eval_counts, n_calls = {}, {}, {}, {}
         for kind, args in (("slide", test_args([])),
-                           ("aug_test", test_args(aug, [CLI_AUG_RATIOS]))):
+                           ("aug_test", test_args(aug, aug_options))):
+            before = dict(cuda_ext.launches)
+            calls[0] = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             results[kind] = test_cli.main(args, log_fn=log_fn)
             torch.cuda.synchronize()
             eval_s[kind] = time.perf_counter() - t0
-        eval_counts = launch_diff(cuda_ext.launches, before)
+            eval_counts[kind] = launch_diff(cuda_ext.launches, before)
+            n_calls[kind] = calls[0]
 
-        # the default --aug-test ratios give crops smaller than img_size
-        try:
-            test_cli.main(test_args(aug), log_fn=lambda *_: None)
-            refused = False
-        except ValueError as e:
-            refused = "patch grid" in str(e)
+        refused = True
+        if refuse_small_crops:
+            # the default --aug-test ratios give crops smaller than img_size
+            try:
+                test_cli.main(test_args(aug), log_fn=lambda *_: None)
+                refused = False
+            except ValueError as e:
+                refused = "patch grid" in str(e)
 
-        cfg = Config.fromfile(CLI_CONFIG)
+        cfg = Config.fromfile(config)
         cfg.merge_from_options({"data.data_root": root})
         model = load_model_weights(ckpt, build_model(dict(cfg.model)))
         torch.cuda.synchronize()
@@ -2379,6 +2451,8 @@ def config_cli():
         del model
         torch.cuda.empty_cache()
     finally:
+        for cls, fwd in forwards.items():
+            cls.forward = fwd
         shutil.rmtree(tmp, ignore_errors=True)
 
     same_cm = bool((results["slide"]["confusion"]
@@ -2386,37 +2460,72 @@ def config_cli():
     finite = all(v == v and abs(v) != float("inf")
                  for v in vals["loss"] + vals["grad_norm"]
                  + [r["mIoU"] for r in results.values()])
-    never = {k: v for k, v in first_run.items() if k in CLI_NEVER}
-    never.update({k: v for k, v in eval_counts.items() if k in CLI_NEVER})
-    log(f"config CLI {CLI_CONFIG}: {built}")
-    log(f"config CLI train steps (s, CUDA events): {secs}; "
+    ran = dict(first_run)
+    for counts in eval_counts.values():
+        ran.update({k: ran.get(k, 0) + v for k, v in counts.items()})
+    bad_never = {k: v for k, v in ran.items() if k in never}
+    forwards_ok = forward_launches is None or all(
+        counts == {k: v * n_calls[kind] for k, v in forward_launches.items()}
+        for kind, counts in eval_counts.items())
+    log(f"{name} {config}: {built}")
+    log(f"{name} train steps (s, CUDA events): {secs}; "
         f"{sum(secs[1:]) / (len(secs) - 1):.3f} s/step over steps "
-        f"2..{CLI_STEPS}, first step {secs[0]:.3f} s; losses {vals['loss']}; "
+        f"2..{steps}, first step {secs[0]:.3f} s; losses {vals['loss']}; "
         f"grad norms {vals['grad_norm']}; peak memory {peak:.2f} GiB; "
         f"{n_params} parameters; {train_s:.1f} s for the run with its "
         f"checkpoints and eval hook")
-    log(f"config CLI checkpoints (bytes, s to write): {ckpts}")
-    log(f"config CLI launches per train step: {steps} (want "
-        f"{CLI_STEP_LAUNCHES} each); resumed at step {CLI_STEPS} and took "
-        f"step {CLI_STEPS + 1}: {resumed_ok}")
+    log(f"{name} checkpoints (bytes, s to write): {ckpts}")
+    log(f"{name} launches per train step: {per_step} (want "
+        f"{step_launches} each); resumed at step {steps} and took "
+        f"step {steps + 1}: {resumed_ok}")
     n_img = len(CLI_IMAGES)
-    log(f"config CLI test (host clock to a synchronize, the model's build "
+    log(f"{name} test (host clock to a synchronize, the model's build "
         f"and weight load included): slide {eval_s['slide']:.2f} s for "
         f"{n_img} images, {eval_s['slide'] / n_img:.2f} s/image (mIoU "
         f"{results['slide']['mIoU']:.4f}, random weights); --aug-test "
-        f"{CLI_AUG_RATIOS} with flip {eval_s['aug_test']:.2f} s/image (mIoU "
+        f"{aug_options or 'at the reference ratios'} with flip "
+        f"{eval_s['aug_test']:.2f} s/image (mIoU "
         f"{results['aug_test']['mIoU']:.4f}); run_eval alone "
-        f"{eval_s['run_eval'] / n_img:.2f} s/image; launches {eval_counts}; "
-        f"confusion equal to run_eval's={same_cm}; default --aug-test "
-        f"ratios refused for crops under img_size={refused}")
+        f"{eval_s['run_eval'] / n_img:.2f} s/image; launches {eval_counts} "
+        f"over {n_calls} model calls (want {forward_launches} a call); "
+        f"confusion equal to run_eval's={same_cm}"
+        + (f"; default --aug-test ratios refused for crops under "
+           f"img_size={refused}" if refuse_small_crops else ""))
     if not (finite and resumed_ok and same_cm and refused):
-        raise SystemExit("FAIL: config CLI (non-finite loss, grad norm or "
+        raise SystemExit(f"FAIL: {name} (non-finite loss, grad norm or "
                          "mIoU, resume, the test CLI's confusion matrix, or "
                          "the small-crop refusal)")
-    if any(st != CLI_STEP_LAUNCHES for st in steps) or never:
-        raise SystemExit(f"FAIL: config CLI launches per step {steps}, "
-                         f"kernels that must not run {never}")
+    if (any(st != step_launches for st in per_step) or bad_never
+            or not forwards_ok):
+        raise SystemExit(f"FAIL: {name} launches per step {per_step}, per "
+                         f"test call {eval_counts} over {n_calls}, kernels "
+                         f"that must not run {bad_never}")
     return train_counts
+
+
+def config_cli():
+    """Phase 11: the config entry points on the 640 px BEiT-Adapter-L +
+    Mask2Former config (fp32, batch 1, 100 queries, 150 classes): 4 steps
+    (checkpoints every 2 steps, the eval hook at the last), a resumed
+    fifth, the test CLI with `--aug-test` at ratios 1.0-1.75 and the
+    default ratios refused (`run_config_cli`). No attention kernel runs
+    (BEiT's biased attention is plain PyTorch) and no per-level one."""
+    return run_config_cli("config CLI", CLI_CONFIG, CLI_OPTIONS,
+                          CLI_STEP_LAUNCHES, CLI_NEVER, [CLI_AUG_RATIOS],
+                          refuse_small_crops=True)
+
+
+def upernet_cli():
+    """Phase 13: the config entry points on the AugReg-L UperNet config at
+    full width as shipped (`UPERNET_CONFIG`: fp32 ViT-L with `with_cp`,
+    bf16 heads, batch 2 at 512x512): 4 steps, a resumed fifth, the test
+    CLI in slide mode and with `--aug-test` at the reference ratios
+    (`run_config_cli`), with the launches of each step and of each model
+    call of the test CLI, and no point sampling, auction or per-level
+    kernel."""
+    return run_config_cli("UperNet CLI", UPERNET_CONFIG, UPERNET_OPTIONS,
+                          UPERNET_STEP_LAUNCHES, UPERNET_NEVER, [],
+                          forward_launches=UPERNET_FORWARD_LAUNCHES)
 
 
 def assignment_cost(cost, owner):
@@ -2540,6 +2649,102 @@ def beit_card_vs_cpu():
                          f"(launches {used}, want {CLI_STEP_LAUNCHES})")
 
 
+def upernet_card_vs_cpu():
+    """Phase 14: the AugReg-L UperNet config reduced to depth 4 (one block
+    per interaction) at 256 px, full width (embed 1024, 16 heads, UPerHead
+    1024 wide), all fp32 (the heads too), TF32 off, drop path and dropout
+    0 so that neither side draws: the card's eval logits against the
+    CPU's (E2E_RTOL of their scale), then one `make_seg_train_step` each
+    on the same batch (batch 2, block labels with ignored pixels),
+    compared by loss and gradient norm (TRAIN_RTOL). The gradient norm
+    compared is each side's float64 norm of the step's gradients: the
+    step's own (`clip_grad_norm_` in fp32) sums 250 million squares, and
+    on the CPU that fp32 sum was 1.6e-3 below the float64 norm of the same
+    gradients (the card's 1e-7 from it), so it is logged beside."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_seg_train_step
+    from vitadapter_torch.utils.config import Config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(UPERNET_CONFIG)
+    cfg.merge_from_options({
+        "model.backbone.depth": 4, "model.backbone.img_size": 256,
+        "model.backbone.drop_path_rate": 0.0,
+        "model.backbone.interaction_indexes": [[0, 0], [1, 1], [2, 2],
+                                               [3, 3]],
+        "model.decode_head.dtype": "float32",
+        "model.decode_head.dropout_ratio": 0.0,
+        "model.auxiliary_head.dtype": "float32",
+        "model.auxiliary_head.dropout_ratio": 0.0})
+    gen = torch.Generator().manual_seed(17)
+    cpu = build_model(dict(cfg.model), device="cpu", generator=gen)
+    randomize(cpu, gen)
+    card = copy.deepcopy(cpu).cuda()
+    img = torch.randint(0, 256, (1, 256, 256, 3), dtype=torch.uint8,
+                        generator=gen)
+    before = dict(cuda_ext.launches)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = cpu(normalize(img))
+        t_cpu = time.perf_counter() - t0
+        got = card(normalize(img.cuda())).cpu()
+    used = launch_diff(cuda_ext.launches, before)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    ok = (err <= E2E_RTOL * scale and tuple(got.shape) == (1, 256, 256, 150)
+          and bool(torch.isfinite(got).all()))
+    want = {"attention_fwd": 4, "msda_fwd": 10}
+    log(f"AugReg-L + UperNet (depth 4, full width, 256 px) fp32 card vs "
+        f"CPU: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+        f"rel={err / scale:.3e} (tol {E2E_RTOL}) ok={ok}; CPU forward "
+        f"{t_cpu:.1f} s; kernel launches {used} (want {want})")
+    if not ok or used != want:
+        raise SystemExit("FAIL: UperNet card vs CPU logits")
+
+    label = torch.stack([torch.from_numpy(block_labels(gen, 256, 256, 150,
+                                                       32))
+                         for _ in range(2)]).long()
+    label[:, :16] = 255
+    batch = {"image": torch.randn(2, 256, 256, 3, generator=gen),
+             "label": label}
+    results = {}
+    for side, model in (("cpu", cpu), ("cuda", card)):
+        opt, _ = make_optimizer(model, base_lr=cfg.optimizer["lr"],
+                                weight_decay=cfg.optimizer["weight_decay"],
+                                depth=4, total_steps=1000, warmup_steps=0)
+        step = make_seg_train_step(model, cfg.get("aux_loss_weight", 0.4))
+        b = {k: v.to(side) for k, v in batch.items()}
+        before = dict(cuda_ext.launches)
+        t0 = time.perf_counter()
+        _, logs = step(TrainState.create(model, opt), b,
+                       torch.Generator(side).manual_seed(18))
+        logs = {k: float(v) for k, v in logs.items()}
+        logs["grad_norm_f64"] = float(sum(
+            p.grad.double().square().sum() for p in model.parameters()
+            if p.grad is not None).sqrt())
+        results[side] = (logs, time.perf_counter() - t0,
+                         launch_diff(cuda_ext.launches, before))
+    (ref, t_cpu, _), (got, t_card, used) = results["cpu"], results["cuda"]
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+           for k in ("loss", "grad_norm_f64", "grad_norm")}
+    ok = all(rel[k] <= TRAIN_RTOL for k in ("loss", "grad_norm_f64"))
+    # `with_cp` recomputes the 4 blocks' forwards in the backward
+    want = {"attention_fwd": 8, "attention_bwd": 4, "msda_fwd": 10,
+            "msda_bwd": 10}
+    log(f"AugReg-L + UperNet (depth 4, full width, 256 px) fp32 train step "
+        f"card vs CPU: card {got} CPU {ref} rel {rel} (tol {TRAIN_RTOL} on "
+        f"the loss and the float64 gradient norm) ok={ok}; CPU step "
+        f"{t_cpu:.1f} s, card step {t_card:.2f} s; kernel launches {used} "
+        f"(want {want})")
+    if not ok or used != want:
+        raise SystemExit("FAIL: UperNet train step card vs CPU "
+                         f"(launches {used}, want {want})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2617,9 +2822,20 @@ def main():
     # phase 12: BEiT-Adapter, card against CPU
     beit_card_vs_cpu()
 
+    # phase 13: the config CLI on the AugReg-L UperNet config
+    t0 = time.perf_counter()
+    upernet_counts = upernet_cli()
+    t13 = time.perf_counter() - t0
+
+    # phase 14: UperNet, card against CPU
+    t0 = time.perf_counter()
+    upernet_card_vs_cpu()
+    log(f"phases 13 and 14 took {t13:.1f} and "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+
     paths = {"serve": serve_counts, "train": train_counts,
              "eval_whole": eval_counts, "train_overline": overline_counts,
-             "cli": cli_counts}
+             "cli": cli_counts, "upernet": upernet_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -2642,6 +2858,9 @@ def main():
         if "cli" in r.get("paths", {}):
             per += ("; paths.cli: per phase 11 train step (640 px, batch "
                     "1, fp32; point sampling in bf16, as the loss samples)")
+        if "upernet" in r.get("paths", {}):
+            per += ("; paths.upernet: per phase 13 train step (AugReg-L "
+                    "UperNet, 512 px, batch 2, fp32)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",
@@ -2656,6 +2875,8 @@ def main():
                                        "us_per_round")
                if key in r},
             "per": per + f"; launches over the {path} phase"})
+    # the card again near the end, where a tail of the output shows it
+    log(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

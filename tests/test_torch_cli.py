@@ -214,9 +214,9 @@ def test_cli_refusals(tmp_path, monkeypatch):
     with pytest.raises(KeyError, match="item 7"):
         train_cli.main([detector, "--work-dir", str(tmp_path / "d"),
                         "--device", "cpu"])
-    upernet = os.path.join(ROOT, "configs/ade20k/"
-                           "upernet_beit_adapter_large_640_160k_ade20k_ss.py")
-    with pytest.raises(KeyError, match="item 2"):
+    upernet = os.path.join(ROOT, "configs/ade20k/upernet_uniperceiver_"
+                           "adapter_large_512_160k_ade20k.py")
+    with pytest.raises(KeyError, match="item 8"):
         train_cli.main([upernet, "--work-dir", str(tmp_path / "u"),
                         "--device", "cpu"])
     with pytest.raises(SystemExit):

@@ -104,8 +104,13 @@ def test_640_config_parameter_count_matches_jax():
 
 
 def test_builder_refuses_what_is_not_ported():
-    with pytest.raises(KeyError, match="item 2"):
-        builder.build({"type": "EncoderDecoder"})
+    with pytest.raises(KeyError, match="item 3"):
+        builder.build({"type": "MaskFormerHead"})
+    uniperceiver = Config.fromfile(os.path.join(
+        ROOT, "configs/ade20k/upernet_uniperceiver_adapter_large_512_160k_"
+        "ade20k.py"))
+    with pytest.raises(KeyError, match="item 8"):
+        builder.build(dict(uniperceiver.model))
     with pytest.raises(KeyError, match="item 7"):
         builder.build({"type": "MaskRCNN"})
     with pytest.raises(KeyError, match="unknown component type"):

@@ -4,9 +4,10 @@
 
 Modules are built on the meta device, then allocated on `device` and
 initialized from a `torch.Generator`, as `zoo.mask2former_vit_adapter` does.
-The port's `Mask2FormerHead` takes the backbone's channels (`in_channels`),
-which the flax head infers from its input: `build` supplies
-`[embed_dim] * 4` from the backbone it built.
+The port's heads take the backbone's channels (`in_channels`), which the
+flax heads infer from their input: `build` supplies `[embed_dim] * 4` to a
+segmentor's decode head and `embed_dim` to its auxiliary head, from the
+backbone it built.
 """
 
 from typing import Any, Dict, Optional
@@ -14,25 +15,36 @@ from typing import Any, Dict, Optional
 import torch
 
 from vitadapter_torch.heads.mask2former import Mask2FormerHead
+from vitadapter_torch.heads.upernet import FCNHead, UPerHead
+from vitadapter_torch.models.baselines import BEiTBaseline, ViTBaseline
+from vitadapter_torch.models.beit import BEiT
 from vitadapter_torch.models.beit_adapter import BEiTAdapter
 from vitadapter_torch.models.mask2former_segmentor import \
     EncoderDecoderMask2Former
+from vitadapter_torch.models.segmentor import EncoderDecoder
+from vitadapter_torch.models.vit import TIMMVisionTransformer
 from vitadapter_torch.models.vit_adapter import ViTAdapter
 from vitadapter_torch.zoo import materialize, resolve_device
 
 REGISTRY: Dict[str, Any] = {
+    # backbones
     "ViTAdapter": ViTAdapter,
+    "BEiT": BEiT,
     "BEiTAdapter": BEiTAdapter,
+    "TIMMVisionTransformer": TIMMVisionTransformer,
+    "ViTBaseline": ViTBaseline,
+    "BEiTBaseline": BEiTBaseline,
+    # segmentation
+    "UPerHead": UPerHead,
+    "FCNHead": FCNHead,
     "Mask2FormerHead": Mask2FormerHead,
+    "EncoderDecoder": EncoderDecoder,
     "EncoderDecoderMask2Former": EncoderDecoderMask2Former,
 }
 
 # the JAX package's other component types, by the ROADMAP.md §1 item that
 # will port them
 NOT_PORTED = {
-    **dict.fromkeys(("EncoderDecoder", "UPerHead", "FCNHead", "BEiT",
-                     "TIMMVisionTransformer", "ViTBaseline", "BEiTBaseline"),
-                    "item 2 (EncoderDecoder with UPerHead / FCNHead)"),
     "MaskFormerHead": "item 3 (MaskFormerHead and panoptic)",
     **dict.fromkeys(("MaskRCNN", "CascadeRCNN", "ATSS", "SparseRCNN", "DINO"),
                     "item 7 (detection)"),
@@ -56,17 +68,25 @@ def _lookup(name: str):
 def build(cfg: Dict[str, Any], device="meta"):
     """Recursively build {'type': Name, **kwargs} on `device`: nested dicts
     with a 'type' key become submodules, lists become tuples and `dtype`
-    strings torch dtypes. A `Mask2FormerHead` under a segmentor gets
-    `in_channels` from the backbone's `embed_dim` unless it sets them."""
+    strings torch dtypes. A segmentor's heads get `in_channels` from the
+    backbone's `embed_dim` unless they set them: each of the 4 scales for
+    the decode head, the one `aux_in_index` scale for the auxiliary head
+    (every backbone's scales have `embed_dim` channels)."""
     if not isinstance(cfg, dict) or "type" not in cfg:
         return cfg
     cfg = dict(cfg)
     cls = _lookup(cfg.pop("type"))
-    if cls is EncoderDecoderMask2Former:
+    if cls in (EncoderDecoderMask2Former, EncoderDecoder):
         backbone = build(cfg.pop("backbone"), device)
-        head = dict(cfg.pop("decode_head"))
-        head.setdefault("in_channels", [backbone.embed_dim] * 4)
-        return cls(backbone, build(head, device), **cfg)
+        dim = backbone.embed_dim
+        heads = {}
+        for key, channels in (("decode_head", [dim] * 4),
+                              ("auxiliary_head", dim)):
+            if cfg.get(key) is not None:
+                head = dict(cfg.pop(key))
+                head.setdefault("in_channels", channels)
+                heads[key] = build(head, device)
+        return cls(backbone, **heads, **cfg)
     kwargs = {}
     for k, v in cfg.items():
         if isinstance(v, dict) and "type" in v:

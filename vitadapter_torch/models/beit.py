@@ -10,8 +10,8 @@ interactions between block spans. Parameter names are the reference's
 The attention carries a bias, so it runs as plain PyTorch (the fused
 attention kernel takes none, as the JAX package's Pallas kernel takes
 none). With `with_cp` each block is recomputed in the backward
-(`torch.utils.checkpoint`, as `nn.remat` wraps the JAX block); DropPath's
-draws are replayed there from the generator's saved state.
+(`layers/drop.py::checkpointed`, as `nn.remat` wraps the JAX block);
+DropPath's draws are replayed there from the generator's saved state.
 """
 
 from typing import Optional, Tuple
@@ -19,9 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
-from vitadapter_torch.layers.drop import DropPath
+from vitadapter_torch.layers.drop import DropPath, checkpointed
 from vitadapter_torch.layers.linear import Linear
 from vitadapter_torch.layers.mlp import Mlp
 from vitadapter_torch.layers.norm import LayerNorm
@@ -154,33 +152,6 @@ class BEiTBlock(nn.Module):
                                generator)
         return x + self.drop_path(self.gamma_2 * self.mlp(self.norm2(x)),
                                   generator)
-
-
-def checkpointed(block: nn.Module, x: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """`block(x, generator)` with its activations recomputed in the
-    backward. The recompute must draw DropPath's masks again, and an
-    explicit generator has moved on by then: each run of the block draws
-    from a private generator set to the caller's state at the block's
-    start, and the caller's generator then takes the state the forward left,
-    so the draws are those of the block run without checkpointing. (With
-    no generator, DropPath draws from the device's default generator,
-    whose state `checkpoint` saves and restores itself.)"""
-    if generator is None:
-        return checkpoint(block, x, None, use_reentrant=False)
-    start = generator.get_state()
-    after = []
-
-    def run(t):
-        g = torch.Generator(generator.device)
-        g.set_state(start)
-        out = block(t, g)
-        after.append(g.get_state())
-        return out
-
-    out = checkpoint(run, x, use_reentrant=False)
-    generator.set_state(after[0])
-    return out
 
 
 class BEiT(nn.Module):

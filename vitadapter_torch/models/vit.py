@@ -1,8 +1,10 @@
 """Plain ViT trunk (counterpart of `vitadapter/models/vit.py`): the global
 `Block` with layer scale, `resample_abs_pos_embed` and
 `TIMMVisionTransformer` with `embed()` / `run_blocks()`. Windowed attention
-and `ResBottleneckBlock` are not ported yet. In training mode the blocks'
-DropPath draws from the `generator` passed down (JAX's "dropout" rng).
+and `ResBottleneckBlock` are not ported yet (`NOT_PORTED`). In training mode
+the blocks' DropPath draws from the `generator` passed down (JAX's
+"dropout" rng). With `with_cp` each block is recomputed in the backward
+(`layers/drop.py::checkpointed`, as `nn.remat` wraps the JAX block).
 """
 
 from typing import Optional, Tuple
@@ -12,11 +14,25 @@ import torch
 from torch import nn
 
 from vitadapter_torch.layers.attention import Attention
-from vitadapter_torch.layers.drop import DropPath
+from vitadapter_torch.layers.drop import DropPath, checkpointed
 from vitadapter_torch.layers.mlp import Mlp
 from vitadapter_torch.layers.norm import LayerNorm
 from vitadapter_torch.layers.patch_embed import PatchEmbed
 from vitadapter_torch.utils.resize import resize_2d
+
+NOT_PORTED = ("the ViT trunk is ported with global attention in every "
+              "block; windowed attention (`window_attn`, `window_size`) and "
+              "the residual bottleneck blocks (`residual_indices`) are not "
+              "ported yet: ROADMAP.md §1 item 4")
+
+
+def refuse_windows(window_attn, residual_indices) -> None:
+    """Raise `NotImplementedError` naming ROADMAP.md's item for the ViT
+    options the port lacks."""
+    windowed = (any(window_attn) if isinstance(window_attn, (list, tuple))
+                else bool(window_attn))
+    if windowed or tuple(residual_indices or ()):
+        raise NotImplementedError(NOT_PORTED)
 
 
 class Block(nn.Module):
@@ -69,14 +85,21 @@ def resample_abs_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int],
 
 class TIMMVisionTransformer(nn.Module):
     """Plain ViT trunk. `embed()` (patch + pos) and `run_blocks()` let the
-    adapter interleave injectors and extractors between block spans."""
+    adapter interleave injectors and extractors between block spans.
+    `window_size` is taken, and only global attention is ported
+    (`NOT_PORTED`)."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path_rate: float = 0.0,
                  layer_scale: bool = True, pretrain_size: int = 224,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 with_cp: bool = False, window_attn=False, window_size=14,
+                 residual_indices=(), dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
+        refuse_windows(window_attn, residual_indices)
+        self.embed_dim = embed_dim
+        self.with_cp = with_cp
         self.patch_size = patch_size
         self.pretrain_size = pretrain_size
         dpr = np.linspace(0, drop_path_rate, depth)
@@ -106,8 +129,12 @@ class TIMMVisionTransformer(nn.Module):
     def run_blocks(self, x: torch.Tensor, H: int, W: int, start: int,
                    end: int, generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
+        """Blocks [start, end); each is checkpointed under `with_cp` when a
+        gradient is taken."""
+        cp = self.with_cp and self.training and torch.is_grad_enabled()
         for blk in self.blocks[start:end]:
-            x = blk(x, H, W, generator)
+            x = (checkpointed(blk, x, generator, H, W) if cp
+                 else blk(x, H, W, generator))
         return x
 
     def forward(self, x: torch.Tensor,

@@ -4,7 +4,9 @@ pyramid (counterpart of `vitadapter/models/vit_adapter.py`).
 forward(image NHWC) -> [f1, f2, f3, f4] NHWC maps at strides 4/8/16/32, all
 with `embed_dim` channels. As in the reference, the adapter subclasses the
 ViT trunk, so parameter names are the reference's (`blocks.N...`,
-`spm...`, `interactions.N...`).
+`spm...`, `interactions.N...`). `img_size` is advisory, as in JAX (the
+position embedding is resampled to each input); `with_cp` recomputes the
+ViT blocks in the backward, not the interactions.
 """
 
 from typing import Optional, Sequence
@@ -21,10 +23,12 @@ from vitadapter_torch.utils.resize import resize_2d
 
 
 class ViTAdapter(TIMMVisionTransformer):
-    def __init__(self, patch_size: int = 16, embed_dim: int = 768,
-                 depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, drop_path_rate: float = 0.0,
-                 layer_scale: bool = True, pretrain_size: int = 224,
+    def __init__(self, img_size: int = 224, patch_size: int = 16,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path_rate: float = 0.0, layer_scale: bool = True,
+                 pretrain_size: int = 224, with_cp: bool = False,
+                 window_attn=False, window_size=14, residual_indices=(),
                  conv_inplane: int = 64, n_points: int = 4,
                  deform_num_heads: int = 6, init_values: float = 0.0,
                  interaction_indexes: Sequence[Sequence[int]] = (
@@ -36,8 +40,10 @@ class ViTAdapter(TIMMVisionTransformer):
                          depth=depth, num_heads=num_heads, mlp_ratio=mlp_ratio,
                          qkv_bias=qkv_bias, drop_path_rate=drop_path_rate,
                          layer_scale=layer_scale, pretrain_size=pretrain_size,
-                         dtype=dtype, device=device)
-        self.embed_dim = embed_dim
+                         with_cp=with_cp, window_attn=window_attn,
+                         window_size=window_size,
+                         residual_indices=residual_indices, dtype=dtype,
+                         device=device)
         self.interaction_indexes = tuple(tuple(s) for s in interaction_indexes)
         self.level_embed = nn.Parameter(torch.zeros(3, embed_dim,
                                                     device=device))

@@ -27,7 +27,8 @@ from vitadapter_torch.data.metrics import confusion_matrix, miou_from_confusion
 from vitadapter_torch.data.preprocess import normalize
 from vitadapter_torch.models import seg_protocol as SP
 from vitadapter_torch.train.optim import make_optimizer
-from vitadapter_torch.train.trainer import TrainState, make_m2f_train_step
+from vitadapter_torch.train.trainer import (TrainState, make_m2f_train_step,
+                                            make_seg_train_step)
 from vitadapter_torch.utils.checkpoint_io import (latest_step,
                                                   restore_checkpoint,
                                                   save_checkpoint)
@@ -172,11 +173,14 @@ def run_training(cfg, work_dir: str, resume: bool = False,
         start = state.step
         log_fn(f"resumed from step {start}")
 
-    tc = cfg.get("train_cfg", {})
-    step_fn = make_m2f_train_step(
-        model, num_classes=num_classes,
-        max_instances=tc.get("max_instances", 60),
-        num_points=tc.get("num_points", 12544))
+    if mtype == "EncoderDecoderMask2Former":
+        tc = cfg.get("train_cfg", {})
+        step_fn = make_m2f_train_step(
+            model, num_classes=num_classes,
+            max_instances=tc.get("max_instances", 60),
+            num_points=tc.get("num_points", 12544))
+    else:
+        step_fn = make_seg_train_step(model, cfg.get("aux_loss_weight", 0.4))
 
     if synthetic:
         it = synthetic_batches(batch, crop, num_classes)

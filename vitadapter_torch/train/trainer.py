@@ -1,10 +1,11 @@
-"""Training state and the Mask2Former train step (counterpart of
-`vitadapter/train/trainer.py`).
+"""Training state and the Mask2Former and UperNet train steps (counterpart
+of `vitadapter/train/trainer.py`).
 
-One step: the model's forward in training mode (DropPath drawing from a
-`torch.Generator`, BatchNorm on batch statistics, moving its running
-statistics), the Mask2Former loss over every decoder layer, the backward,
-and one optimizer update. The port updates the model and the optimizer in
+One step: the model's forward in training mode (DropPath and dropout
+drawing from a `torch.Generator`, BatchNorm on batch statistics, moving its
+running statistics), the loss (Mask2Former's over every decoder layer, or
+the decode and auxiliary heads' cross entropy), the backward, and one
+optimizer update. The port updates the model and the optimizer in
 place, where JAX returns a new state.
 """
 
@@ -17,6 +18,7 @@ import torch
 from torch import nn
 
 from vitadapter_torch.heads.mask2former_loss import mask2former_loss
+from vitadapter_torch.models.segmentor import segmentation_loss
 from vitadapter_torch.ops.point_sample import Sampler, uniform_sampler
 from vitadapter_torch.train.optim import LayerDecayAdamW
 
@@ -81,6 +83,35 @@ def make_m2f_train_step(model: nn.Module, num_classes: int,
         state.update_ema()
         logs = {k: v.detach() for k, v in logs.items()
                 if not k.startswith("d")}
+        logs.update(loss=loss.detach(), grad_norm=grad_norm)
+        return state, logs
+
+    return train_step
+
+
+def make_seg_train_step(model: nn.Module, aux_weight: float = 0.4,
+                        ignore_index: int = 255) -> Callable:
+    """Train step for `EncoderDecoder` (UperNet): the decode head's cross
+    entropy plus `aux_weight` times the auxiliary head's
+    (`segmentation_loss`), pixels labelled `ignore_index` left out.
+
+    train_step(state, batch, generator) -> (state, logs): batch {"image":
+    (B, H, W, 3) normalized float, "label": (B, H, W) int}. DropPath and
+    dropout draw from `generator`. logs holds `loss_decode`, `loss_aux`,
+    `loss` and `grad_norm` (before clipping), as 0-d tensors."""
+
+    def train_step(state: TrainState, batch, generator: torch.Generator):
+        model.train()
+        logits, aux = model(batch["image"], with_aux=True,
+                            generator=generator)
+        loss, logs = segmentation_loss(logits, aux, batch["label"],
+                                       aux_weight, ignore_index)
+        state.optimizer.zero_grad()
+        loss.backward()
+        grad_norm = state.optimizer.step()
+        state.step += 1
+        state.update_ema()
+        logs = {k: v.detach() for k, v in logs.items()}
         logs.update(loss=loss.detach(), grad_norm=grad_norm)
         return state, logs
 

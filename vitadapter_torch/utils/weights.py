@@ -4,8 +4,10 @@
 arrays or anything `np.asarray` takes) into a PyTorch `state_dict` with the
 reference's key names: the inverse of the JAX package's checkpoint
 converters for the ViT-Adapter and BEiT-Adapter backbones
-(`convert_vit_adapter_backbone`, `convert_beit_backbone`) and the
-Mask2Former head. Layout rules (flax -> torch):
+(`convert_vit_adapter_backbone`, `convert_beit_backbone`), the
+Mask2Former head and the UperNet heads (`convert_upernet_heads`). The
+baselines' pyramid and `PatchMerging`, which no JAX converter reads, keep
+their flax names (`models/baselines.py`). Layout rules (flax -> torch):
 
   Dense kernel (in, out)                 -> Linear weight (out, in)
   Conv kernel (kh, kw, I, O)             -> Conv2d weight (O, I, kh, kw)
@@ -13,6 +15,7 @@ Mask2Former head. Layout rules (flax -> torch):
   ConvTranspose kernel (kh, kw, I, O),
     spatially flipped                    -> ConvTranspose2d weight (I, O, kh, kw)
   LayerNorm/GroupNorm scale, bias        -> weight, bias
+  LayerNorm2d weight, bias               -> weight, bias
   BatchNorm scale, bias, mean, var       -> weight, bias, running_mean/var
   q/k/v_proj of an attention             -> packed in_proj_weight/in_proj_bias
   pixel-decoder encoder layers stacked
@@ -139,17 +142,20 @@ def interaction_from_flax(p: Tree) -> StateDict:
     return sd
 
 
-def vit_adapter_from_flax(p: Tree, s: Tree) -> StateDict:
-    """`ViTAdapter` (flax `vit` subtree flattened, as in the reference)."""
-    vit = p["vit"]
-    sd = {"pos_embed": _t(vit["pos_embed"]),
-          **_prefixed("patch_embed.proj", _conv(vit["patch_embed"]["proj"])),
-          **_adapter_from_flax(p, s)}
+def _blocks(trunk: Tree, convert) -> StateDict:
+    sd: StateDict = {}
     i = 0
-    while f"blocks_{i}" in vit:
-        sd.update(_prefixed(f"blocks.{i}", block_from_flax(vit[f"blocks_{i}"])))
+    while f"blocks_{i}" in trunk:
+        sd.update(_prefixed(f"blocks.{i}", convert(trunk[f"blocks_{i}"])))
         i += 1
     return sd
+
+
+def _vit_trunk(vit: Tree) -> StateDict:
+    """The flax `vit` subtree, flattened as in the reference."""
+    return {"pos_embed": _t(vit["pos_embed"]),
+            **_prefixed("patch_embed.proj", _conv(vit["patch_embed"]["proj"])),
+            **_blocks(vit, block_from_flax)}
 
 
 def beit_block_from_flax(p: Tree) -> StateDict:
@@ -165,6 +171,14 @@ def beit_block_from_flax(p: Tree) -> StateDict:
             **{f"attn.{k}": _t(attn[k]) for k in (
                 "q_bias", "v_bias", "relative_position_bias_table")},
             "gamma_1": _t(p["gamma_1"]), "gamma_2": _t(p["gamma_2"])}
+
+
+def _beit_trunk(beit: Tree) -> StateDict:
+    """The flax `beit` subtree, flattened as in the reference."""
+    return {"cls_token": _t(beit["cls_token"]),
+            **_prefixed("patch_embed.proj",
+                        _conv(beit["patch_embed"]["proj"])),
+            **_blocks(beit, beit_block_from_flax)}
 
 
 def _adapter_from_flax(p: Tree, s: Tree) -> StateDict:
@@ -183,26 +197,110 @@ def _adapter_from_flax(p: Tree, s: Tree) -> StateDict:
     return sd
 
 
+def vit_adapter_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`ViTAdapter`."""
+    return {**_vit_trunk(p["vit"]), **_adapter_from_flax(p, s)}
+
+
 def beit_adapter_from_flax(p: Tree, s: Tree) -> StateDict:
-    """`BEiTAdapter` (flax `beit` subtree flattened, as in the reference):
-    the inverse of the JAX `convert_beit_backbone`."""
-    beit = p["beit"]
-    sd = {"cls_token": _t(beit["cls_token"]),
-          **_prefixed("patch_embed.proj", _conv(beit["patch_embed"]["proj"])),
-          **_adapter_from_flax(p, s)}
+    """`BEiTAdapter`: the inverse of the JAX `convert_beit_backbone`."""
+    return {**_beit_trunk(p["beit"]), **_adapter_from_flax(p, s)}
+
+
+def _ln2d(p: Tree) -> StateDict:
+    return {"weight": _t(p["weight"]), "bias": _t(p["bias"])}
+
+
+def pyramid_from_flax(p: Tree) -> StateDict:
+    """`SimpleFeaturePyramid`: flax `out_conv1_N` -> `out_conv1.N`, ..."""
+    sd = {**_prefixed("up4_a", _conv_transpose(p["up4_a"])),
+          **_prefixed("up4_b", _conv_transpose(p["up4_b"])),
+          **_prefixed("up8", _conv_transpose(p["up8"])),
+          **_prefixed("up4_norm", _ln2d(p["up4_norm"]))}
+    for i in range(4):
+        for name in ("out_conv1", "out_conv2"):
+            sd.update(_prefixed(f"{name}.{i}", _conv(p[f"{name}_{i}"])))
+        for name in ("out_norm1", "out_norm2"):
+            sd.update(_prefixed(f"{name}.{i}", _ln2d(p[f"{name}_{i}"])))
+    return sd
+
+
+def vit_baseline_from_flax(p: Tree) -> StateDict:
+    """`ViTBaseline`."""
+    return {**_vit_trunk(p["vit"]),
+            **_prefixed("pyramid", pyramid_from_flax(p["pyramid"]))}
+
+
+def beit_baseline_from_flax(p: Tree) -> StateDict:
+    """`BEiTBaseline`."""
+    return {**_beit_trunk(p["beit"]),
+            **_prefixed("pyramid", pyramid_from_flax(p["pyramid"]))}
+
+
+def backbone_from_flax(p: Tree, s: Tree) -> StateDict:
+    """A ViT-Adapter, a BEiT-Adapter or one of the baselines, by its
+    subtrees."""
+    if "pyramid" in p:
+        return (beit_baseline_from_flax(p) if "beit" in p
+                else vit_baseline_from_flax(p))
+    if "beit" in p:
+        return beit_adapter_from_flax(p, s)
+    return vit_adapter_from_flax(p, s)
+
+
+def _conv_bn_relu(p: Tree, s: Tree) -> StateDict:
+    return {**_prefixed("conv", _conv(p["conv"])),
+            **_prefixed("bn", _bn(p["bn"], s["bn"]))}
+
+
+def uper_head_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`UPerHead`: flax `psp/pool_N` -> `psp_modules.N.1`, `psp_bottleneck`
+    -> `bottleneck`, `lateral_N` / `fpn_conv_N` -> `lateral_convs.N` /
+    `fpn_convs.N` (the inverse of `convert_upernet_heads`)."""
+    sd = {**_prefixed("bottleneck", _conv_bn_relu(p["psp_bottleneck"],
+                                                  s["psp_bottleneck"])),
+          **_prefixed("fpn_bottleneck", _conv_bn_relu(p["fpn_bottleneck"],
+                                                      s["fpn_bottleneck"])),
+          **_prefixed("conv_seg", _conv(p["conv_seg"]))}
     i = 0
-    while f"blocks_{i}" in beit:
-        sd.update(_prefixed(f"blocks.{i}",
-                            beit_block_from_flax(beit[f"blocks_{i}"])))
+    while f"pool_{i}" in p["psp"]:
+        sd.update(_prefixed(f"psp_modules.{i}.1", _conv_bn_relu(
+            p["psp"][f"pool_{i}"], s["psp"][f"pool_{i}"])))
+        i += 1
+    i = 0
+    while f"lateral_{i}" in p:
+        sd.update(_prefixed(f"lateral_convs.{i}", _conv_bn_relu(
+            p[f"lateral_{i}"], s[f"lateral_{i}"])))
+        sd.update(_prefixed(f"fpn_convs.{i}", _conv_bn_relu(
+            p[f"fpn_conv_{i}"], s[f"fpn_conv_{i}"])))
         i += 1
     return sd
 
 
-def backbone_from_flax(p: Tree, s: Tree) -> StateDict:
-    """A ViT-Adapter or a BEiT-Adapter, by its trunk's subtree."""
-    if "beit" in p:
-        return beit_adapter_from_flax(p, s)
-    return vit_adapter_from_flax(p, s)
+def fcn_head_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`FCNHead`: flax `conv_N` -> `convs.N`."""
+    sd = _prefixed("conv_seg", _conv(p["conv_seg"]))
+    i = 0
+    while f"conv_{i}" in p:
+        sd.update(_prefixed(f"convs.{i}", _conv_bn_relu(p[f"conv_{i}"],
+                                                        s[f"conv_{i}"])))
+        i += 1
+    return sd
+
+
+def patch_merging_from_flax(p: Tree) -> StateDict:
+    """`layers/merging.PatchMerging`."""
+    return {**_prefixed("norm", _norm(p["norm"])),
+            **_prefixed("reduction", _linear(p["reduction"]))}
+
+
+def head_from_flax(p: Tree, s: Tree) -> StateDict:
+    """A decode head: Mask2Former, UPerHead or FCNHead."""
+    if "pixel_decoder" in p:
+        return mask2former_head_from_flax(p)
+    if "psp" in p:
+        return uper_head_from_flax(p, s)
+    return fcn_head_from_flax(p, s)
 
 
 def _ffn(fc1: Tree, fc2: Tree) -> StateDict:
@@ -280,20 +378,29 @@ def mask2former_head_from_flax(p: Tree) -> StateDict:
 def state_dict_from_flax(params: Tree,
                          batch_stats: Optional[Tree] = None) -> StateDict:
     """A flax variable tree -> the port's `state_dict`. Takes the tree of a
-    whole `EncoderDecoderMask2Former` (`backbone`, `decode_head`), or of one
-    of its modules: `ViTAdapter`, `BEiTAdapter`, `Mask2FormerHead`, the
-    pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a ViT
-    `Block`, a `BEiTBlock` or an `MSDeformAttn`."""
+    whole `EncoderDecoderMask2Former` or `EncoderDecoder` (`backbone`,
+    `decode_head`, `auxiliary_head`), or of one of their modules:
+    `ViTAdapter`, `BEiTAdapter`, `ViTBaseline`, `BEiTBaseline`,
+    `Mask2FormerHead`, `UPerHead`, `FCNHead`, the `SimpleFeaturePyramid`,
+    the pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a
+    ViT `Block`, a `BEiTBlock`, an `MSDeformAttn` or a `PatchMerging`."""
     s = batch_stats or {}
     if "backbone" in params and "decode_head" in params:
-        return {**_prefixed("backbone", backbone_from_flax(
-                    params["backbone"], s["backbone"])),
-                **_prefixed("decode_head", mask2former_head_from_flax(
-                    params["decode_head"]))}
+        sd = _prefixed("backbone", backbone_from_flax(
+            params["backbone"], s.get("backbone", {})))
+        for head in ("decode_head", "auxiliary_head"):
+            if head in params:
+                sd.update(_prefixed(head, head_from_flax(
+                    params[head], s.get(head, {}))))
+        return sd
     if "vit" in params or "beit" in params:
         return backbone_from_flax(params, s)
-    if "pixel_decoder" in params:
-        return mask2former_head_from_flax(params)
+    if "pixel_decoder" in params or "psp" in params or "conv_seg" in params:
+        return head_from_flax(params, s)
+    if "up4_a" in params:
+        return pyramid_from_flax(params)
+    if "reduction" in params:
+        return patch_merging_from_flax(params)
     if "encoder_layers" in params:
         return pixel_decoder_from_flax(params)
     if "injector" in params:

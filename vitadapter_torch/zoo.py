@@ -1,5 +1,5 @@
 """Model zoo (counterpart of `vitadapter/zoo.py`): the ViT-Adapter variants
-and the Mask2Former + ViT-Adapter segmentor.
+and the Mask2Former + ViT-Adapter and UperNet + ViT-Adapter segmentors.
 
 Models are built on the meta device, then allocated on `device` and
 initialized from `generator` (seed 0 on `device` by default), in eval mode
@@ -14,8 +14,10 @@ import torch
 from torch import nn
 
 from vitadapter_torch.heads.mask2former import Mask2FormerHead
+from vitadapter_torch.heads.upernet import FCNHead, UPerHead
 from vitadapter_torch.models.mask2former_segmentor import \
     EncoderDecoderMask2Former
+from vitadapter_torch.models.segmentor import EncoderDecoder
 from vitadapter_torch.models.vit_adapter import ViTAdapter
 from vitadapter_torch.utils.init import init_weights
 
@@ -101,4 +103,27 @@ def mask2former_vit_adapter(variant: str = "large", num_classes: int = 150,
     head = Mask2FormerHead([dim] * 4, num_classes=num_classes, dtype=dtype,
                            device="meta", **head_cfg)
     model = EncoderDecoderMask2Former(backbone, head)
+    return materialize(model, device, generator)
+
+
+def upernet_vit_adapter(variant: str = "tiny", num_classes: int = 150,
+                        channels: int = 512, device=None,
+                        dtype: torch.dtype = torch.float32,
+                        generator: Optional[torch.Generator] = None,
+                        **overrides) -> EncoderDecoder:
+    """UperNet + ViT-Adapter segmentor (reference
+    `upernet_deit_adapter_tiny_512_160k_ade20k.py`): a `channels`-wide
+    `UPerHead` and a 256-wide `FCNHead` on the stride-16 scale, both in
+    `dtype`."""
+    device = resolve_device(device)
+    backbone = ViTAdapter(dtype=dtype, device="meta",
+                          **_vit_adapter_cfg(variant, overrides))
+    dim = backbone.embed_dim
+    model = EncoderDecoder(
+        backbone,
+        UPerHead([dim] * 4, num_classes=num_classes, channels=channels,
+                 dtype=dtype, device="meta"),
+        FCNHead(dim, num_classes=num_classes, channels=256, dtype=dtype,
+                device="meta"),
+        aux_in_index=2)
     return materialize(model, device, generator)
