@@ -73,7 +73,20 @@ Phases (each failure exits non-zero; nothing is caught):
      runs;
  14. runs that config reduced to depth 4 at 256 px, full width, all fp32,
      drop path and dropout 0, on the card and on the CPU, and compares the
-     logits and one seg train step's loss and gradient norm.
+     logits and one seg train step's loss and gradient norm;
+ 15. drives the config entry points on the AugReg-L Mask R-CNN config as
+     shipped (ViT-Adapter-L in fp32 with `with_cp`, 20 windowed and 4
+     global blocks, batch 1 on the 1024 canvas, 100 synthetic instances):
+     4 train steps, `--resume` for a fifth, then `tools.test --eval bbox
+     segm` on a landscape and a portrait COCO-layout image, against
+     `run_det_eval` called directly; checks the launches of each train step
+     and of each model call (attention, MSDA and the NMS kernel), and
+     reports s/step, peak memory, the checkpoint and the test's s/image;
+ 16. runs that config reduced to depth 4 (three windowed blocks, one
+     global) at 256 px, full width, fp32, on the card and on the CPU, and
+     compares the FPN and RPN outputs, the RoI stage and the detections'
+     kept sets, then one det train step's losses and gradient norm (the
+     same sampler draws, the CPU on the card's proposals).
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -94,7 +107,12 @@ there too, under `model_shaped`; msda_level_fwd and _dgrid launched twice
 for bitwise-equal outputs; msda_level_dv's atomic payload and its rate
 logged), and at other P, widths and a misaligned value and d value buffer
 (`LEVEL_LAYOUTS`); and the fp32 attention at the lengths phases 8 and 9
-give it, and at phase 13's (batch 2, N 1024, with a backward). The fp32
+give it, and at phase 13's (batch 2, N 1024, with a backward); the
+attention (windows of N 196 and global N 4096 and 4200) and fused MSDA
+kernels at phase 15's detection shapes and at the bf16 DeiT-S Mask R-CNN
+step's (the rows' `paths["det"]`, `["det_test"]`, `["det_bf16"]`); and
+the NMS kernel (`nms.cu`, not a TPU kernel) at the proposals' 4768 boxes
+and the detections' 2048 for bitwise-equal kept flags. The fp32
 attention (split TF32 on the tensor cores) is launched
 twice at every case and must give bitwise-equal outputs and gradients; its
 bound is the split-TF32 floor (`attention_bound_ms`), with the CUDA-core
@@ -149,6 +167,7 @@ E2E_RTOL = 1e-3
 # (1.8e-5 seen on the H100)
 TRAIN_RTOL = 1e-3
 
+F32, BF16 = torch.float32, torch.bfloat16
 SPM512 = ((64, 64), (32, 32), (16, 16))   # the SPM pyramid at 512x512
 MSDA_GEOMETRIES = {
     # name: (spatial shapes of the value, Lq, heads, calls per forward)
@@ -164,18 +183,30 @@ MSDA_QUERY_GRID = {"injector": (32, 32), "extractor": SPM512,
                    "pixel_decoder": None}
 ATTN_SHAPE = (2, 16, 1024, 64)   # 24 calls per forward
 ATTN_CALLS = 24
-# fp32 attention at the shapes of the paths that run it, 16 heads, head
-# dim 64: name: (B, N, path, forward calls there, backward calls). The
+# attention at the shapes of the paths that run it, head dim 64: name:
+# (B, heads, N, dtype, path, forward calls there, backward calls). The
 # whole-image evaluation's 1/16 token grid is 64x128 at ratio 1.0 and
 # 96x192 at 1.5 (24 calls per forward, 2 forwards each with the flip); the
 # over-line step's is 112x112 (4 blocks); phase 13's UperNet step runs 24
 # blocks at batch 2 on the 32x32 grid, each forward twice (`with_cp`
-# recomputes the blocks in the backward)
+# recomputes the blocks in the backward). Phase 15's AugReg-L Mask R-CNN
+# step (1024 canvas, batch 1, `with_cp`) runs 20 windowed blocks on
+# 5 x 5 windows of 14 x 14 tokens (the 64x64 grid padded to 70x70) and 4
+# global ones on 4096 tokens, each forward twice; its test CLI's model
+# call runs them once on the 800x1344 canvas's 50x84 grid (6 x 4 windows,
+# 4200 tokens). The bf16 cases are the DeiT-S Mask R-CNN configs' step
+# (batch 2, 6 heads, no `with_cp`: 8 windowed and 4 global blocks)
 ATTN_PATH_CASES = {
-    "eval_r1.0": (1, 8192, "eval_whole", 48, 0),
-    "eval_r1.5": (1, 18432, "eval_whole", 48, 0),
-    "overline": (1, 12544, "train_overline", 4, 4),
-    "upernet": (2, 1024, "upernet", 48, 24),
+    "eval_r1.0": (1, 16, 8192, F32, "eval_whole", 48, 0),
+    "eval_r1.5": (1, 16, 18432, F32, "eval_whole", 48, 0),
+    "overline": (1, 16, 12544, F32, "train_overline", 4, 4),
+    "upernet": (2, 16, 1024, F32, "upernet", 48, 24),
+    "det_window": (25, 16, 196, F32, "det", 40, 20),
+    "det_global": (1, 16, 4096, F32, "det", 8, 4),
+    "det_test_window": (24, 16, 196, F32, "det_test", 20, 0),
+    "det_test_global": (1, 16, 4200, F32, "det_test", 4, 0),
+    "det_bf16_window": (50, 6, 196, BF16, "det_bf16", 8, 8),
+    "det_bf16_global": (2, 6, 4096, BF16, "det_bf16", 4, 4),
 }
 # point sampling in one flagship train step (batch 2, 200 queries, 60 gt
 # classes, 10 decoder outputs, 12544 points):
@@ -243,7 +274,6 @@ TRAIN_LAUNCHES = {   # kernel launches per train step
 # - off the paths: a few thousand queries at the ratio-1.5 pixel-decoder
 #   levels, fp32 and bf16, and a case whose first level has H * W <= 1024
 #   (`_sample_kernel_onehot_pf`'s levels)
-F32, BF16 = torch.float32, torch.bfloat16
 R15 = ((48, 96), (96, 192), (192, 384))
 OVER = ((56, 56), (112, 112), (224, 224))
 LEVEL_GEOMETRIES = {
@@ -275,6 +305,8 @@ LEVEL_QUERY_GRID = {
 # extractors (1792x1792: (112, 112)) take a backward too
 R10 = ((32, 64), (64, 128), (128, 256))
 SPM640 = ((80, 80), (40, 40), (20, 20))
+SPM1024 = ((128, 128), (64, 64), (32, 32))
+SPM800 = ((100, 168), (50, 84), (25, 42))   # the 800x1344 canvas
 MSDA_PATH_CASES = {
     "eval_r1.0_injector": (R10[::-1], 8192, 16, (64, 128), "eval_whole", 8,
                            False),
@@ -301,12 +333,29 @@ MSDA_PATH_CASES = {
     "upernet_injector": (SPM512, 1024, 16, (32, 32), "upernet", 4, True),
     "upernet_extractor": (((32, 32),), 5376, 16, SPM512, "upernet", 6,
                           True),
+    # phase 15's AugReg-L Mask R-CNN step (1024 canvas, batch 1, fp32, 16
+    # heads, D 32): the SPM pyramid (128, 128)/(64, 64)/(32, 32) (2.6 MiB
+    # a head) and the 1/16 grid (64, 64); its test CLI's model call on the
+    # 800x1344 canvas; the DeiT-S configs' step (batch 2, bf16, 6 heads, D
+    # 64)
+    "det_injector": (SPM1024, 4096, 16, (64, 64), "det", 4, True),
+    "det_extractor": (((64, 64),), 21504, 16, SPM1024, "det", 6, True),
+    "det_test_injector": (SPM800, 4200, 16, (50, 84), "det_test", 4,
+                          False),
+    "det_test_extractor": (((50, 84),), 22050, 16, SPM800, "det_test", 6,
+                           False),
+    "det_bf16_injector": (SPM1024, 4096, 6, (64, 64), "det_bf16", 4, True),
+    "det_bf16_extractor": (((64, 64),), 21504, 6, SPM1024, "det_bf16", 6,
+                           True),
 }
-# the batch of each path's MSDA calls in `MSDA_PATH_CASES` (1 elsewhere)
-PATH_BATCH = {"upernet": 2}
+# the batch, dtype and head dim of each path's MSDA calls in
+# `MSDA_PATH_CASES` (1, fp32 and 32 elsewhere)
+PATH_BATCH = {"upernet": 2, "det_bf16": 2}
+PATH_DTYPE = {"det_bf16": BF16}
+PATH_D = {"det_bf16": 64}
 # the paths whose `MSDA_PATH_CASES` are also checked on model-shaped
 # locations
-MODEL_SHAPED_PATHS = ("cli", "upernet")
+MODEL_SHAPED_PATHS = ("cli", "upernet", "det", "det_test", "det_bf16")
 # the fused kernels off the flagship's layout, fp32 and bf16 each: name:
 # (spatial shapes, query grid, heads, D, P, the value 2 or 4 bytes off
 # 16-byte alignment). As `LEVEL_LAYOUTS`: ragged and narrow rows and other
@@ -400,6 +449,33 @@ UPERNET_STEP_LAUNCHES = {"attention_fwd": 48, "attention_bwd": 24,
 UPERNET_FORWARD_LAUNCHES = {"attention_fwd": 24, "msda_fwd": 10}
 UPERNET_NEVER = ("msda_level_fwd", "msda_level_dv", "msda_level_dgrid",
                  "point_sample_fwd", "point_sample_bwd", "auction")
+# phase 15: the config CLI on the AugReg-L Mask R-CNN config as shipped
+# (ViT-Adapter-L in fp32 with `with_cp`, drop path 0.4, 20 windowed and 4
+# global blocks; FPN and RoI heads in fp32; batch 1 on the 1024 canvas;
+# 100 synthetic instances), with these overrides; then the test CLI on one
+# landscape and one portrait COCO-layout image (the 800x1344 and 1344x800
+# canvases: one model call each)
+DET_CONFIG = "configs/mask_rcnn/mask_rcnn_augreg_adapter_large_fpn_3x_coco.py"
+DET_STEPS = 4
+DET_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=4"]
+DET_IMAGES = ((480, 640), (640, 480))
+# a train step: 24 blocks recomputed under `with_cp`, 10 MSDA calls, one
+# proposal NMS; a model call: one proposal and one detection NMS an image
+DET_STEP_LAUNCHES = {"attention_fwd": 48, "attention_bwd": 24,
+                     "msda_fwd": 10, "msda_bwd": 10, "nms": 1}
+DET_FORWARD_LAUNCHES = {"attention_fwd": 24, "msda_fwd": 10, "nms": 2}
+DET_NEVER = ("msda_level_fwd", "msda_level_dv", "msda_level_dgrid",
+             "point_sample_fwd", "point_sample_bwd", "auction")
+# nms.cu at the Mask R-CNN path's sizes: name: (boxes, classes (0: one),
+# IoU threshold, ((path, calls there), ...)). The proposals' NMS takes
+# 1000 boxes of each of 4 levels and the 768 of the stride-64 level at the
+# 1024 canvas (one a train step at batch 1, one a test image); the
+# detections' takes the top 2048 of the 1000 x 80 class scores, offset by
+# class (one a test image)
+NMS_CASES = {
+    "proposals": (4768, 0, 0.7, (("det", 1), ("det_test", 1))),
+    "detections": (2048, 80, 0.5, (("det_test", 1),)),
+}
 REPLACES = {
     "msda_fwd": "vitadapter/ops/msda_pallas.py:316",
     "msda_bwd": "vitadapter/ops/msda_pallas.py:1179",
@@ -411,7 +487,10 @@ REPLACES = {
     "point_sample_fwd": "vitadapter/ops/point_sample_pallas.py:46",
     "point_sample_bwd": "vitadapter/ops/point_sample_pallas.py:101",
     "auction": "vitadapter/ops/auction_pallas.py:33",
+    # not a TPU kernel: the JAX package runs NMS as a `lax.scan`
+    "nms": "vitadapter/det/boxes.py:90",
 }
+NOT_TPU_KERNELS = ("nms",)
 # TPU kernels that compute the same function as another one, on inputs that
 # a ported kernel takes whole: `msda_fwd.cu` computes the multi-level forward
 # of every value under the 8 MiB line, which is all the opt-in band-matmul
@@ -1052,20 +1131,22 @@ def check_msda(rows, flush, gen):
 
 
 def check_msda_paths(rows, flush, gen):
-    """msda_fwd and msda_bwd in fp32 at `MSDA_PATH_CASES`, on uniform
-    locations (phases 11's and 13's cases on model-shaped ones too, at the
-    path's batch, `PATH_BATCH`): `check_fused`
-    against the plain versions four heads at a time, then the forward (and,
-    where the path takes one, the backward) timed beside the plain version
-    on the uniform locations. The numbers go to the rows' `paths`, summed
-    over each path's calls."""
+    """msda_fwd and msda_bwd at `MSDA_PATH_CASES`, on uniform locations
+    (the `MODEL_SHAPED_PATHS` cases on model-shaped ones too), at the
+    path's batch, dtype and head dim (`PATH_BATCH`, `PATH_DTYPE`,
+    `PATH_D`; else 1, fp32, 32): `check_fused` against the plain versions
+    four heads at a time, then the forward (and, where the path takes one,
+    the backward) timed beside the plain version on the uniform locations.
+    The numbers go to the rows' `paths`, summed over each path's calls."""
     from vitadapter_torch.ops import msda
 
     ok = True
     for name, (shapes, Lq, M, grid, path, calls, backward) in \
             MSDA_PATH_CASES.items():
         B = PATH_BATCH.get(path, 1)
-        value, loc, attn, g = msda_inputs(shapes, Lq, M, F32, gen, B=B)
+        dtype = PATH_DTYPE.get(path, F32)
+        value, loc, attn, g = msda_inputs(shapes, Lq, M, dtype, gen, B=B,
+                                          D=PATH_D.get(path, 32))
         good, words, err, err_b = check_fused(value, shapes, loc, attn, g,
                                               heads=4)
         ok &= good
@@ -1084,7 +1165,8 @@ def check_msda_paths(rows, flush, gen):
             p_ms = time_ms(lambda: msda_plain(value, shapes, loc, attn, g,
                                               heads=4, backward=False),
                            flush, iters=1)
-        text = (f"msda {name} fp32 B={B} Lq={Lq} M={M} S={value.shape[1]} "
+        text = (f"msda {name} {dtype} B={B} Lq={Lq} M={M} "
+                f"D={value.shape[-1]} S={value.shape[1]} "
                 f"({path}, {calls} calls): {words}; msda_fwd kernel_ms="
                 f"{k_ms:.4f} plain_ms={p_ms:.4f} (4 heads at a time) "
                 f"bound_ms={fb[0]:.4f} ({fb[1]})")
@@ -1559,35 +1641,39 @@ def by_heads(fn, *ts, heads=4):
 
 
 def check_attention_paths(rows, flush, gen):
-    """fp32 attention at the lengths of the paths that run it in fp32: the
-    whole-image evaluation's forwards (phase 8; `fused_attention` without a
-    gradient) and the over-line step (phase 9; forward, saved output and
-    log-sum-exp, and the three gradients through `FusedAttentionFunction`),
-    against the plain versions taken four heads at a time; and phase 13's
-    UperNet step (batch 2, N 1024, with a backward). The numbers go to the
-    attention rows' `paths`, summed over each path's calls."""
+    """Attention at the shapes of the paths that run it (`ATTN_PATH_CASES`):
+    the whole-image evaluation's forwards (phase 8; `fused_attention`
+    without a gradient), the over-line step (phase 9; forward, saved output
+    and log-sum-exp, and the three gradients through
+    `FusedAttentionFunction`), phase 13's UperNet step (batch 2, N 1024,
+    with a backward), phase 15's Mask R-CNN step and test model call
+    (windows of N 196, the kernels' masked key tail, and global N 4096 and
+    4200) and the bf16 DeiT-S Mask R-CNN step, against the plain versions
+    taken four heads at a time. The numbers go to the attention rows'
+    `paths`, summed over each path's calls."""
     from vitadapter_torch.ops import attention as at
 
     ok = True
     sdpa = F.scaled_dot_product_attention
-    for name, (B, N, path, calls, bwd_calls) in ATTN_PATH_CASES.items():
+    for name, (B, H, N, dtype, path, calls, bwd_calls) in \
+            ATTN_PATH_CASES.items():
         backward = bwd_calls > 0
-        shape = (B, 16, N, 64)
+        shape = (B, H, N, 64)
         scale = 64 ** -0.5
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
-                      for _ in range(4))
-        ref, ref_lse, _ = by_heads(
+                      .to(dtype) for _ in range(4))
+        ref, ref_lse, ref32 = by_heads(
             lambda *t: at.attention_plain_lse(*t, scale), q, k, v)
         ins = [t.detach().clone().requires_grad_(backward) for t in (q, k, v)]
         got = at.fused_attention(*ins)
-        good, err = close(got, ref, F32)
+        good, err = close(got, ref, dtype)
         line = f"max_abs_err={err:.3e}"
         checks = []
         saved_lse = None
         if backward:
             saved_out32, saved_lse = got.grad_fn.saved_tensors[3:]
             good_l, err_l = close(saved_lse, ref_lse, F32)
-            good_o, err_o = close(saved_out32, ref, F32)
+            good_o, err_o = close(saved_out32, ref32, F32)
             got.backward(g)
             ref_g = by_heads(lambda *t: at.attention_plain_backward(
                 *t, scale), q, k, v, g)
@@ -1597,12 +1683,14 @@ def check_attention_paths(rows, flush, gen):
                      f"grads via the autograd wrapper: max_abs_err (q, k, v)="
                      f"{[f'{c[1]:.3e}' for c in checks]}")
             del ref_g, saved_out32
-        same = relaunch_equal(at, got, saved_lse, ins, g)
+        # the fp32 kernels sum in a fixed order
+        same = (relaunch_equal(at, got, saved_lse, ins, g)
+                if dtype == F32 else None)
         line += relaunch_note(same)
         torch.cuda.synchronize()
-        good &= all(c[0] for c in checks) and same
+        good &= all(c[0] for c in checks) and same is not False
         ok &= good
-        del got, ins, ref, ref_lse, saved_lse
+        del got, ins, ref, ref_lse, ref32, saved_lse
         torch.cuda.empty_cache()
         with torch.no_grad():
             if backward:
@@ -1620,8 +1708,9 @@ def check_attention_paths(rows, flush, gen):
         row = rows["attention_fwd"].setdefault("paths", {}).setdefault(
             path, new_row())
         add_to_row(row, calls, err, k_ms, p_ms, fb, lib_ms)
-        add_cuda_core_bound(row, calls, fcc)
-        text = (f"attention {name} {shape} fp32 ({path}, {calls} forward "
+        if fcc is not None:
+            add_cuda_core_bound(row, calls, fcc)
+        text = (f"attention {name} {shape} {dtype} ({path}, {calls} forward "
                 f"and {bwd_calls} backward calls): "
                 f"{line} ok={good}; forward kernel_ms={k_ms:.4f} "
                 f"plain_ms={p_ms:.4f} sdpa_ms={lib_ms:.4f} "
@@ -1641,7 +1730,8 @@ def check_attention_paths(rows, flush, gen):
                 path, new_row())
             add_to_row(row, bwd_calls, max(c[1] for c in checks), kb_ms,
                        pb_ms, bb, libb_ms)
-            add_cuda_core_bound(row, bwd_calls, bcc)
+            if bcc is not None:
+                add_cuda_core_bound(row, bwd_calls, bcc)
             text += (f"; backward kernel_ms={kb_ms:.4f} plain_ms="
                      f"{pb_ms:.4f} sdpa_bwd_ms={libb_ms:.4f} bound_ms="
                      f"{bb[0]:.4f} ({bb[1]}{cuda_core_note(bcc)})")
@@ -1844,7 +1934,7 @@ def check_kernels(flush):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(0)
     rows = {name: new_row(library=name not in ("msda_fwd", "msda_bwd",
-                                                 "auction"))
+                                                 "auction", "nms"))
             for name in REPLACES}
     ok = check_msda(rows, flush, gen)
     ok &= check_msda_paths(rows, flush, gen)
@@ -1857,6 +1947,7 @@ def check_kernels(flush):
     ok &= check_point_sample(rows, flush, gen, POINT_CLI, "cli")
     ok &= check_point_bwd_layouts(rows, flush, gen)
     ok &= check_auction(rows, flush, gen)
+    ok &= check_nms(rows, flush, gen)
     if not ok:
         raise SystemExit("FAIL: a kernel disagrees with its plain version")
     log("TPU kernels covered by a ported kernel: " + json.dumps(COVERS)
@@ -2745,6 +2836,469 @@ def upernet_card_vs_cpu():
                          f"(launches {used}, want {want})")
 
 
+def nms_inputs(n, classes, gen):
+    """`n` proposal-like boxes on a 1024 canvas (clustered, so that many
+    pairs overlap near the thresholds), scores with 5% -inf, sorted as
+    `det.boxes.nms` sorts them; with `classes`, offset by class as
+    `batched_nms` offsets them. Returns (boxes, finite flags) on the card."""
+    dev = "cuda"
+    centers = torch.rand(n // 16 + 1, 2, generator=gen, device=dev) * 1024
+    pick = torch.randint(0, len(centers), (n,), generator=gen, device=dev)
+    c = centers[pick] + 12 * torch.randn(n, 2, generator=gen, device=dev)
+    wh = 16 + 200 * torch.rand(n, 2, generator=gen, device=dev)
+    boxes = torch.cat([c - wh / 2, c + wh / 2], 1)
+    scores = torch.rand(n, generator=gen, device=dev)
+    scores[torch.rand(n, generator=gen, device=dev) < 0.05] = -torch.inf
+    if classes:
+        labels = torch.randint(0, classes, (n,), generator=gen, device=dev)
+        boxes = boxes + labels.float()[:, None] * (boxes.max() + 1.0)
+    order = torch.sort(-scores, stable=True)[1]
+    return boxes[order].contiguous(), torch.isfinite(scores[order])
+
+
+def check_nms(rows, flush, gen):
+    """nms.cu (not a TPU kernel: it replaces the `lax.scan` of
+    `vitadapter/det/boxes.py::nms`) against `nms_keep_plain` at the Mask
+    R-CNN path's sizes (`NMS_CASES`): the kept flags bitwise equal, the
+    kernel launched twice (bitwise equal), the pairs whose IoU lies
+    within 1e-6 of the threshold counted; timed beside the plain version
+    (the IoU on the card, the walk on the host). The bound counts 24
+    fp32 operations a pair of the upper triangle and the boxes, flags
+    and kept flags moved once. No single PyTorch call computes it
+    (`library_ms` null)."""
+    from vitadapter_torch.ops import nms
+
+    ok = True
+    row = rows["nms"]
+    for name, (n, classes, thr, paths) in NMS_CASES.items():
+        boxes, finite = nms_inputs(n, classes, gen)
+        got = nms._kernel_keep(boxes, finite, thr)
+        again = nms._kernel_keep(boxes, finite, thr)
+        ref = nms.nms_keep_plain(boxes, finite, thr)
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        equal = torch.equal(got, ref)
+        iou = nms.bbox_overlaps(boxes, boxes)
+        near = int(((iou - thr).abs() < 1e-6).triu(1).sum())
+        del iou
+        good = same and equal
+        ok &= good
+        k_ms = time_ms(lambda: nms._kernel_keep(boxes, finite, thr), flush)
+        p_ms = time_ms(lambda: nms.nms_keep_plain(boxes, finite, thr), flush,
+                       iters=3)
+        b = bound_ms(nbytes(boxes, finite) + n, 24 * n * (n - 1) / 2, F32)
+        log(f"nms {name}: {n} boxes{f', {classes} classes' if classes else ''}"
+            f" IoU > {thr}: kept {int(got.sum())}; kept flags equal to the "
+            f"plain version's={equal}, relaunch bitwise equal={same}, pairs "
+            f"within 1e-6 of the threshold {near}; ok={good} kernel_ms="
+            f"{k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]})")
+        err = 0.0 if equal else 1.0
+        for path, calls in paths:
+            target = row if path == "det" else row.setdefault(
+                "paths", {}).setdefault(path, new_row(library=False))
+            add_to_row(target, calls, err, k_ms, p_ms, b)
+    return ok
+
+
+def write_coco(root, sizes, seed):
+    """uint8 JPEG images of `sizes` and a COCO instances JSON for them
+    (split `val2017`) under `root`: on each image three polygon
+    instances, one RLE instance and, on the second, a crowd region, of 3
+    categories with ids 1, 3, 7."""
+    import numpy as np
+    from PIL import Image
+
+    from vitadapter_torch.data.coco import encode_rle
+
+    img_dir = os.path.join(root, "val2017")
+    os.makedirs(img_dir)
+    os.makedirs(os.path.join(root, "annotations"))
+    host = torch.Generator().manual_seed(seed)
+    images, anns = [], []
+    for i, (h, w) in enumerate(sizes):
+        name = f"{i:012d}.jpg"
+        img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8,
+                            generator=host).numpy()
+        Image.fromarray(img).save(os.path.join(img_dir, name), quality=95)
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w})
+        for k in range(3):
+            x, y = (float(v) for v in torch.rand(2, generator=host) * 0.5
+                    * torch.tensor([w, h]))
+            bw, bh = (float(v) for v in (0.05 + 0.4 * torch.rand(
+                2, generator=host)) * torch.tensor([w, h]))
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": (1, 3, 7)[k], "area": bw * bh,
+                         "bbox": [x, y, bw, bh], "iscrowd": 0,
+                         "segmentation": [[x, y, x + bw, y, x + bw, y + bh,
+                                           x, y + bh]]})
+        m = np.zeros((h, w), np.uint8)
+        m[h // 4:h // 2, w // 4:w // 2] = 1
+        anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                     "category_id": 3, "area": float(m.sum()),
+                     "bbox": [w // 4, h // 4, w // 2 - w // 4,
+                              h // 2 - h // 4],
+                     "iscrowd": i % 2, "segmentation": encode_rle(m)})
+    with open(os.path.join(root, "annotations", "instances_val2017.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c, "name": f"c{c}"}
+                                  for c in (1, 3, 7)]}, f)
+
+
+def det_cli():
+    """Phase 15: the config entry points in this process on the AugReg-L
+    Mask R-CNN config as shipped (`DET_CONFIG`: ViT-Adapter-L in fp32 with
+    `with_cp`, drop path 0.4, 20 windowed and 4 global blocks, batch 1 on
+    the 1024 canvas, 100 synthetic instances): `tools.train.main` for
+    `DET_STEPS` steps with `DET_OPTIONS` (a checkpoint at the last),
+    `--resume` for one more, then `tools.test.main --eval bbox segm` on two
+    COCO-layout images (`DET_IMAGES`: one landscape, one portrait, so both
+    canvases run), and `run_det_eval` called directly on the same weights.
+    Checks the launches of each train step (`DET_STEP_LAUNCHES`) and of
+    each model call of the test CLI (`DET_FORWARD_LAUNCHES`), that no
+    kernel of `DET_NEVER` runs, the resume, finite losses and gradient
+    norms, and the test CLI's metrics equal to `run_det_eval`'s. Logs
+    s/step (CUDA events, the first step apart), peak memory, the
+    checkpoint's bytes and seconds, and the test's s/image with and
+    without the model's build, model-call seconds beside host seconds.
+    Returns the launches of the first run's train steps and of one model
+    call of the test CLI."""
+    import tempfile
+
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.det.mask_rcnn import MaskRCNN
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.tools import test as test_cli
+    from vitadapter_torch.tools import train as train_cli
+    from vitadapter_torch.train.det_loop import build_det_dataset, run_det_eval
+    from vitadapter_torch.utils.checkpoint_io import load_model_weights
+    from vitadapter_torch.utils.config import Config
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_det_")
+    steps = DET_STEPS
+    calls = [0]
+    forward = MaskRCNN.forward
+
+    def counted(self, *a, **kw):
+        calls[0] += 1
+        return forward(self, *a, **kw)
+
+    try:
+        MaskRCNN.forward = counted
+        work, root = os.path.join(tmp, "work"), os.path.join(tmp, "coco")
+        lines, marks = [], {}
+
+        def log_fn(line):
+            log(f"  | {line}")
+            lines.append(line)
+            m = re.match(r"iter (\d+)/", line)
+            if m:       # the step's launches, before its checkpoint
+                marks[int(m.group(1))] = dict(cuda_ext.launches)
+
+        train_args = [DET_CONFIG, "--synthetic-data", "--work-dir", work,
+                      "--cfg-options", *DET_OPTIONS]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ext.launches.clear()
+        t0 = time.perf_counter()
+        state = train_cli.main(train_args + ["--max-iters", str(steps)],
+                               log_fn=log_fn)
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in state.model.parameters())
+        del state
+        torch.cuda.empty_cache()
+        per_step = [launch_diff(marks[k], marks.get(k - 1, {}))
+                    for k in range(1, steps + 1)]
+        train_counts = marks[steps]
+        iters = [l for l in lines if re.match(r"iter \d+/", l)]
+        secs = [float(re.search(r"time=([0-9.]+)s", l).group(1))
+                for l in iters]
+        vals = {k: [float(re.search(rf"{k}=(\S+)", l).group(1))
+                    for l in iters] for k in ("loss", "grad_norm")}
+        ckpts = [(int(a), float(b)) for a, b in
+                 re.findall(r"checkpoint of step \d+: (\d+) bytes in "
+                            r"([0-9.]+) s", "\n".join(lines))]
+        built = next(l for l in lines if "parameters;" in l)
+
+        mark = len(lines)
+        state = train_cli.main(train_args + ["--max-iters", str(steps + 1),
+                                             "--resume"], log_fn=log_fn)
+        resumed = lines[mark:]
+        resumed_ok = (f"resumed from step {steps}" in resumed
+                      and state.step == steps + 1
+                      and any(l.startswith(f"iter {steps + 1}/")
+                              for l in resumed))
+        del state
+        torch.cuda.empty_cache()
+
+        write_coco(root, DET_IMAGES, 15)
+        ckpt = os.path.join(work, "ckpt")
+        before = dict(cuda_ext.launches)
+        calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([DET_CONFIG, ckpt, "--eval", "bbox", "segm",
+                                 "--cfg-options", f"data.data_root={root}"],
+                                log_fn=log_fn)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_counts = launch_diff(cuda_ext.launches, before)
+        n_calls = calls[0]
+
+        cfg = Config.fromfile(DET_CONFIG)
+        cfg.merge_from_options({"data.data_root": root})
+        model = load_model_weights(ckpt, build_model(dict(cfg.model)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = run_det_eval(cfg, model, build_det_dataset(cfg.data, "val"),
+                              ("bbox", "segm"), log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        MaskRCNN.forward = forward
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def summary(m):
+        return {k: v for k, v in m.items() if k != "timing"}
+
+    same = json.dumps(summary(metrics)) == json.dumps(summary(direct))
+    finite = all(v == v and abs(v) != float("inf")
+                 for v in vals["loss"] + vals["grad_norm"])
+    ran = dict(marks[steps])
+    for k, v in test_counts.items():
+        ran[k] = ran.get(k, 0) + v
+    bad_never = {k: v for k, v in ran.items() if k in DET_NEVER}
+    forwards_ok = test_counts == {k: v * n_calls
+                                  for k, v in DET_FORWARD_LAUNCHES.items()}
+    n_img = len(DET_IMAGES)
+    timing = direct["timing"]
+    log(f"det CLI {DET_CONFIG}: {built}")
+    log(f"det CLI train steps (s, CUDA events): {secs}; "
+        f"{sum(secs[1:]) / (len(secs) - 1):.3f} s/step over steps "
+        f"2..{steps}, first step {secs[0]:.3f} s; losses {vals['loss']}; "
+        f"grad norms {vals['grad_norm']}; peak memory {peak:.2f} GiB; "
+        f"{n_params} parameters; {train_s:.1f} s for the run with its "
+        f"checkpoint")
+    log(f"det CLI checkpoints (bytes, s to write): {ckpts}")
+    log(f"det CLI launches per train step: {per_step} (want "
+        f"{DET_STEP_LAUNCHES} each); resumed at step {steps} and took step "
+        f"{steps + 1}: {resumed_ok}")
+    log(f"det CLI test --eval bbox segm (host clock to a synchronize): "
+        f"{test_s:.2f} s for {n_img} images with the model's build and "
+        f"weight load, {test_s / n_img:.2f} s/image; run_det_eval alone "
+        f"{direct_s / n_img:.2f} s/image, of which model calls "
+        f"{1e3 * timing['forward_s'] / n_img:.1f} ms/image and host "
+        f"{1e3 * timing['host_s'] / n_img:.1f} ms/image; bbox_mAP "
+        f"{metrics['bbox_mAP']:.4f} segm_mAP {metrics['segm_mAP']:.4f} "
+        f"(random weights); metrics equal to run_det_eval's={same}; "
+        f"launches {test_counts} over {n_calls} model calls (want "
+        f"{DET_FORWARD_LAUNCHES} a call)")
+    if not (finite and resumed_ok and same):
+        raise SystemExit("FAIL: det CLI (non-finite loss or grad norm, "
+                         "resume, or the test CLI's metrics)")
+    if (any(st != DET_STEP_LAUNCHES for st in per_step) or bad_never
+            or not forwards_ok):
+        raise SystemExit(f"FAIL: det CLI launches per step {per_step}, per "
+                         f"test call {test_counts} over {n_calls}, kernels "
+                         f"that must not run {bad_never}")
+    return train_counts, {k: v // max(n_calls, 1)
+                          for k, v in test_counts.items()}
+
+
+def flat_detection_ids(cls_logits, deltas, props, valid, hw):
+    """The kept detections of `decode_detections` on one image as
+    proposal * K + class ids (the set that NMS keeps), and their boxes by
+    id."""
+    from vitadapter_torch.det.boxes import stable_top_k
+    from vitadapter_torch.det.roi_heads import decode_detections
+
+    K = cls_logits.shape[-1] - 1
+    probs = torch.softmax(cls_logits, dim=-1)[:, :K].reshape(-1)
+    ok = (probs > 0.05) & valid.repeat_interleave(K)
+    _, top_i = stable_top_k(torch.where(ok, probs, -torch.inf),
+                            min(2048, len(probs)))
+    boxes, _, _, keep = decode_detections(cls_logits, deltas, props, hw,
+                                          valid=valid)
+    kept = keep >= 0
+    ids = top_i[keep[kept]].tolist()
+    return dict(zip(ids, boxes[kept].cpu()))
+
+
+def det_card_vs_cpu():
+    """Phase 16: `DET_CONFIG` reduced to depth 4 (three windowed blocks and
+    one global, one block per interaction) at full width (embed 1024, 16
+    heads, FPN 256), fp32, TF32 off, drop path 0, at 256 px, batch 2
+    (the 16x16 token grid pads to 28x28 for the 14x14 windows): on the
+    card and on the CPU from the same weights. Eval: the FPN maps and the
+    RPN outputs within `E2E_RTOL` of each one's scale; the RoI stage on
+    the card's proposals (the CPU's own proposals reported beside:
+    top-k and NMS can flip on float noise), its class logits and deltas
+    within `E2E_RTOL`; the detections' kept sets (proposal x class ids)
+    compared, the share that agrees reported, and where they agree the
+    boxes within `E2E_RTOL` of the image size. Train: one
+    `make_det_train_step` each on the same batch and the same sampler
+    draws, the CPU on the card's proposals, compared by the losses and
+    the float64 gradient norm (`TRAIN_RTOL`)."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.det import mask_rcnn as mr
+    from vitadapter_torch.det.roi_align import multi_level_roi_align
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_det_train_step
+    from vitadapter_torch.utils.config import Config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(DET_CONFIG)
+    cfg.merge_from_options({
+        "model.backbone.depth": 4, "model.backbone.drop_path_rate": 0.0,
+        "model.backbone.window_attn": [True, True, True, False],
+        "model.backbone.window_size": [14, 14, 14, None],
+        "model.backbone.interaction_indexes": [[0, 0], [1, 1], [2, 2],
+                                               [3, 3]]})
+    gen = torch.Generator().manual_seed(19)
+    cpu = build_model(dict(cfg.model), device="cpu", generator=gen)
+    randomize(cpu, gen)
+    card = copy.deepcopy(cpu).cuda()
+    hw = (256, 256)
+    img = torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8, generator=gen)
+
+    def stages(model, x, props=None):
+        """FPN maps, RPN outputs, proposals and the RoI stage's outputs
+        (on `props` when given) of the model on x."""
+        with torch.inference_mode():
+            feats = model.extract_feats(normalize(x))
+            cls_out, reg_out, _, (p, _, valid) = model._rpn(feats, hw, 1000)
+            props = (p, valid) if props is None else props
+            roi = []
+            for b in range(x.shape[0]):
+                fb = [f[b] for f in feats[:4]]
+                pb = props[0][b].to(x.device)
+                roi.append(model.roi_head.bbox_head(multi_level_roi_align(
+                    fb, pb, 7, mr.FPN_STRIDES[:4])))
+        return feats, cls_out + reg_out, (p, valid), roi
+
+    before = dict(cuda_ext.launches)
+    g_feats, g_rpn, g_props, g_roi = stages(card, img.cuda())
+    used = launch_diff(cuda_ext.launches, before)
+    shared = tuple(t.cpu() for t in g_props)
+    t0 = time.perf_counter()
+    c_feats, c_rpn, c_props, c_roi = stages(cpu, img, shared)
+    t_cpu = time.perf_counter() - t0
+
+    def rel(got, ref):
+        return float((got.cpu() - ref).abs().max() / ref.abs().max())
+
+    errs = {"fpn": max(rel(a, b) for a, b in zip(g_feats, c_feats)),
+            "rpn": max(rel(a, b) for a, b in zip(g_rpn, c_rpn)),
+            "roi": max(rel(a, b) for g, c in zip(g_roi, c_roi)
+                       for a, b in zip(g, c))}
+    prop_same = [bool(torch.equal(a.cpu(), b))
+                 for a, b in zip(g_props[1], c_props[1])]
+    prop_err = float((g_props[0].cpu() - c_props[0]).abs().max())
+    agree, total, box_err = 0, 0, 0.0
+    for b in range(img.shape[0]):
+        g = flat_detection_ids(*g_roi[b], g_props[0][b], g_props[1][b], hw)
+        c = flat_detection_ids(*c_roi[b], shared[0][b], shared[1][b], hw)
+        common = set(g) & set(c)
+        agree += len(common)
+        total += len(set(g) | set(c))
+        for i in common:
+            box_err = max(box_err, float((g[i] - c[i]).abs().max()))
+    share = agree / max(total, 1)
+    ok = (all(e <= E2E_RTOL for e in errs.values())
+          and box_err <= E2E_RTOL * max(hw) and total > 0)
+    want = {"attention_fwd": 4, "msda_fwd": 10, "nms": 2}
+    log(f"AugReg-L Mask R-CNN (depth 4, full width, 256 px, batch 2) fp32 "
+        f"card vs CPU: relative errors {errs} (tol {E2E_RTOL} of each "
+        f"output's scale); the CPU's own proposals: valid flags equal "
+        f"{prop_same}, boxes max_abs_err {prop_err:.3e}; detections on the "
+        f"card's proposals: {agree} of {total} kept (proposal, class) ids "
+        f"agree ({share:.4f}), their boxes max_abs_err {box_err:.3e} (tol "
+        f"{E2E_RTOL * max(hw):.3f}) ok={ok}; CPU {t_cpu:.1f} s; kernel "
+        f"launches {used} (want {want})")
+    if not ok or used != want:
+        raise SystemExit("FAIL: Mask R-CNN card vs CPU")
+
+    G = 20
+    xy = torch.rand(2, G, 2, generator=gen) * 200
+    wh = 8 + torch.rand(2, G, 2, generator=gen) * 48
+    boxes = torch.cat([xy, xy + wh], -1)
+    masks = torch.zeros(2, G, *hw, dtype=torch.bool)
+    for b in range(2):
+        for i in range(G):
+            x1, y1, x2, y2 = boxes[b, i].long().tolist()
+            masks[b, i, y1:y2, x1:x2] = True
+    batch = {"image": torch.randn(2, *hw, 3, generator=gen),
+             "gt_boxes": boxes,
+             "gt_labels": torch.randint(0, 80, (2, G), generator=gen),
+             "gt_masks": masks,
+             "gt_valid": torch.arange(G).expand(2, G) < G - 3}
+    draws = []
+
+    def recorded(shape):
+        u = torch.rand(tuple(shape), generator=gen)
+        draws.append(u)
+        return u
+
+    captured = []
+    get_proposals = mr.get_proposals
+
+    def capture(*a, **kw):
+        out = get_proposals(*a, **kw)
+        captured.append(tuple(t.cpu() for t in out))
+        return out
+
+    results = {}
+    try:
+        for side, model in (("cuda", card), ("cpu", cpu)):
+            if side == "cuda":
+                mr.get_proposals = capture
+                sampler = recorded
+            else:
+                mr.get_proposals = lambda *a, **kw: captured[0]
+                replay = list(draws)
+                sampler = lambda shape: replay.pop(0)  # noqa: E731
+            opt, _ = make_optimizer(model, base_lr=cfg.optimizer["lr"],
+                                    weight_decay=cfg.optimizer["weight_decay"],
+                                    depth=4, total_steps=1000, warmup_steps=0)
+            step = make_det_train_step(model)
+            bd = {k: v.to(side) for k, v in batch.items()}
+            before = dict(cuda_ext.launches)
+            t0 = time.perf_counter()
+            _, logs = step(TrainState.create(model, opt), bd,
+                           torch.Generator(side).manual_seed(20), sampler)
+            logs = {k: float(v) for k, v in logs.items()}
+            logs["grad_norm_f64"] = float(sum(
+                p.grad.double().square().sum() for p in model.parameters()
+                if p.grad is not None).sqrt())
+            results[side] = (logs, time.perf_counter() - t0,
+                             launch_diff(cuda_ext.launches, before))
+    finally:
+        mr.get_proposals = get_proposals
+    (got, t_card, used), (ref, t_cpu, _) = results["cuda"], results["cpu"]
+    keys = ("loss", "loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
+            "loss_bbox", "loss_mask", "grad_norm_f64")
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in keys}
+    ok = all(v <= TRAIN_RTOL for v in rel.values())
+    # `with_cp` recomputes the 4 blocks' forwards in the backward
+    want = {"attention_fwd": 8, "attention_bwd": 4, "msda_fwd": 10,
+            "msda_bwd": 10, "nms": 2}
+    log(f"AugReg-L Mask R-CNN (depth 4, full width, 256 px, batch 2) fp32 "
+        f"train step card vs CPU (same draws, the CPU on the card's "
+        f"proposals): card {got} CPU {ref} rel {rel} (tol {TRAIN_RTOL}) "
+        f"ok={ok}; CPU step {t_cpu:.1f} s, card step {t_card:.2f} s; "
+        f"kernel launches {used} (want {want})")
+    if not ok or used != want:
+        raise SystemExit("FAIL: Mask R-CNN train step card vs CPU "
+                         f"(launches {used}, want {want})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2833,15 +3387,27 @@ def main():
     log(f"phases 13 and 14 took {t13:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
+    # phase 15: the config CLI on the AugReg-L Mask R-CNN config
+    t0 = time.perf_counter()
+    det_counts, det_test_counts = det_cli()
+    t15 = time.perf_counter() - t0
+
+    # phase 16: Mask R-CNN, card against CPU
+    t0 = time.perf_counter()
+    det_card_vs_cpu()
+    log(f"phases 15 and 16 took {t15:.1f} and "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+
     paths = {"serve": serve_counts, "train": train_counts,
              "eval_whole": eval_counts, "train_overline": overline_counts,
-             "cli": cli_counts, "upernet": upernet_counts}
+             "cli": cli_counts, "upernet": upernet_counts, "det": det_counts,
+             "det_test": det_test_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
         # each kernel's main path: the first of these paths that runs it
         path = next(p for p in ("serve", "train", "eval_whole",
-                                "train_overline") if name in paths[p])
+                                "train_overline", "det") if name in paths[p])
         if name == "msda_level_fwd":
             per = ("times per flagship fp32 forward of a 1024x2048 image at "
                    "ratio 1.5 (6 pixel-decoder and 4 injector MSDA calls, 3 "
@@ -2858,13 +3424,28 @@ def main():
         if "cli" in r.get("paths", {}):
             per += ("; paths.cli: per phase 11 train step (640 px, batch "
                     "1, fp32; point sampling in bf16, as the loss samples)")
+        if name == "nms":
+            per = ("times per phase 15 train step (AugReg-L Mask R-CNN, "
+                   "batch 1, 1024 canvas: one proposal NMS of 4768 boxes)")
         if "upernet" in r.get("paths", {}):
             per += ("; paths.upernet: per phase 13 train step (AugReg-L "
                     "UperNet, 512 px, batch 2, fp32)")
+        if "det" in r.get("paths", {}):
+            per += ("; paths.det: per phase 15 train step (AugReg-L Mask "
+                    "R-CNN, 1024 canvas, batch 1, fp32)")
+        if "det_test" in r.get("paths", {}):
+            per += ("; paths.det_test: per phase 15 test model call (one "
+                    "800x1344 image)")
+        if "det_bf16" in r.get("paths", {}):
+            per += ("; paths.det_bf16: per train step of the DeiT-S Mask "
+                    "R-CNN configs (1024 canvas, batch 2, bf16; not run "
+                    "end to end here)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",
-            "replaces": REPLACES[name], "status": "ported",
+            "replaces": REPLACES[name],
+            "status": ("not a TPU kernel" if name in NOT_TPU_KERNELS
+                       else "ported"),
             "covers": COVERS.get(name, []),
             "launches": paths[path][name], "main_path": path,
             **{f"launches_{p}": c.get(name, 0) for p, c in paths.items()},

@@ -112,7 +112,7 @@ def test_builder_refuses_what_is_not_ported():
     with pytest.raises(KeyError, match="item 8"):
         builder.build(dict(uniperceiver.model))
     with pytest.raises(KeyError, match="item 7"):
-        builder.build({"type": "MaskRCNN"})
+        builder.build({"type": "CascadeRCNN"})
     with pytest.raises(KeyError, match="unknown component type"):
         builder.build({"type": "NoSuchThing"})
     cfg = Config.fromfile(os.path.join(ROOT, M2F_640))

@@ -13,6 +13,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vitadapter")
+# the detection modules, which the walk below must import too
+DET_MODULES = {f"vitadapter_torch.{m}" for m in (
+    "det.anchors", "det.assign", "det.boxes", "det.coco_eval",
+    "det.mask_rcnn", "det.mask_utils", "det.necks", "det.roi_align",
+    "det.roi_heads", "det.rpn", "data.coco", "ops.nms", "train.det_loop")}
 
 
 def _forbidden(module: str) -> bool:
@@ -44,9 +49,19 @@ def test_importing_and_building_a_model_loads_no_jax():
     code = (
         "import pkgutil, sys, importlib, torch\n"
         "import vitadapter_torch\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(vitadapter_torch.__path__,\n"
         "                               'vitadapter_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "assert %r <= names, sorted(names)\n"
+        "from vitadapter_torch.det.mask_rcnn import MaskRCNN\n"
+        "from vitadapter_torch.models.vit_adapter import ViTAdapter\n"
+        "det = MaskRCNN(ViTAdapter(embed_dim=48, depth=2, num_heads=4,\n"
+        "    conv_inplane=16, interaction_indexes=((0, 0), (1, 1)),\n"
+        "    window_attn=(True, False), window_size=(3, None),\n"
+        "    device='meta'), num_classes=3, fpn_channels=16,\n"
+        "    device='meta')\n"
         "from vitadapter_torch import zoo\n"
         "m = zoo.vit_adapter('tiny', device='cpu', depth=2, embed_dim=48,\n"
         "                    num_heads=4, conv_inplane=16,\n"
@@ -54,7 +69,7 @@ def test_importing_and_building_a_model_loads_no_jax():
         "f = m(torch.zeros(1, 64, 64, 3))\n"
         "assert len(f) == 4\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in %r]\n"
-        "assert not bad, bad\n" % (FORBIDDEN,))
+        "assert not bad, bad\n" % (DET_MODULES, FORBIDDEN))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -68,6 +83,8 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         zoo.mask2former_vit_adapter("tiny", depth=2)
     with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.mask_rcnn_vit_adapter("tiny", depth=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
         zoo.resolve_device(None)
 
 
@@ -78,7 +95,9 @@ def test_kernel_modules_import_without_nvcc(monkeypatch, tmp_path):
     env["PATH"] = str(tmp_path)        # no nvcc on PATH
     code = ("import vitadapter_torch.ops.msda, vitadapter_torch.ops.attention\n"
             "import vitadapter_torch.ops.point_sample\n"
-            "import vitadapter_torch.ops.matching\n"
+            "import vitadapter_torch.ops.matching, vitadapter_torch.ops.nms\n"
+            "import vitadapter_torch.det.mask_rcnn\n"
+            "import vitadapter_torch.train.det_loop\n"
             "import vitadapter_torch.heads.mask2former_loss\n"
             "import vitadapter_torch.train.trainer\n"
             "from vitadapter_torch.ops import cuda_ext\n"

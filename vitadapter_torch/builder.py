@@ -1,6 +1,7 @@
 """Registry-style model construction from config dicts (counterpart of
 `vitadapter/builder.py`): configs say `dict(type='BEiTAdapter', ...)` and
-`build` resolves the class.
+`build` resolves the class. A detector gets its backbone as a built module
+(its neck reads the backbone's `embed_dim`).
 
 Modules are built on the meta device, then allocated on `device` and
 initialized from a `torch.Generator`, as `zoo.mask2former_vit_adapter` does.
@@ -14,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from vitadapter_torch.det.mask_rcnn import MaskRCNN
 from vitadapter_torch.heads.mask2former import Mask2FormerHead
 from vitadapter_torch.heads.upernet import FCNHead, UPerHead
 from vitadapter_torch.models.baselines import BEiTBaseline, ViTBaseline
@@ -40,13 +42,15 @@ REGISTRY: Dict[str, Any] = {
     "Mask2FormerHead": Mask2FormerHead,
     "EncoderDecoder": EncoderDecoder,
     "EncoderDecoderMask2Former": EncoderDecoderMask2Former,
+    # detection
+    "MaskRCNN": MaskRCNN,
 }
 
 # the JAX package's other component types, by the ROADMAP.md §1 item that
 # will port them
 NOT_PORTED = {
     "MaskFormerHead": "item 3 (MaskFormerHead and panoptic)",
-    **dict.fromkeys(("MaskRCNN", "CascadeRCNN", "ATSS", "SparseRCNN", "DINO"),
+    **dict.fromkeys(("CascadeRCNN", "ATSS", "SparseRCNN", "DINO"),
                     "item 7 (detection)"),
     **dict.fromkeys(("GroundingDINO", "UniPerceiverAdapter",
                      "UnifiedBertEncoder"), "item 8 (grounding)"),

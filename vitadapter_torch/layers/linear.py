@@ -58,3 +58,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.stride, self.padding,
                                   self.output_padding, self.groups,
                                   self.dilation)
+
+
+def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An NCHW conv on an NHWC map, NHWC out."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -15,16 +15,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vitadapter_torch.layers.linear import Conv2d, ConvTranspose2d
+from vitadapter_torch.layers.linear import Conv2d, ConvTranspose2d, conv_nhwc
 from vitadapter_torch.layers.mlp import gelu
 from vitadapter_torch.layers.norm import LayerNorm2d
 from vitadapter_torch.models.beit import BEiT
 from vitadapter_torch.models.vit import TIMMVisionTransformer
-
-
-def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """An NCHW conv on an NHWC map, NHWC out."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class SimpleFeaturePyramid(nn.Module):
@@ -53,16 +48,16 @@ class SimpleFeaturePyramid(nn.Module):
 
     def forward(self, x):
         xs = x if isinstance(x, (list, tuple)) else [x] * 4
-        f4 = gelu(self.up4_norm(_conv(self.up4_a, xs[0])))
-        f4 = _conv(self.up4_b, f4)
-        f8 = _conv(self.up8, xs[1])
+        f4 = gelu(self.up4_norm(conv_nhwc(self.up4_a, xs[0])))
+        f4 = conv_nhwc(self.up4_b, f4)
+        f8 = conv_nhwc(self.up8, xs[1])
         f16 = xs[2]
         f32 = F.max_pool2d(xs[3].permute(0, 3, 1, 2), 2, 2).permute(
             0, 2, 3, 1)
         outs = []
         for i, f in enumerate((f4, f8, f16, f32)):
-            y = self.out_norm1[i](_conv(self.out_conv1[i], f))
-            outs.append(self.out_norm2[i](_conv(self.out_conv2[i], y)))
+            y = self.out_norm1[i](conv_nhwc(self.out_conv1[i], f))
+            outs.append(self.out_norm2[i](conv_nhwc(self.out_conv2[i], y)))
         return outs
 
 

@@ -166,7 +166,8 @@ class BEiT(nn.Module):
                  drop_path_rate: float = 0.0, with_cp: bool = False,
                  qkv_bias: bool = True, use_abs_pos_emb: bool = False,
                  use_rel_pos_bias: bool = True, window_attn=False,
-                 use_cls_token: bool = True, hybrid_backbone=None,
+                 window_size=14, use_cls_token: bool = True,
+                 hybrid_backbone=None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         windowed = (any(window_attn) if isinstance(window_attn, (list, tuple))

@@ -1,7 +1,8 @@
-"""Plain ViT trunk (counterpart of `vitadapter/models/vit.py`): the global
-`Block` with layer scale, `resample_abs_pos_embed` and
-`TIMMVisionTransformer` with `embed()` / `run_blocks()`. Windowed attention
-and `ResBottleneckBlock` are not ported yet (`NOT_PORTED`). In training mode
+"""Plain ViT trunk (counterpart of `vitadapter/models/vit.py`): the `Block`
+with global or windowed attention and layer scale, `resample_abs_pos_embed`
+and `TIMMVisionTransformer` with `embed()` / `run_blocks()`, windowing
+chosen per block (`window_attn`, `window_size`, a value or a list by
+depth). `ResBottleneckBlock` is not ported yet (`NOT_PORTED`). In training mode
 the blocks' DropPath draws from the `generator` passed down (JAX's
 "dropout" rng). With `with_cp` each block is recomputed in the backward
 (`layers/drop.py::checkpointed`, as `nn.remat` wraps the JAX block).
@@ -13,39 +14,50 @@ import numpy as np
 import torch
 from torch import nn
 
-from vitadapter_torch.layers.attention import Attention
+from vitadapter_torch.layers.attention import Attention, WindowedAttention
 from vitadapter_torch.layers.drop import DropPath, checkpointed
 from vitadapter_torch.layers.mlp import Mlp
 from vitadapter_torch.layers.norm import LayerNorm
 from vitadapter_torch.layers.patch_embed import PatchEmbed
 from vitadapter_torch.utils.resize import resize_2d
 
-NOT_PORTED = ("the ViT trunk is ported with global attention in every "
-              "block; windowed attention (`window_attn`, `window_size`) and "
-              "the residual bottleneck blocks (`residual_indices`) are not "
-              "ported yet: ROADMAP.md §1 item 4")
+NOT_PORTED = ("the ViT trunk is ported with global and windowed "
+              "attention; the residual bottleneck blocks "
+              "(`residual_indices`, `ResBottleneckBlock`) are not ported "
+              "yet: ROADMAP.md §1 item 4")
 
 
-def refuse_windows(window_attn, residual_indices) -> None:
+def refuse_residual(residual_indices) -> None:
     """Raise `NotImplementedError` naming ROADMAP.md's item for the ViT
-    options the port lacks."""
-    windowed = (any(window_attn) if isinstance(window_attn, (list, tuple))
-                else bool(window_attn))
-    if windowed or tuple(residual_indices or ()):
+    option the port lacks."""
+    if tuple(residual_indices or ()):
         raise NotImplementedError(NOT_PORTED)
 
 
+def per_block(value, depth: int) -> list:
+    """A per-depth option: a list or tuple as it is, a value repeated."""
+    return (list(value) if isinstance(value, (list, tuple))
+            else [value] * depth)
+
+
 class Block(nn.Module):
-    """Pre-norm transformer block with optional layer scale."""
+    """Pre-norm transformer block with optional windowing (`windowed`,
+    `window_size`) and layer scale."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path: float = 0.0,
-                 layer_scale: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 layer_scale: bool = False, windowed: bool = False,
+                 window_size: int = 14, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6, device=device)
-        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, dtype=dtype,
-                              device=device)
+        if windowed:
+            self.attn = WindowedAttention(dim, num_heads, qkv_bias=qkv_bias,
+                                          window_size=window_size,
+                                          dtype=dtype, device=device)
+        else:
+            self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
+                                  dtype=dtype, device=device)
         self.norm2 = LayerNorm(dim, eps=1e-6, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
         self.drop_path = DropPath(drop_path)
@@ -86,8 +98,8 @@ def resample_abs_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int],
 class TIMMVisionTransformer(nn.Module):
     """Plain ViT trunk. `embed()` (patch + pos) and `run_blocks()` let the
     adapter interleave injectors and extractors between block spans.
-    `window_size` is taken, and only global attention is ported
-    (`NOT_PORTED`)."""
+    Block i attends in windows of `window_size[i]` (None meaning 14) where
+    `window_attn[i]`; each option is a value or a list by depth."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
@@ -97,12 +109,14 @@ class TIMMVisionTransformer(nn.Module):
                  residual_indices=(), dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        refuse_windows(window_attn, residual_indices)
+        refuse_residual(residual_indices)
         self.embed_dim = embed_dim
         self.with_cp = with_cp
         self.patch_size = patch_size
         self.pretrain_size = pretrain_size
         dpr = np.linspace(0, drop_path_rate, depth)
+        windowed = per_block(window_attn, depth)
+        sizes = per_block(window_size, depth)
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim, dtype=dtype,
                                       device=device)
         grid = pretrain_size // patch_size
@@ -111,7 +125,9 @@ class TIMMVisionTransformer(nn.Module):
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias=qkv_bias,
                   drop_path=float(dpr[i]), layer_scale=layer_scale,
-                  dtype=dtype, device=device)
+                  windowed=bool(windowed[i]),
+                  window_size=int(sizes[i] or 14), dtype=dtype,
+                  device=device)
             for i in range(depth)])
 
     @torch.no_grad()

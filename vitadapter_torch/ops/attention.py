@@ -22,7 +22,12 @@ writes the operands' hi/lo copies into a scratch this module allocates
 (`split_scratch_floats`), and P and dS are split in registers. The plain
 versions keep everything in fp32. The XLA path of
 `layers.attention.mha` rounds the logits to the value dtype before its
-softmax, so bf16 results of the two differ by bf16 rounding.
+softmax, so bf16 results of the two differ by bf16 rounding. The JAX
+package's windowed attention always takes that path (its 5-D
+(B, windows, heads, ws*ws, Dh) calls are not `fusable`); the port sends
+the windows here as (B * windows, heads, ws*ws, Dh), N = 196 for the
+detection configs' 14x14 windows, a length the kernels cover with a
+masked tail tile.
 """
 
 from __future__ import annotations

@@ -48,6 +48,8 @@ SIGNATURES = {
     # points, g, dmask, N, H, W, P, is_bf16, cluster, rows, stream
     "point_sample_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "auction": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
+    # boxes, finite, mask scratch, keep, N, iou threshold, stream
+    "nms": [_P, _P, _P, _P, _I, ctypes.c_float, _P],
 }
 
 launches: Counter = Counter()

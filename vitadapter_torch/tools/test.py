@@ -3,19 +3,23 @@
 
     python -m vitadapter_torch.tools.test CONFIG CKPT --eval mIoU
         [--aug-test] [--max-images N] [--cfg-options k=v ...] [--device cpu]
+    python -m vitadapter_torch.tools.test CONFIG CKPT --eval bbox segm ...
 
 CKPT is a checkpoint directory of `tools.train` (its latest step), one of
 its step directories, or a `.pth` file holding a `state_dict` with the
 reference's keys (those of the port). Only the model's weights are read.
-Slide or whole inference follows the config's `test_cfg`; `--aug-test`
-adds the multi-scale and flip augmentations. The model runs on CUDA unless
-`--device cpu` is given.
+`--eval mIoU` runs the segmentation protocol (slide or whole inference
+as the config's `test_cfg` says; `--aug-test` adds the multi-scale and
+flip augmentations), `--eval bbox segm` the COCO detection protocol on
+the config's `data.val` (`train/det_loop.py::run_det_eval`). The model
+runs on CUDA unless `--device cpu` is given.
 """
 
 import argparse
 from typing import List, Optional
 
 from vitadapter_torch.builder import build_model
+from vitadapter_torch.train.det_loop import build_det_dataset, run_det_eval
 from vitadapter_torch.train.loop import build_dataset, eval_config, run_eval
 from vitadapter_torch.utils.checkpoint_io import load_model_weights
 from vitadapter_torch.utils.config import Config, parse_cfg_options
@@ -23,8 +27,7 @@ from vitadapter_torch.utils.config import Config, parse_cfg_options
 # the root script's metrics, by the ROADMAP.md §1 item that will port the
 # ones the port lacks
 KNOWN_METRICS = ("mIoU", "bbox", "segm", "PQ", "IoU")
-NOT_PORTED = {"bbox": "item 7 (detection)", "segm": "item 7 (detection)",
-              "PQ": "item 3 (MaskFormerHead and panoptic)",
+NOT_PORTED = {"PQ": "item 3 (MaskFormerHead and panoptic)",
               "IoU": "item 8 (grounding)"}
 
 
@@ -48,8 +51,9 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None, log_fn=print):
-    """Run the command line `argv` (sys.argv[1:] when None); returns
-    `run_eval`'s metrics (aAcc, mIoU, mAcc and the confusion matrix)."""
+    """Run the command line `argv` (sys.argv[1:] when None); returns the
+    metrics: `run_det_eval`'s for `bbox`/`segm`, else `run_eval`'s (aAcc,
+    mIoU, mAcc and the confusion matrix)."""
     args = parse_args(argv)
     for m in args.eval:
         if m in NOT_PORTED:
@@ -59,6 +63,11 @@ def main(argv: Optional[List[str]] = None, log_fn=print):
     cfg.merge_from_options(parse_cfg_options(args.cfg_options))
     model = build_model(dict(cfg.model), device=args.device)
     load_model_weights(args.checkpoint, model)
+    iou_types = tuple(t for t in ("bbox", "segm") if t in args.eval)
+    if iou_types:
+        return run_det_eval(cfg, model, build_det_dataset(cfg.data, "val"),
+                            iou_types, aug_test=args.aug_test,
+                            max_images=args.max_images, log_fn=log_fn)
     dataset = build_dataset(cfg.data, "val")
     return run_eval(eval_config(cfg), model, dataset, aug_test=args.aug_test,
                     max_images=args.max_images, log_fn=log_fn)

@@ -1,5 +1,6 @@
-"""Train a segmentor from a config file on one GPU (the port's twin of the
-root `train.py`):
+"""Train a segmentor or a detector from a config file on one GPU (the
+port's twin of the root `train.py`, which sends the detector types to the
+detection loop):
 
     python -m vitadapter_torch.tools.train CONFIG [--work-dir D] [--resume]
         [--max-iters N] [--synthetic-data] [--cfg-options k=v ...]
@@ -14,6 +15,7 @@ import argparse
 import os
 from typing import List, Optional
 
+from vitadapter_torch.train.det_loop import DETECTORS, run_det_training
 from vitadapter_torch.train.loop import run_training
 from vitadapter_torch.utils.config import Config, parse_cfg_options
 
@@ -43,10 +45,11 @@ def main(argv: Optional[List[str]] = None, log_fn=print):
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    return run_training(cfg, work_dir, resume=args.resume,
-                        max_iters=args.max_iters,
-                        synthetic=args.synthetic_data, device=args.device,
-                        log_fn=log_fn)
+    run = (run_det_training if cfg.model["type"] in DETECTORS
+           else run_training)
+    return run(cfg, work_dir, resume=args.resume, max_iters=args.max_iters,
+               synthetic=args.synthetic_data, device=args.device,
+               log_fn=log_fn)
 
 
 if __name__ == "__main__":

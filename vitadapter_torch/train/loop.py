@@ -127,6 +127,38 @@ def _memory_words(device: torch.device) -> str:
     return f" memory={stats['peak_bytes_in_use'] / 2 ** 20:.0f}MiB"
 
 
+def build_train_state(cfg, device: torch.device, total: int,
+                      warmup_steps: int, lr_policy: str, work_dir: str,
+                      resume: bool, log_fn):
+    """The config's model on `device`, its optimizer (AdamW with layer
+    decay over the backbone's `depth`) and schedule, and the train state,
+    restored from the latest checkpoint in `work_dir/ckpt` when `resume`.
+    Returns (model, state, schedule, the step to start at)."""
+    # `build_model` refuses the types not ported yet, naming their item
+    model = build_model(dict(cfg.model), device=device)
+    opt = cfg.optimizer
+    optimizer, schedule = make_optimizer(
+        model, base_lr=opt["lr"], weight_decay=opt["weight_decay"],
+        depth=cfg.model["backbone"]["depth"],
+        layer_decay_rate=opt.get("layer_decay_rate", 1.0),
+        total_steps=total, warmup_steps=warmup_steps,
+        grad_clip=opt.get("grad_clip"), lr_policy=lr_policy)
+    state = TrainState.create(model, optimizer)
+    n_params = sum(p.numel() for p in model.parameters())
+    # fp32 parameters, their gradients and AdamW's two moments
+    log_fn(f"{cfg.model['type']} with {cfg.model['backbone']['type']}: "
+           f"{n_params} parameters; parameters, gradients and AdamW moments "
+           f"take {16 * n_params / 2 ** 30:.2f} GiB on {device}, a "
+           f"checkpoint {12 * n_params / 2 ** 30:.2f} GiB on disk")
+    start = 0
+    ckpt_dir = os.path.join(work_dir, "ckpt")
+    if resume and latest_step(ckpt_dir) is not None:
+        restore_checkpoint(ckpt_dir, state)
+        start = state.step
+        log_fn(f"resumed from step {start}")
+    return model, state, schedule, start
+
+
 def run_training(cfg, work_dir: str, resume: bool = False,
                  max_iters: Optional[int] = None, synthetic: bool = False,
                  device=None, log_fn=print) -> TrainState:
@@ -140,39 +172,15 @@ def run_training(cfg, work_dir: str, resume: bool = False,
     the JAX loop, a resumed run starts the data stream and the DropPath
     generator anew, and the config's `pretrained` weights are not loaded.
     Returns the final `TrainState`."""
-    mtype = cfg.model["type"]
     device = resolve_device(device)
-    # `build_model` refuses the types not ported yet, naming their item
-    model = build_model(dict(cfg.model), device=device)
+    total = max_iters or cfg.runner["max_iters"]
+    model, state, schedule, start = build_train_state(
+        cfg, device, total, cfg.lr_config.get("warmup_iters", 1500),
+        cfg.lr_config.get("policy", "poly"), work_dir, resume, log_fn)
+    mtype = cfg.model["type"]
     num_classes = cfg.model["decode_head"]["num_classes"]
     crop = tuple(cfg.data["crop_size"])
     batch = cfg.data.get("samples_per_chip", 2)
-    total = max_iters or cfg.runner["max_iters"]
-
-    opt = cfg.optimizer
-    optimizer, schedule = make_optimizer(
-        model, base_lr=opt["lr"], weight_decay=opt["weight_decay"],
-        depth=cfg.model["backbone"]["depth"],
-        layer_decay_rate=opt.get("layer_decay_rate", 1.0),
-        total_steps=total,
-        warmup_steps=cfg.lr_config.get("warmup_iters", 1500),
-        grad_clip=opt.get("grad_clip"),
-        lr_policy=cfg.lr_config.get("policy", "poly"))
-    state = TrainState.create(model, optimizer)
-    n_params = sum(p.numel() for p in model.parameters())
-    # fp32 parameters, their gradients and AdamW's two moments
-    log_fn(f"{mtype} with {cfg.model['backbone']['type']}: {n_params} "
-           f"parameters; parameters, gradients and AdamW moments take "
-           f"{16 * n_params / 2 ** 30:.2f} GiB on {device}, a checkpoint "
-           f"{12 * n_params / 2 ** 30:.2f} GiB on disk")
-
-    start = 0
-    ckpt_dir = os.path.join(work_dir, "ckpt")
-    if resume and latest_step(ckpt_dir) is not None:
-        restore_checkpoint(ckpt_dir, state)
-        start = state.step
-        log_fn(f"resumed from step {start}")
-
     if mtype == "EncoderDecoderMask2Former":
         tc = cfg.get("train_cfg", {})
         step_fn = make_m2f_train_step(
@@ -194,17 +202,12 @@ def run_training(cfg, work_dir: str, resume: bool = False,
                                               sampler=sampler),
                       num_threads=cfg.data.get("workers", 4))
 
-    log_int = cfg.get("log_config", {}).get("interval", 50)
-    ckpt_cfg = cfg.get("checkpoint_config", {})
-    ckpt_int = ckpt_cfg.get("interval", 1000)
-
     # in-training evaluation + best-checkpoint selection (the reference's
     # mmcv EvalHook: `evaluation = dict(interval=8000, metric='mIoU',
     # save_best='mIoU')`)
     ev_cfg = dict(cfg.get("evaluation", {}))
-    ev_int = ev_cfg.get("interval")
-    val_ds = None
-    if ev_int:
+    evaluate = None
+    if ev_cfg.get("interval"):
         if synthetic:
             val_ds = SyntheticSegDataset(2, crop, num_classes)
         else:
@@ -212,19 +215,50 @@ def run_training(cfg, work_dir: str, resume: bool = False,
                 val_ds = build_dataset(cfg.data, "val")
             except (KeyError, FileNotFoundError) as e:
                 log_fn(f"eval hook disabled (no val dataset: {e})")
-                ev_int = None
+                val_ds = None
+        if val_ds is not None:
+            def evaluate():
+                return run_eval(eval_config(cfg), model, val_ds,
+                                max_images=ev_cfg.get("max_images"),
+                                log_fn=log_fn)
+
+    return train_steps(cfg, state, step_fn, it,
+                       lambda b: _to_device(b, device), start, total,
+                       schedule, work_dir, device, evaluate,
+                       ckpt_interval=1000, log_fn=log_fn)
+
+
+def train_steps(cfg, state: TrainState, step_fn, it, to_device, start: int,
+                total: int, schedule, work_dir: str, device, evaluate,
+                ckpt_interval: int, log_fn=print) -> TrainState:
+    """The step loop that the segmentation and detection runs share: steps
+    [start, total) of `step_fn(state, batch, generator)` on batches of `it`
+    put on the device by `to_device` (the next one while the device runs
+    the step), DropPath's generator seeded 1; logs every
+    `log_config.interval` steps (loss, lr, time, data time, ETA, grad norm,
+    peak memory), checkpoints every `checkpoint_config.interval` steps
+    (`ckpt_interval` by default) and at the end, and every
+    `evaluation.interval` steps and at the end `evaluate()`, when given,
+    whose metrics pick the best checkpoint (`evaluation.save_best`) into
+    `work_dir/best_<key>`. Returns the final `TrainState`."""
+    log_int = cfg.get("log_config", {}).get("interval", 50)
+    ckpt_cfg = cfg.get("checkpoint_config", {})
+    ckpt_int = ckpt_cfg.get("interval", ckpt_interval)
+    ckpt_dir = os.path.join(work_dir, "ckpt")
+    ev_cfg = dict(cfg.get("evaluation", {}))
+    ev_int = ev_cfg.get("interval") if evaluate is not None else None
     best = -float("inf")
 
     generator = torch.Generator(device).manual_seed(1)
     timer = StepTimer(device)
     # the next batch is fetched and copied while the device runs the step
-    b = _to_device(next(it), device)
+    b = to_device(next(it))
     for i in range(start, total):
         state, logs = step_fn(state, b, generator)
         timer.step()
         t0 = time.perf_counter()
         if i + 1 < total:
-            b = _to_device(next(it), device)
+            b = to_device(next(it))
         timer.data_tick(time.perf_counter() - t0)
         if (i + 1) % log_int == 0:
             logs = {k: float(v) for k, v in logs.items()}
@@ -241,9 +275,7 @@ def run_training(cfg, work_dir: str, resume: bool = False,
                   log_fn)
             timer.reset()  # a checkpoint is not counted in step time
         if ev_int and ((i + 1) % ev_int == 0 or (i + 1) == total):
-            metrics = run_eval(eval_config(cfg), model, val_ds,
-                               max_images=ev_cfg.get("max_images"),
-                               log_fn=log_fn)
+            metrics = evaluate()
             key = ev_cfg.get("save_best")
             if key and metrics.get(key, -float("inf")) > best:
                 best = metrics[key]

@@ -1,11 +1,12 @@
-"""Training state and the Mask2Former and UperNet train steps (counterpart
-of `vitadapter/train/trainer.py`).
+"""Training state and the Mask2Former, UperNet and Mask R-CNN train steps
+(counterpart of `vitadapter/train/trainer.py` and of the step in
+`vitadapter/train/det_loop.py`).
 
 One step: the model's forward in training mode (DropPath and dropout
 drawing from a `torch.Generator`, BatchNorm on batch statistics, moving its
-running statistics), the loss (Mask2Former's over every decoder layer, or
-the decode and auxiliary heads' cross entropy), the backward, and one
-optimizer update. The port updates the model and the optimizer in
+running statistics), the loss (Mask2Former's over every decoder layer, the
+decode and auxiliary heads' cross entropy, or Mask R-CNN's five), the
+backward, and one optimizer update. The port updates the model and the optimizer in
 place, where JAX returns a new state.
 """
 
@@ -113,6 +114,35 @@ def make_seg_train_step(model: nn.Module, aux_weight: float = 0.4,
         state.update_ema()
         logs = {k: v.detach() for k, v in logs.items()}
         logs.update(loss=loss.detach(), grad_norm=grad_norm)
+        return state, logs
+
+    return train_step
+
+
+def make_det_train_step(model: nn.Module) -> Callable:
+    """Train step for `det.mask_rcnn.MaskRCNN`: its five losses summed.
+
+    train_step(state, batch, generator, sampler=None) -> (state, logs):
+    batch {"image": (B, H, W, 3) normalized float, "gt_boxes" (B, G, 4),
+    "gt_labels" (B, G) int, "gt_masks" (B, G, H, W) bool, "gt_valid" (B,
+    G) bool}. DropPath draws from `generator`, the RPN and RoI samplers
+    from `sampler` (by default from `generator`). logs holds the five
+    losses, `loss` and `grad_norm` (before clipping), as 0-d tensors."""
+
+    def train_step(state: TrainState, batch, generator: torch.Generator,
+                   sampler: Optional[Sampler] = None):
+        model.train()
+        losses = model.forward_train(
+            batch["image"], batch["gt_boxes"], batch["gt_labels"],
+            batch["gt_masks"], batch["gt_valid"], generator=generator,
+            sampler=sampler)
+        state.optimizer.zero_grad()
+        losses["loss"].backward()
+        grad_norm = state.optimizer.step()
+        state.step += 1
+        state.update_ema()
+        logs = {k: v.detach() for k, v in losses.items()}
+        logs["grad_norm"] = grad_norm
         return state, logs
 
     return train_step

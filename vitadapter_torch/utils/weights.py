@@ -5,7 +5,8 @@ arrays or anything `np.asarray` takes) into a PyTorch `state_dict` with the
 reference's key names: the inverse of the JAX package's checkpoint
 converters for the ViT-Adapter and BEiT-Adapter backbones
 (`convert_vit_adapter_backbone`, `convert_beit_backbone`), the
-Mask2Former head and the UperNet heads (`convert_upernet_heads`). The
+Mask2Former head, the UperNet heads (`convert_upernet_heads`) and Mask
+R-CNN's neck, RPN and RoI heads (`convert_detector_checkpoint`). The
 baselines' pyramid and `PatchMerging`, which no JAX converter reads, keep
 their flax names (`models/baselines.py`). Layout rules (flax -> torch):
 
@@ -375,16 +376,76 @@ def mask2former_head_from_flax(p: Tree) -> StateDict:
     return sd
 
 
+def neck_from_flax(p: Tree) -> StateDict:
+    """`FPN` (flax `lateral_N` / `fpn_conv_N` -> `lateral_convs.N.conv` /
+    `fpn_convs.N.conv`) or `ChannelMapperWithPooling` (`conv_N` / `gn_N` ->
+    `convs.N.conv` / `convs.N.gn`)."""
+    sd: StateDict = {}
+    for flax_name, name in (("lateral", "lateral_convs"),
+                            ("fpn_conv", "fpn_convs"), ("conv", "convs")):
+        i = 0
+        while f"{flax_name}_{i}" in p:
+            sd.update(_prefixed(f"{name}.{i}.conv",
+                                _conv(p[f"{flax_name}_{i}"])))
+            if f"gn_{i}" in p and name == "convs":
+                sd.update(_prefixed(f"convs.{i}.gn", _norm(p[f"gn_{i}"])))
+            i += 1
+    return sd
+
+
+def bbox_head_from_flax(p: Tree, roi: int = 7) -> StateDict:
+    """`Shared2FCBBoxHead`: flax `fc1`, `fc2` -> `shared_fcs.0`, `.1`. The
+    flax fc1 reads the RoI features channel last, mmdet's channel first (the
+    inverse of `convert_detector_checkpoint`'s permutation)."""
+    k = np.asarray(p["fc1"]["kernel"]).T              # (out, roi*roi*C)
+    out = k.shape[0]
+    k = k.reshape(out, roi, roi, -1).transpose(0, 3, 1, 2).reshape(out, -1)
+    return {"shared_fcs.0.weight": _t(k),
+            "shared_fcs.0.bias": _t(p["fc1"]["bias"]),
+            **_prefixed("shared_fcs.1", _linear(p["fc2"])),
+            **_prefixed("fc_cls", _linear(p["fc_cls"])),
+            **_prefixed("fc_reg", _linear(p["fc_reg"]))}
+
+
+def mask_head_from_flax(p: Tree) -> StateDict:
+    """`FCNMaskHead`: flax `conv_N` -> `convs.N.conv`."""
+    sd = {**_prefixed("upsample", _conv_transpose(p["upsample"])),
+          **_prefixed("conv_logits", _conv(p["conv_logits"]))}
+    i = 0
+    while f"conv_{i}" in p:
+        sd.update(_prefixed(f"convs.{i}.conv", _conv(p[f"conv_{i}"])))
+        i += 1
+    return sd
+
+
+def mask_rcnn_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`MaskRCNN` with any backbone `backbone_from_flax` takes: the inverse
+    of `convert_detector_checkpoint` for the Mask R-CNN keys."""
+    rpn = {f"rpn_head.{n}.{k}": v for n in ("rpn_conv", "rpn_cls", "rpn_reg")
+           for k, v in _conv(p["rpn_head"][n]).items()}
+    return {**_prefixed("backbone", backbone_from_flax(
+                p["backbone"], s.get("backbone", {}))),
+            **_prefixed("neck", neck_from_flax(p["neck"])), **rpn,
+            **_prefixed("roi_head.bbox_head",
+                        bbox_head_from_flax(p["bbox_head"])),
+            **_prefixed("roi_head.mask_head",
+                        mask_head_from_flax(p["mask_head"]))}
+
+
 def state_dict_from_flax(params: Tree,
                          batch_stats: Optional[Tree] = None) -> StateDict:
     """A flax variable tree -> the port's `state_dict`. Takes the tree of a
-    whole `EncoderDecoderMask2Former` or `EncoderDecoder` (`backbone`,
-    `decode_head`, `auxiliary_head`), or of one of their modules:
+    whole `MaskRCNN` (`backbone`, `neck`, `rpn_head`, `bbox_head`,
+    `mask_head`), `EncoderDecoderMask2Former` or `EncoderDecoder`
+    (`backbone`, `decode_head`, `auxiliary_head`), or of one of their
+    modules:
     `ViTAdapter`, `BEiTAdapter`, `ViTBaseline`, `BEiTBaseline`,
     `Mask2FormerHead`, `UPerHead`, `FCNHead`, the `SimpleFeaturePyramid`,
     the pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a
     ViT `Block`, a `BEiTBlock`, an `MSDeformAttn` or a `PatchMerging`."""
     s = batch_stats or {}
+    if "backbone" in params and "rpn_head" in params:
+        return mask_rcnn_from_flax(params, s)
     if "backbone" in params and "decode_head" in params:
         sd = _prefixed("backbone", backbone_from_flax(
             params["backbone"], s.get("backbone", {})))

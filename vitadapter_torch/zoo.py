@@ -1,5 +1,6 @@
-"""Model zoo (counterpart of `vitadapter/zoo.py`): the ViT-Adapter variants
-and the Mask2Former + ViT-Adapter and UperNet + ViT-Adapter segmentors.
+"""Model zoo (counterpart of `vitadapter/zoo.py`): the ViT-Adapter variants,
+the Mask2Former + ViT-Adapter and UperNet + ViT-Adapter segmentors and the
+Mask R-CNN + ViT-Adapter detector.
 
 Models are built on the meta device, then allocated on `device` and
 initialized from `generator` (seed 0 on `device` by default), in eval mode
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from vitadapter_torch.det.mask_rcnn import MaskRCNN
 from vitadapter_torch.heads.mask2former import Mask2FormerHead
 from vitadapter_torch.heads.upernet import FCNHead, UPerHead
 from vitadapter_torch.models.mask2former_segmentor import \
@@ -126,4 +128,25 @@ def upernet_vit_adapter(variant: str = "tiny", num_classes: int = 150,
         FCNHead(dim, num_classes=num_classes, channels=256, dtype=dtype,
                 device="meta"),
         aux_in_index=2)
+    return materialize(model, device, generator)
+
+
+def mask_rcnn_vit_adapter(variant: str = "tiny", num_classes: int = 80,
+                          device=None, dtype: torch.dtype = torch.float32,
+                          generator: Optional[torch.Generator] = None,
+                          **overrides) -> MaskRCNN:
+    """Mask R-CNN + ViT-Adapter (reference
+    `mask_rcnn_deit_adapter_tiny_fpn_3x_coco.py`; "large" as
+    `mask_rcnn_augreg_adapter_large_fpn_3x_coco.py`): windowed attention
+    (14x14) in all but the last block of each interaction span, a 256-wide
+    FPN and the RoI heads in `dtype`."""
+    device = resolve_device(device)
+    span = 6 if variant == "large" else 3
+    windows = dict(window_attn=([True] * (span - 1) + [False]) * 4,
+                   window_size=([14] * (span - 1) + [None]) * 4)
+    windows.update(overrides)
+    backbone = ViTAdapter(dtype=dtype, device="meta",
+                          **_vit_adapter_cfg(variant, windows))
+    model = MaskRCNN(backbone, num_classes=num_classes, fpn_channels=256,
+                     dtype=dtype, device="meta")
     return materialize(model, device, generator)
