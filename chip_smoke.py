@@ -86,7 +86,28 @@ Phases (each failure exits non-zero; nothing is caught):
      global) at 256 px, full width, fp32, on the card and on the CPU, and
      compares the FPN and RPN outputs, the RoI stage and the detections'
      kept sets, then one det train step's losses and gradient norm (the
-     same sampler draws, the CPU on the card's proposals).
+     same sampler draws, the CPU on the card's proposals);
+ 17. drives the config entry points on the AugReg-L HTC++ config
+     (ViT-Adapter-L in fp32 with `with_cp`, ExtraAttention, the semantic
+     branch, 3 cascade stages, batch 1) on the 1600x1408 canvas: the
+     shipped crop [1600, 1400] is not a multiple of 32 and must raise the
+     port's ValueError, as the JAX package fails there (ROADMAP.md §3);
+     4 train steps, `--resume` for a fifth, `tools.test --eval bbox segm`
+     on the two COCO-layout images against `run_det_eval`, then
+     `--aug-test` with the `_ms` config (6 scales x flip, soft-NMS
+     merge); checks the launches of each train step and of each model
+     call, and reports s/step, peak memory, the checkpoint and the tests'
+     s/image (model calls and host apart);
+ 18. one synthetic train step each of the BEiTv2 HTC++ config (BEiT
+     detection variant: windows of 14 and 56, no cls token, version
+     "new"; 1600x1408) and of the bf16 DeiT-S Cascade Mask R-CNN config
+     (batch 2, 1024 canvas): finite losses, exact launches, peak memory;
+ 19. runs the HTC++ config reduced to depth 4 (three windowed blocks,
+     one global) at 256 px, full width, fp32, on the card and on the CPU:
+     the FPN and RPN outputs, the semantic features and the three stages'
+     outputs on the card's proposals, the detections' kept sets, then one
+     train step's losses and gradient norm (the same sampler draws, the
+     CPU on the card's proposals).
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -110,7 +131,10 @@ logged), and at other P, widths and a misaligned value and d value buffer
 give it, and at phase 13's (batch 2, N 1024, with a backward); the
 attention (windows of N 196 and global N 4096 and 4200) and fused MSDA
 kernels at phase 15's detection shapes and at the bf16 DeiT-S Mask R-CNN
-step's (the rows' `paths["det"]`, `["det_test"]`, `["det_bf16"]`); and
+step's (the rows' `paths["det"]`, `["det_test"]`, `["det_bf16"]`), and at
+phase 17's on the 1600x1408 canvas (ExtraAttention's 2200 tokens at head
+dim 128, windows of N 196, global N 8800; the SPM pyramid of 46200
+values; `paths["htc"]`); and
 the NMS kernel (`nms.cu`, not a TPU kernel) at the proposals' 4768 boxes
 and the detections' 2048 for bitwise-equal kept flags. The fp32
 attention (split TF32 on the tensor cores) is launched
@@ -207,7 +231,16 @@ ATTN_PATH_CASES = {
     "det_test_global": (1, 16, 4200, F32, "det_test", 4, 0),
     "det_bf16_window": (50, 6, 196, BF16, "det_bf16", 8, 8),
     "det_bf16_global": (2, 6, 4096, BF16, "det_bf16", 4, 4),
+    # phase 17's AugReg-L HTC++ step on the 1600x1408 canvas (batch 1,
+    # `with_cp`): the 100x88 grid padded to 112x98 makes 8 x 7 windows,
+    # the global blocks take 8800 tokens, and ExtraAttention (8 heads of
+    # 128) the 50x44 coarsest level once, outside `with_cp`
+    "htc_window": (56, 16, 196, F32, "htc", 40, 20),
+    "htc_global": (1, 16, 8800, F32, "htc", 8, 4),
+    "htc_extra": (1, 8, 2200, F32, "htc", 1, 1),
 }
+# the head dim of an `ATTN_PATH_CASES` case (64 elsewhere)
+ATTN_PATH_D = {"htc_extra": 128}
 # point sampling in one flagship train step (batch 2, 200 queries, 60 gt
 # classes, 10 decoder outputs, 12544 points):
 # name: (masks N, H, W, points per mask, points sorted by y, calls)
@@ -307,6 +340,7 @@ R10 = ((32, 64), (64, 128), (128, 256))
 SPM640 = ((80, 80), (40, 40), (20, 20))
 SPM1024 = ((128, 128), (64, 64), (32, 32))
 SPM800 = ((100, 168), (50, 84), (25, 42))   # the 800x1344 canvas
+SPM1600 = ((200, 176), (100, 88), (50, 44))  # the 1600x1408 canvas
 MSDA_PATH_CASES = {
     "eval_r1.0_injector": (R10[::-1], 8192, 16, (64, 128), "eval_whole", 8,
                            False),
@@ -347,6 +381,10 @@ MSDA_PATH_CASES = {
     "det_bf16_injector": (SPM1024, 4096, 6, (64, 64), "det_bf16", 4, True),
     "det_bf16_extractor": (((64, 64),), 21504, 6, SPM1024, "det_bf16", 6,
                            True),
+    # phase 17's HTC++ step on the 1600x1408 canvas (fp32, 16 heads, D
+    # 32): 46200 values, 5.9 MB a head, under the 8 MiB line
+    "htc_injector": (SPM1600, 8800, 16, (100, 88), "htc", 4, True),
+    "htc_extractor": (((100, 88),), 46200, 16, SPM1600, "htc", 6, True),
 }
 # the batch, dtype and head dim of each path's MSDA calls in
 # `MSDA_PATH_CASES` (1, fp32 and 32 elsewhere)
@@ -355,7 +393,8 @@ PATH_DTYPE = {"det_bf16": BF16}
 PATH_D = {"det_bf16": 64}
 # the paths whose `MSDA_PATH_CASES` are also checked on model-shaped
 # locations
-MODEL_SHAPED_PATHS = ("cli", "upernet", "det", "det_test", "det_bf16")
+MODEL_SHAPED_PATHS = ("cli", "upernet", "det", "det_test", "det_bf16",
+                      "htc")
 # the fused kernels off the flagship's layout, fp32 and bf16 each: name:
 # (spatial shapes, query grid, heads, D, P, the value 2 or 4 bytes off
 # 16-byte alignment). As `LEVEL_LAYOUTS`: ragged and narrow rows and other
@@ -460,21 +499,60 @@ DET_STEPS = 4
 DET_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=4"]
 DET_IMAGES = ((480, 640), (640, 480))
 # a train step: 24 blocks recomputed under `with_cp`, 10 MSDA calls, one
-# proposal NMS; a model call: one proposal and one detection NMS an image
+# proposal NMS; a model call: 24 blocks and 10 MSDA calls, and one proposal
+# and one detection NMS an image
 DET_STEP_LAUNCHES = {"attention_fwd": 48, "attention_bwd": 24,
                      "msda_fwd": 10, "msda_bwd": 10, "nms": 1}
-DET_FORWARD_LAUNCHES = {"attention_fwd": 24, "msda_fwd": 10, "nms": 2}
+DET_FORWARD_LAUNCHES = {"attention_fwd": 24, "msda_fwd": 10}
 DET_NEVER = ("msda_level_fwd", "msda_level_dv", "msda_level_dgrid",
              "point_sample_fwd", "point_sample_bwd", "auction")
+# phase 17: the config CLI on the AugReg-L HTC++ config (ViT-Adapter-L in
+# fp32 with `with_cp`, 20 windowed and 4 global blocks, ExtraAttention, the
+# semantic branch, 3 cascade stages, batch 1) on the 1600x1408 canvas:
+# the shipped crop [1600, 1400] is not a multiple of 32, which the
+# adapter's pyramid needs (the JAX package fails its first injector's size
+# assertion; ROADMAP.md §3), so the train runs take this override; the
+# `--aug-test` run takes the `_ms` config (6 scales x flip)
+HTC_CONFIG = "configs/htc/htc++_augreg_adapter_large_fpn_3x_coco.py"
+HTC_MS_CONFIG = "configs/htc/htc++_augreg_adapter_large_fpn_3x_coco_ms.py"
+HTC_CROP = "data.crop_size=[1600,1408]"
+HTC_STEPS = 4
+HTC_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=4",
+               HTC_CROP]
+# a train step: phase 15's and ExtraAttention's forward and backward (it
+# is not under `with_cp`); a model call: 24 blocks, ExtraAttention and
+# 10 MSDA calls
+HTC_STEP_LAUNCHES = {"attention_fwd": 49, "attention_bwd": 25,
+                     "msda_fwd": 10, "msda_bwd": 10, "nms": 1}
+HTC_CALL_LAUNCHES = {"attention_fwd": 25, "msda_fwd": 10}
+# phase 18: one synthetic train step of each config, with its overrides
+# and the launches it must make. The BEiTv2 HTC++ trunk attends with
+# relative-position biases in plain PyTorch (windows of 14 and 56, the
+# latter 4 windows of 3136 tokens on the 112x112-padded grid): only
+# ExtraAttention launches the attention kernels. The DeiT-S Cascade Mask
+# R-CNN runs in bf16 at batch 2 on the 1024 canvas, without `with_cp`
+ONE_STEP_CONFIGS = {
+    "configs/htc/htc++_beitv2_adapter_large_fpn_3x_coco.py": (
+        {"data.crop_size": [1600, 1408]},
+        {"attention_fwd": 1, "attention_bwd": 1, "msda_fwd": 10,
+         "msda_bwd": 10, "nms": 1}),
+    "configs/cascade_rcnn/cascade_mask_rcnn_deit_adapter_small_fpn_3x_"
+    "coco.py": (
+        {}, {"attention_fwd": 12, "attention_bwd": 12, "msda_fwd": 10,
+             "msda_bwd": 10, "nms": 2}),
+}
 # nms.cu at the Mask R-CNN path's sizes: name: (boxes, classes (0: one),
 # IoU threshold, ((path, calls there), ...)). The proposals' NMS takes
 # 1000 boxes of each of 4 levels and the 768 of the stride-64 level at the
 # 1024 canvas (one a train step at batch 1, one a test image); the
 # detections' takes the top 2048 of the 1000 x 80 class scores, offset by
-# class (one a test image)
+# class (one a test image). On HTC++'s 1600x1408 canvas the proposals'
+# NMS takes 5000 boxes: 1000 of each of 4 levels and 1000 of the 25x22x3
+# anchors of the stride-64 level (one a train step)
 NMS_CASES = {
     "proposals": (4768, 0, 0.7, (("det", 1), ("det_test", 1))),
     "detections": (2048, 80, 0.5, (("det_test", 1),)),
+    "htc_proposals": (5000, 0, 0.7, (("htc", 1),)),
 }
 REPLACES = {
     "msda_fwd": "vitadapter/ops/msda_pallas.py:316",
@@ -1648,7 +1726,9 @@ def check_attention_paths(rows, flush, gen):
     `FusedAttentionFunction`), phase 13's UperNet step (batch 2, N 1024,
     with a backward), phase 15's Mask R-CNN step and test model call
     (windows of N 196, the kernels' masked key tail, and global N 4096 and
-    4200) and the bf16 DeiT-S Mask R-CNN step, against the plain versions
+    4200), the bf16 DeiT-S Mask R-CNN step and phase 17's HTC++ step
+    (ExtraAttention at head dim 128 on 2200 tokens, global N 8800),
+    against the plain versions
     taken four heads at a time. The numbers go to the attention rows'
     `paths`, summed over each path's calls."""
     from vitadapter_torch.ops import attention as at
@@ -1658,8 +1738,9 @@ def check_attention_paths(rows, flush, gen):
     for name, (B, H, N, dtype, path, calls, bwd_calls) in \
             ATTN_PATH_CASES.items():
         backward = bwd_calls > 0
-        shape = (B, H, N, 64)
-        scale = 64 ** -0.5
+        D = ATTN_PATH_D.get(name, 64)
+        shape = (B, H, N, D)
+        scale = D ** -0.5
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                       .to(dtype) for _ in range(4))
         ref, ref_lse, ref32 = by_heads(
@@ -2859,9 +2940,9 @@ def nms_inputs(n, classes, gen):
 def check_nms(rows, flush, gen):
     """nms.cu (not a TPU kernel: it replaces the `lax.scan` of
     `vitadapter/det/boxes.py::nms`) against `nms_keep_plain` at the Mask
-    R-CNN path's sizes (`NMS_CASES`): the kept flags bitwise equal, the
-    kernel launched twice (bitwise equal), the pairs whose IoU lies
-    within 1e-6 of the threshold counted; timed beside the plain version
+    R-CNN and HTC++ paths' sizes (`NMS_CASES`): the kept flags bitwise
+    equal, the kernel launched twice (bitwise equal), the pairs whose IoU
+    lies within 1e-6 of the threshold counted; timed beside the plain version
     (the IoU on the card, the walk on the host). The bound counts 24
     fp32 operations a pair of the upper triangle and the boxes, flags
     and kept flags moved once. No single PyTorch call computes it
@@ -2950,24 +3031,40 @@ def det_cli():
     """Phase 15: the config entry points in this process on the AugReg-L
     Mask R-CNN config as shipped (`DET_CONFIG`: ViT-Adapter-L in fp32 with
     `with_cp`, drop path 0.4, 20 windowed and 4 global blocks, batch 1 on
-    the 1024 canvas, 100 synthetic instances): `tools.train.main` for
-    `DET_STEPS` steps with `DET_OPTIONS` (a checkpoint at the last),
-    `--resume` for one more, then `tools.test.main --eval bbox segm` on two
-    COCO-layout images (`DET_IMAGES`: one landscape, one portrait, so both
-    canvases run), and `run_det_eval` called directly on the same weights.
-    Checks the launches of each train step (`DET_STEP_LAUNCHES`) and of
-    each model call of the test CLI (`DET_FORWARD_LAUNCHES`), that no
-    kernel of `DET_NEVER` runs, the resume, finite losses and gradient
-    norms, and the test CLI's metrics equal to `run_det_eval`'s. Logs
-    s/step (CUDA events, the first step apart), peak memory, the
-    checkpoint's bytes and seconds, and the test's s/image with and
-    without the model's build, model-call seconds beside host seconds.
+    the 1024 canvas, 100 synthetic instances), through `run_det_cli`.
     Returns the launches of the first run's train steps and of one model
     call of the test CLI."""
+    from vitadapter_torch.det.mask_rcnn import MaskRCNN
+
+    train_counts, test_counts, _ = run_det_cli(
+        "det", MaskRCNN, DET_CONFIG, DET_OPTIONS, DET_STEPS,
+        DET_STEP_LAUNCHES, DET_FORWARD_LAUNCHES, DET_NEVER, DET_IMAGES)
+    return train_counts, test_counts
+
+
+def run_det_cli(label, model_cls, config, options, steps, step_launches,
+                call_launches, never, images, aug_config=None):
+    """The config entry points in this process on a detection `config`:
+    `tools.train.main` on synthetic data for `steps` steps with `options`
+    (a checkpoint at the last), `--resume` for one more, then
+    `tools.test.main --eval bbox segm` on two COCO-layout images (`images`:
+    one landscape, one portrait, so both canvases run), and `run_det_eval`
+    called directly on the same weights; with `aug_config`, the test CLI
+    again with `--aug-test` on that config (its `tta` scales) and
+    `run_det_eval(aug_test=True)` called directly on those weights. Checks
+    the launches of each train step (`step_launches`) and of each model
+    call of the tests (`call_launches` a call, `nms` 2 an input image: one
+    proposal and one detection NMS; the plain test CLI's calls one image
+    each), that no kernel of `never` runs, the resume, finite losses and
+    gradient norms, and each test CLI's metrics equal to `run_det_eval`'s. Logs s/step (CUDA events, the first step
+    apart), peak memory, the checkpoint's bytes and seconds, and the
+    tests' s/image with and without the model's build, model-call seconds
+    beside host seconds. Returns the launches of the first run's train
+    steps, the plain test CLI's launches divided by its model calls, and
+    the `--aug-test` run's metrics (or None)."""
     import tempfile
 
     from vitadapter_torch.builder import build_model
-    from vitadapter_torch.det.mask_rcnn import MaskRCNN
     from vitadapter_torch.ops import cuda_ext
     from vitadapter_torch.tools import test as test_cli
     from vitadapter_torch.tools import train as train_cli
@@ -2975,17 +3072,22 @@ def det_cli():
     from vitadapter_torch.utils.checkpoint_io import load_model_weights
     from vitadapter_torch.utils.config import Config
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_det_")
-    steps = DET_STEPS
-    calls = [0]
-    forward = MaskRCNN.forward
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    calls, inputs = [0], [0]
+    forward = model_cls.forward
 
-    def counted(self, *a, **kw):
+    def counted(self, img, *a, **kw):
         calls[0] += 1
-        return forward(self, *a, **kw)
+        inputs[0] += img.shape[0]
+        return forward(self, img, *a, **kw)
+
+    def call_counts():
+        want = {k: v * calls[0] for k, v in call_launches.items()}
+        want["nms"] = 2 * inputs[0]
+        return want
 
     try:
-        MaskRCNN.forward = counted
+        model_cls.forward = counted
         work, root = os.path.join(tmp, "work"), os.path.join(tmp, "coco")
         lines, marks = [], {}
 
@@ -2996,8 +3098,8 @@ def det_cli():
             if m:       # the step's launches, before its checkpoint
                 marks[int(m.group(1))] = dict(cuda_ext.launches)
 
-        train_args = [DET_CONFIG, "--synthetic-data", "--work-dir", work,
-                      "--cfg-options", *DET_OPTIONS]
+        train_args = [config, "--synthetic-data", "--work-dir", work,
+                      "--cfg-options", *options]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda_ext.launches.clear()
@@ -3033,21 +3135,36 @@ def det_cli():
         del state
         torch.cuda.empty_cache()
 
-        write_coco(root, DET_IMAGES, 15)
+        write_coco(root, images, 15)
         ckpt = os.path.join(work, "ckpt")
         before = dict(cuda_ext.launches)
-        calls[0] = 0
+        calls[0] = inputs[0] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = test_cli.main([DET_CONFIG, ckpt, "--eval", "bbox", "segm",
+        metrics = test_cli.main([config, ckpt, "--eval", "bbox", "segm",
                                  "--cfg-options", f"data.data_root={root}"],
                                 log_fn=log_fn)
         torch.cuda.synchronize()
         test_s = time.perf_counter() - t0
         test_counts = launch_diff(cuda_ext.launches, before)
+        forwards_ok = test_counts == call_counts() and inputs[0] == calls[0]
         n_calls = calls[0]
 
-        cfg = Config.fromfile(DET_CONFIG)
+        aug = None
+        if aug_config is not None:
+            before = dict(cuda_ext.launches)
+            calls[0] = inputs[0] = 0
+            t0 = time.perf_counter()
+            aug = test_cli.main([aug_config, ckpt, "--eval", "bbox", "segm",
+                                 "--aug-test", "--cfg-options",
+                                 f"data.data_root={root}"], log_fn=log_fn)
+            torch.cuda.synchronize()
+            aug_s = time.perf_counter() - t0
+            aug_counts = launch_diff(cuda_ext.launches, before)
+            aug_want = call_counts()
+            aug_calls, aug_inputs = calls[0], inputs[0]
+
+        cfg = Config.fromfile(config)
         cfg.merge_from_options({"data.data_root": root})
         model = load_model_weights(ckpt, build_model(dict(cfg.model)))
         torch.cuda.synchronize()
@@ -3058,8 +3175,19 @@ def det_cli():
         direct_s = time.perf_counter() - t0
         del model
         torch.cuda.empty_cache()
+        direct_aug = None
+        if aug_config is not None:
+            cfg = Config.fromfile(aug_config)
+            cfg.merge_from_options({"data.data_root": root})
+            model = load_model_weights(ckpt, build_model(dict(cfg.model)))
+            direct_aug = run_det_eval(cfg, model,
+                                      build_det_dataset(cfg.data, "val"),
+                                      ("bbox", "segm"), aug_test=True,
+                                      log_fn=lambda *_: None)
+            del model
+            torch.cuda.empty_cache()
     finally:
-        MaskRCNN.forward = forward
+        model_cls.forward = forward
         shutil.rmtree(tmp, ignore_errors=True)
 
     def summary(m):
@@ -3071,23 +3199,21 @@ def det_cli():
     ran = dict(marks[steps])
     for k, v in test_counts.items():
         ran[k] = ran.get(k, 0) + v
-    bad_never = {k: v for k, v in ran.items() if k in DET_NEVER}
-    forwards_ok = test_counts == {k: v * n_calls
-                                  for k, v in DET_FORWARD_LAUNCHES.items()}
-    n_img = len(DET_IMAGES)
+    bad_never = {k: v for k, v in ran.items() if k in never}
+    n_img = len(images)
     timing = direct["timing"]
-    log(f"det CLI {DET_CONFIG}: {built}")
-    log(f"det CLI train steps (s, CUDA events): {secs}; "
+    log(f"{label} CLI {config}: {built}")
+    log(f"{label} CLI train steps (s, CUDA events): {secs}; "
         f"{sum(secs[1:]) / (len(secs) - 1):.3f} s/step over steps "
         f"2..{steps}, first step {secs[0]:.3f} s; losses {vals['loss']}; "
         f"grad norms {vals['grad_norm']}; peak memory {peak:.2f} GiB; "
         f"{n_params} parameters; {train_s:.1f} s for the run with its "
         f"checkpoint")
-    log(f"det CLI checkpoints (bytes, s to write): {ckpts}")
-    log(f"det CLI launches per train step: {per_step} (want "
-        f"{DET_STEP_LAUNCHES} each); resumed at step {steps} and took step "
+    log(f"{label} CLI checkpoints (bytes, s to write): {ckpts}")
+    log(f"{label} CLI launches per train step: {per_step} (want "
+        f"{step_launches} each); resumed at step {steps} and took step "
         f"{steps + 1}: {resumed_ok}")
-    log(f"det CLI test --eval bbox segm (host clock to a synchronize): "
+    log(f"{label} CLI test --eval bbox segm (host clock to a synchronize): "
         f"{test_s:.2f} s for {n_img} images with the model's build and "
         f"weight load, {test_s / n_img:.2f} s/image; run_det_eval alone "
         f"{direct_s / n_img:.2f} s/image, of which model calls "
@@ -3096,17 +3222,37 @@ def det_cli():
         f"{metrics['bbox_mAP']:.4f} segm_mAP {metrics['segm_mAP']:.4f} "
         f"(random weights); metrics equal to run_det_eval's={same}; "
         f"launches {test_counts} over {n_calls} model calls (want "
-        f"{DET_FORWARD_LAUNCHES} a call)")
-    if not (finite and resumed_ok and same):
-        raise SystemExit("FAIL: det CLI (non-finite loss or grad norm, "
-                         "resume, or the test CLI's metrics)")
-    if (any(st != DET_STEP_LAUNCHES for st in per_step) or bad_never
+        f"{call_launches} a call and nms 2 an image)")
+    aug_ok = True
+    if aug is not None:
+        t = aug["timing"]
+        same_aug = (json.dumps(summary(aug))
+                    == json.dumps(summary(direct_aug)))
+        aug_ok = (aug_counts == aug_want and t["augs"] == 12 and same_aug
+                  and all(aug[k] == aug[k] for k in ("bbox_mAP",
+                                                     "segm_mAP")))
+        log(f"{label} CLI test --aug-test {aug_config}: {t['augs']} augs "
+            f"an image, {aug_s:.2f} s for {n_img} images with the model's "
+            f"build and weight load, {aug_s / n_img:.2f} s/image; model "
+            f"calls {t['forward_s']:.3f} s ({1e3 * t['forward_s'] / n_img:.1f}"
+            f" ms/image), host {t['host_s']:.3f} s "
+            f"({1e3 * t['host_s'] / n_img:.1f} ms/image: load, resizes, "
+            f"soft-NMS merge, paste, evaluator); bbox_mAP "
+            f"{aug['bbox_mAP']:.4f} segm_mAP {aug['segm_mAP']:.4f}; "
+            f"metrics equal to run_det_eval(aug_test=True)'s={same_aug}; "
+            f"launches {aug_counts} over {aug_calls} model calls of "
+            f"{aug_inputs} inputs (want {aug_want}) ok={aug_ok}")
+    if not (finite and resumed_ok and same and aug_ok):
+        raise SystemExit(f"FAIL: {label} CLI (non-finite loss or grad "
+                         "norm, resume, the test CLI's metrics or "
+                         "--aug-test)")
+    if (any(st != step_launches for st in per_step) or bad_never
             or not forwards_ok):
-        raise SystemExit(f"FAIL: det CLI launches per step {per_step}, per "
-                         f"test call {test_counts} over {n_calls}, kernels "
-                         f"that must not run {bad_never}")
-    return train_counts, {k: v // max(n_calls, 1)
-                          for k, v in test_counts.items()}
+        raise SystemExit(f"FAIL: {label} CLI launches per step {per_step}, "
+                         f"per test call {test_counts} over {n_calls}, "
+                         f"kernels that must not run {bad_never}")
+    return (train_counts, {k: v // n_calls for k, v in test_counts.items()},
+            aug)
 
 
 def flat_detection_ids(cls_logits, deltas, props, valid, hw):
@@ -3145,7 +3291,7 @@ def det_card_vs_cpu():
     the float64 gradient norm (`TRAIN_RTOL`)."""
     from vitadapter_torch.builder import build_model
     from vitadapter_torch.data.preprocess import normalize
-    from vitadapter_torch.det import mask_rcnn as mr
+    from vitadapter_torch.det import rpn
     from vitadapter_torch.det.roi_align import multi_level_roi_align
     from vitadapter_torch.ops import cuda_ext
     from vitadapter_torch.train.optim import make_optimizer
@@ -3173,14 +3319,15 @@ def det_card_vs_cpu():
         (on `props` when given) of the model on x."""
         with torch.inference_mode():
             feats = model.extract_feats(normalize(x))
-            cls_out, reg_out, _, (p, _, valid) = model._rpn(feats, hw, 1000)
+            cls_out, reg_out, _, (p, _, valid) = rpn.rpn_proposals(
+                model.rpn_head, feats, hw, 1000)
             props = (p, valid) if props is None else props
             roi = []
             for b in range(x.shape[0]):
                 fb = [f[b] for f in feats[:4]]
                 pb = props[0][b].to(x.device)
                 roi.append(model.roi_head.bbox_head(multi_level_roi_align(
-                    fb, pb, 7, mr.FPN_STRIDES[:4])))
+                    fb, pb, 7, rpn.FPN_STRIDES[:4])))
         return feats, cls_out + reg_out, (p, valid), roi
 
     before = dict(cuda_ext.launches)
@@ -3247,7 +3394,7 @@ def det_card_vs_cpu():
         return u
 
     captured = []
-    get_proposals = mr.get_proposals
+    get_proposals = rpn.get_proposals
 
     def capture(*a, **kw):
         out = get_proposals(*a, **kw)
@@ -3258,10 +3405,10 @@ def det_card_vs_cpu():
     try:
         for side, model in (("cuda", card), ("cpu", cpu)):
             if side == "cuda":
-                mr.get_proposals = capture
+                rpn.get_proposals = capture
                 sampler = recorded
             else:
-                mr.get_proposals = lambda *a, **kw: captured[0]
+                rpn.get_proposals = lambda *a, **kw: captured[0]
                 replay = list(draws)
                 sampler = lambda shape: replay.pop(0)  # noqa: E731
             opt, _ = make_optimizer(model, base_lr=cfg.optimizer["lr"],
@@ -3280,7 +3427,7 @@ def det_card_vs_cpu():
             results[side] = (logs, time.perf_counter() - t0,
                              launch_diff(cuda_ext.launches, before))
     finally:
-        mr.get_proposals = get_proposals
+        rpn.get_proposals = get_proposals
     (got, t_card, used), (ref, t_cpu, _) = results["cuda"], results["cpu"]
     keys = ("loss", "loss_rpn_cls", "loss_rpn_bbox", "loss_cls",
             "loss_bbox", "loss_mask", "grad_norm_f64")
@@ -3296,6 +3443,300 @@ def det_card_vs_cpu():
         f"kernel launches {used} (want {want})")
     if not ok or used != want:
         raise SystemExit("FAIL: Mask R-CNN train step card vs CPU "
+                         f"(launches {used}, want {want})")
+
+
+def htc_cli():
+    """Phase 17: the shipped crop raises the port's ValueError (one
+    `tools.train.main` step as shipped), then `run_det_cli` on
+    `HTC_CONFIG` at the 1600x1408 canvas with `--aug-test` on
+    `HTC_MS_CONFIG`. Returns the launches of the first run's train steps
+    and of one model call of the test CLI."""
+    import gc
+    import tempfile
+
+    from vitadapter_torch.det.cascade import CascadeRCNN
+    from vitadapter_torch.tools import train as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_htc_crop_")
+    error = None
+    try:
+        train_cli.main([HTC_CONFIG, "--synthetic-data", "--work-dir", tmp,
+                        "--max-iters", "1"], log_fn=lambda *_: None)
+    except ValueError as e:
+        error = str(e)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"htc CLI as shipped (crop_size [1600, 1400]): ValueError "
+        f"{error!r}; the runs below take {HTC_CROP}")
+    if error is None or "multiple of 32" not in error:
+        raise SystemExit("FAIL: the HTC++ configs' shipped crop did not "
+                         "raise the port's ValueError")
+    train_counts, test_counts, _ = run_det_cli(
+        "htc", CascadeRCNN, HTC_CONFIG, HTC_OPTIONS, HTC_STEPS,
+        HTC_STEP_LAUNCHES, HTC_CALL_LAUNCHES, DET_NEVER, DET_IMAGES,
+        aug_config=HTC_MS_CONFIG)
+    return train_counts, test_counts
+
+
+def one_det_steps():
+    """Phase 18: one train step of each `ONE_STEP_CONFIGS` config at full
+    size on a synthetic batch (the config's `samples_per_chip` and crop,
+    100 instances): `build_model`, `make_optimizer` as the det loop builds
+    it, `make_det_train_step`. Checks finite losses and gradient norm and
+    the step's launches; logs the step's seconds (host clock to a
+    synchronize, its first step: the kernels are built) and peak
+    memory."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.det_loop import (det_batch_to_device,
+                                                 synthetic_det_batches)
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_det_train_step
+    from vitadapter_torch.utils.config import Config
+
+    for config, (options, want) in ONE_STEP_CONFIGS.items():
+        cfg = Config.fromfile(config)
+        cfg.merge_from_options(options)
+        model = build_model(dict(cfg.model))
+        opt = cfg.optimizer
+        optimizer, _ = make_optimizer(
+            model, base_lr=opt["lr"], weight_decay=opt["weight_decay"],
+            depth=cfg.model["backbone"]["depth"],
+            layer_decay_rate=opt.get("layer_decay_rate", 1.0),
+            total_steps=1000, warmup_steps=500)
+        crop = tuple(cfg.data["crop_size"])
+        b = next(synthetic_det_batches(cfg.data["samples_per_chip"], crop,
+                                       100, cfg.model["num_classes"]))
+        b = det_batch_to_device(b, torch.device("cuda"))
+        step = make_det_train_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(cuda_ext.launches)
+        t0 = time.perf_counter()
+        _, logs = step(TrainState.create(model, optimizer), b,
+                       torch.Generator("cuda").manual_seed(18))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        used = launch_diff(cuda_ext.launches, before)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        logs = {k: float(v) for k, v in logs.items()}
+        finite = all(v == v and abs(v) != float("inf")
+                     for v in logs.values())
+        dtype = cfg.model.get("dtype", "float32")
+        log(f"one det step {config} (crop {list(crop)}, batch "
+            f"{cfg.data['samples_per_chip']}, {dtype}): {secs:.2f} s (host clock, first step), peak memory "
+            f"{peak:.2f} GiB; logs {logs}; launches {used} (want {want})")
+        del model, optimizer, step, b, logs
+        torch.cuda.empty_cache()
+        if not finite or used != want:
+            raise SystemExit(f"FAIL: one det step of {config}")
+
+
+def cascade_detection_ids(stage_outs, rois, valid, K, hw):
+    """The kept detections of `CascadeRCNN.forward` on one image, from its
+    stages' (class logits, deltas) and the last stage's rois before its
+    regression: roi * K + class ids (the set that NMS keeps) and their
+    boxes by id."""
+    from vitadapter_torch.det.boxes import (batched_nms, delta2bbox,
+                                            stable_top_k)
+    from vitadapter_torch.det.cascade import STAGE_STDS
+
+    probs = sum(torch.softmax(c, -1) for c, _ in stage_outs) / len(stage_outs)
+    final = delta2bbox(rois, stage_outs[-1][1][:, 0], STAGE_STDS[-1], hw)
+    flat = probs[:, :K].reshape(-1)
+    ok = (flat > 0.05) & valid.repeat_interleave(K)
+    top_s, top_i = stable_top_k(torch.where(ok, flat, -torch.inf),
+                                min(2048, len(flat)))
+    labels = torch.arange(K, device=flat.device).repeat(len(rois))
+    boxes, _, _, keep = batched_nms(
+        final.repeat_interleave(K, 0)[top_i], top_s, labels[top_i], 0.5,
+        100, valid=torch.isfinite(top_s))
+    kept = keep >= 0
+    return dict(zip(top_i[keep[kept]].tolist(), boxes[kept].cpu()))
+
+
+def htc_card_vs_cpu():
+    """Phase 19: `HTC_CONFIG` reduced to depth 4 (three windowed blocks and
+    one global, one block per interaction) at full width (embed 1024, 16
+    heads, ExtraAttention 8 heads of 128, FPN 256), fp32, TF32 off, drop
+    path 0, at 256 px, batch 2: on the card and on the CPU from the same
+    weights. Eval: the FPN maps, the RPN outputs and the semantic
+    embedding within `E2E_RTOL` of each one's scale; the three stages on
+    the card's proposals (each side refining its own rois), their class
+    logits and deltas within `E2E_RTOL`; the detections' kept sets
+    (proposal x class ids) compared, the share that agrees reported, and
+    where they agree the boxes within `E2E_RTOL` of the image size. Train:
+    one `make_det_train_step` each on the same batch and the same sampler
+    draws, the CPU on the card's proposals, compared by the eleven losses
+    and the float64 gradient norm (`TRAIN_RTOL`)."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.det import rpn
+    from vitadapter_torch.det.boxes import delta2bbox
+    from vitadapter_torch.det.cascade import STAGE_STDS
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_det_train_step
+    from vitadapter_torch.utils.config import Config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(HTC_CONFIG)
+    cfg.merge_from_options({
+        "model.backbone.depth": 4, "model.backbone.drop_path_rate": 0.0,
+        "model.backbone.window_attn": [True, True, True, False],
+        "model.backbone.window_size": [14, 14, 14, None],
+        "model.backbone.interaction_indexes": [[0, 0], [1, 1], [2, 2],
+                                               [3, 3]]})
+    gen = torch.Generator().manual_seed(23)
+    cpu = build_model(dict(cfg.model), device="cpu", generator=gen)
+    randomize(cpu, gen)
+    card = copy.deepcopy(cpu).cuda()
+    hw = (256, 256)
+    K = cfg.model["num_classes"]
+    img = torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8, generator=gen)
+
+    def stages(model, x, props=None):
+        """FPN maps, RPN outputs, proposals, the semantic embedding and,
+        per image, the stages' (class logits, deltas) on `props` (the
+        model's own when None) and the rois the last stage regresses."""
+        with torch.inference_mode():
+            feats = model.extract_feats(normalize(x))
+            cls_out, reg_out, _, (p, _, valid) = rpn.rpn_proposals(
+                model.rpn_head, feats, hw, 1000)
+            props = (p, valid) if props is None else props
+            _, sem = model.semantic_feats(feats)
+            per_image = []
+            for b in range(x.shape[0]):
+                fb = [f[b] for f in feats[:4]]
+                rois, outs = props[0][b].to(x.device), []
+                for s, head in enumerate(model.roi_head.bbox_head):
+                    outs.append(head(model.roi_feats(fb, sem[b], rois, 7)))
+                    if s < len(STAGE_STDS) - 1:
+                        rois = delta2bbox(rois, outs[-1][1][:, 0],
+                                          STAGE_STDS[s], hw)
+                per_image.append((outs, rois))
+        return feats, cls_out + reg_out, (p, valid), sem, per_image
+
+    before = dict(cuda_ext.launches)
+    g_feats, g_rpn, g_props, g_sem, g_img = stages(card, img.cuda())
+    used = launch_diff(cuda_ext.launches, before)
+    shared = tuple(t.cpu() for t in g_props)
+    t0 = time.perf_counter()
+    c_feats, c_rpn, c_props, c_sem, c_img = stages(cpu, img, shared)
+    t_cpu = time.perf_counter() - t0
+
+    def rel(got, ref):
+        return float((got.cpu() - ref).abs().max() / ref.abs().max())
+
+    errs = {"fpn": max(rel(a, b) for a, b in zip(g_feats, c_feats)),
+            "rpn": max(rel(a, b) for a, b in zip(g_rpn, c_rpn)),
+            "semantic": rel(g_sem, c_sem),
+            "stages": max(rel(a, b) for (go, _), (co, _) in zip(g_img, c_img)
+                          for g, c in zip(go, co) for a, b in zip(g, c))}
+    prop_same = [bool(torch.equal(a.cpu(), b))
+                 for a, b in zip(g_props[1], c_props[1])]
+    prop_err = float((g_props[0].cpu() - c_props[0]).abs().max())
+    agree, total, box_err = 0, 0, 0.0
+    for b in range(img.shape[0]):
+        g = cascade_detection_ids(*g_img[b], g_props[1][b], K, hw)
+        c = cascade_detection_ids(*c_img[b], shared[1][b], K, hw)
+        common = set(g) & set(c)
+        agree += len(common)
+        total += len(set(g) | set(c))
+        for i in common:
+            box_err = max(box_err, float((g[i] - c[i]).abs().max()))
+    share = agree / max(total, 1)
+    ok = (all(e <= E2E_RTOL for e in errs.values())
+          and box_err <= E2E_RTOL * max(hw) and total > 0)
+    want = {"attention_fwd": 5, "msda_fwd": 10, "nms": 2}
+    log(f"AugReg-L HTC++ (depth 4, full width, 256 px, batch 2) fp32 card "
+        f"vs CPU: relative errors {errs} (tol {E2E_RTOL} of each output's "
+        f"scale); the CPU's own proposals: valid flags equal {prop_same}, "
+        f"boxes max_abs_err {prop_err:.3e}; detections on the card's "
+        f"proposals: {agree} of {total} kept (proposal, class) ids agree "
+        f"({share:.4f}), their boxes max_abs_err {box_err:.3e} (tol "
+        f"{E2E_RTOL * max(hw):.3f}) ok={ok}; CPU {t_cpu:.1f} s; kernel "
+        f"launches {used} (want {want})")
+    if not ok or used != want:
+        raise SystemExit("FAIL: HTC++ card vs CPU")
+
+    G = 20
+    xy = torch.rand(2, G, 2, generator=gen) * 200
+    wh = 8 + torch.rand(2, G, 2, generator=gen) * 48
+    boxes = torch.cat([xy, xy + wh], -1)
+    masks = torch.zeros(2, G, *hw, dtype=torch.bool)
+    for b in range(2):
+        for i in range(G):
+            x1, y1, x2, y2 = boxes[b, i].long().tolist()
+            masks[b, i, y1:y2, x1:x2] = True
+    batch = {"image": torch.randn(2, *hw, 3, generator=gen),
+             "gt_boxes": boxes,
+             "gt_labels": torch.randint(0, K, (2, G), generator=gen),
+             "gt_masks": masks,
+             "gt_valid": torch.arange(G).expand(2, G) < G - 3}
+    draws = []
+
+    def recorded(shape):
+        u = torch.rand(tuple(shape), generator=gen)
+        draws.append(u)
+        return u
+
+    captured = []
+    get_proposals = rpn.get_proposals
+
+    def capture(*a, **kw):
+        out = get_proposals(*a, **kw)
+        captured.append(tuple(t.cpu() for t in out))
+        return out
+
+    results = {}
+    try:
+        for side, model in (("cuda", card), ("cpu", cpu)):
+            if side == "cuda":
+                rpn.get_proposals = capture
+                sampler = recorded
+            else:
+                rpn.get_proposals = lambda *a, **kw: captured[0]
+                replay = list(draws)
+                sampler = lambda shape: replay.pop(0)  # noqa: E731
+            opt, _ = make_optimizer(model, base_lr=cfg.optimizer["lr"],
+                                    weight_decay=cfg.optimizer["weight_decay"],
+                                    depth=4, total_steps=1000, warmup_steps=0)
+            step = make_det_train_step(model)
+            bd = {k: v.to(side) for k, v in batch.items()}
+            before = dict(cuda_ext.launches)
+            t0 = time.perf_counter()
+            _, logs = step(TrainState.create(model, opt), bd,
+                           torch.Generator(side).manual_seed(20), sampler)
+            logs = {k: float(v) for k, v in logs.items()}
+            logs["grad_norm_f64"] = float(sum(
+                p.grad.double().square().sum() for p in model.parameters()
+                if p.grad is not None).sqrt())
+            results[side] = (logs, time.perf_counter() - t0,
+                             launch_diff(cuda_ext.launches, before))
+    finally:
+        rpn.get_proposals = get_proposals
+    (got, t_card, used), (ref, t_cpu, _) = results["cuda"], results["cpu"]
+    keys = ["loss", "loss_rpn_cls", "loss_rpn_bbox", "grad_norm_f64"] + [
+        f"s{s}.{k}" for s in range(3)
+        for k in ("loss_cls", "loss_bbox", "loss_mask")]
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in keys}
+    ok = all(v <= TRAIN_RTOL for v in rel.values()) and not replay
+    # `with_cp` recomputes the 4 blocks' forwards in the backward;
+    # ExtraAttention runs once each way
+    want = {"attention_fwd": 9, "attention_bwd": 5, "msda_fwd": 10,
+            "msda_bwd": 10, "nms": 2}
+    log(f"AugReg-L HTC++ (depth 4, full width, 256 px, batch 2) fp32 train "
+        f"step card vs CPU (same draws, the CPU on the card's proposals): "
+        f"card {got} CPU {ref} rel {rel} (tol {TRAIN_RTOL}) ok={ok}; CPU "
+        f"step {t_cpu:.1f} s, card step {t_card:.2f} s; kernel launches "
+        f"{used} (want {want})")
+    if not ok or used != want:
+        raise SystemExit("FAIL: HTC++ train step card vs CPU "
                          f"(launches {used}, want {want})")
 
 
@@ -3398,10 +3839,27 @@ def main():
     log(f"phases 15 and 16 took {t15:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
+    # phase 17: the config CLI on the AugReg-L HTC++ config, --aug-test
+    t0 = time.perf_counter()
+    htc_counts, htc_test_counts = htc_cli()
+    t17 = time.perf_counter() - t0
+
+    # phase 18: one step each of the BEiTv2 HTC++ and the bf16 Cascade
+    t0 = time.perf_counter()
+    one_det_steps()
+    t18 = time.perf_counter() - t0
+
+    # phase 19: HTC++, card against CPU
+    t0 = time.perf_counter()
+    htc_card_vs_cpu()
+    log(f"phases 17, 18 and 19 took {t17:.1f}, {t18:.1f} and "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+
     paths = {"serve": serve_counts, "train": train_counts,
              "eval_whole": eval_counts, "train_overline": overline_counts,
              "cli": cli_counts, "upernet": upernet_counts, "det": det_counts,
-             "det_test": det_test_counts}
+             "det_test": det_test_counts, "htc": htc_counts,
+             "htc_test": htc_test_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -3436,6 +3894,9 @@ def main():
         if "det_test" in r.get("paths", {}):
             per += ("; paths.det_test: per phase 15 test model call (one "
                     "800x1344 image)")
+        if "htc" in r.get("paths", {}):
+            per += ("; paths.htc: per phase 17 train step (AugReg-L HTC++, "
+                    "1600x1408 canvas, batch 1, fp32)")
         if "det_bf16" in r.get("paths", {}):
             per += ("; paths.det_bf16: per train step of the DeiT-S Mask "
                     "R-CNN configs (1024 canvas, batch 2, bf16; not run "

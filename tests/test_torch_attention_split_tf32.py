@@ -27,6 +27,16 @@ ATOL, RTOL = 1e-5, 1e-5
 GRAD_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tf32(x):
     """x with its 13 low mantissa bits cleared: exactly TF32."""
     return (x.view(torch.int32) & -(1 << 13)).view(torch.float32)

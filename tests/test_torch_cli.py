@@ -207,8 +207,8 @@ def test_cli_refusals(tmp_path, monkeypatch):
     """What is not ported raises and names its ROADMAP item; no CUDA and
     no `--device` raises."""
     cfg = _config(tmp_path)
-    detector = os.path.join(ROOT, "configs/cascade_rcnn/cascade_mask_rcnn_"
-                            "deit_adapter_base_fpn_3x_coco.py")
+    detector = os.path.join(ROOT, "configs/atss/atss_deit_adapter_small_"
+                            "fpn_3x_coco.py")
     with pytest.raises(KeyError, match="item 7"):
         test_cli.main([detector, "x.pth", "--eval", "bbox", "--device",
                        "cpu"])

@@ -34,6 +34,16 @@ OPTIONS = ["model.backbone.depth=2", "data.crop_size=[64,64]",
            "new.key=(1,2)", "log_config.interval=1"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _semantic_m2f(path):
     """A Mask2Former head on one of the semantic-segmentation datasets."""
     cfg = Config.fromfile(os.path.join(ROOT, path))
@@ -112,13 +122,21 @@ def test_builder_refuses_what_is_not_ported():
     with pytest.raises(KeyError, match="item 8"):
         builder.build(dict(uniperceiver.model))
     with pytest.raises(KeyError, match="item 7"):
-        builder.build({"type": "CascadeRCNN"})
+        builder.build({"type": "ATSS"})
     with pytest.raises(KeyError, match="unknown component type"):
         builder.build({"type": "NoSuchThing"})
     cfg = Config.fromfile(os.path.join(ROOT, M2F_640))
-    cfg.merge_from_options({"model.backbone.window_attn": True})
+    cfg.merge_from_options({"model.backbone.use_abs_pos_emb": True})
     with pytest.raises(NotImplementedError, match="item 4"):
         builder.build(dict(cfg.model))
+    # what these refused before they were ported now builds: the cascade
+    # detector, and BEiT's windowed blocks without a cls token
+    cfg = Config.fromfile(os.path.join(ROOT, M2F_640))
+    cfg.merge_from_options({"model.backbone.window_attn": True,
+                            "model.backbone.use_cls_token": False})
+    assert builder.build(dict(cfg.model)).backbone.blocks[0].attn.windowed
+    assert type(builder.build({"type": "CascadeRCNN", "backbone": dict(
+        cfg.model["backbone"])})).__name__ == "CascadeRCNN"
 
 
 def test_builder_maps_dtype_strings_and_materializes():

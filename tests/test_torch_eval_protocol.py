@@ -41,6 +41,16 @@ RATIOS = [0.75, 1.0]
 
 # --- the numpy helpers and the metrics -------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("hw", [(97, 151), (151, 97), (30, 200), (512, 683)])
 def test_seg_protocol_helpers_match_jax(hw):
     ho, wo = hw

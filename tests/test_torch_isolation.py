@@ -20,6 +20,16 @@ DET_MODULES = {f"vitadapter_torch.{m}" for m in (
     "det.roi_heads", "det.rpn", "data.coco", "ops.nms", "train.det_loop")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in FORBIDDEN

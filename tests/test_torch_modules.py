@@ -34,6 +34,16 @@ from torch_port_util import (TINY_BACKBONE, TINY_HEAD, randomize_flax,
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port(jax_module, port_module, seed, *args, **kwargs):
     """flax init -> random weights -> the port module (eval, weights
     loaded). Returns (jax variables, port module)."""

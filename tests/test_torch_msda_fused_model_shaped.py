@@ -44,6 +44,16 @@ MSDA_TOLS = {"out": dict(rtol=1e-5, atol=1e-5),
              "attn": dict(rtol=1e-5, atol=1e-5)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _model_locations(shapes, grid, M, P, seed):
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")

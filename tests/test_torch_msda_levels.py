@@ -36,6 +36,16 @@ SHAPES = ((40, 30), (8, 6))
 BF16_TOL = {"out": 1.5e-2, "value": 2.0 ** -8, "loc": 7e-3, "attn": 4e-3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, B=1, Lq=50, M=2, D=32, P=4):
     rng = np.random.RandomState(seed)
     L = len(SHAPES)

@@ -31,6 +31,16 @@ from vitadapter_torch.ops import msda as tmsda
 from vitadapter_torch.utils import resize as tresize
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _msda_inputs(case, seed, shapes=((13, 17), (7, 9)), B=2, Lq=11, M=3,
                  D=8, P=4):
     rng = np.random.RandomState(seed)

@@ -29,6 +29,16 @@ SIDES = (1, 2, 3, 7, 16, 31, 64, 100, 127, 128, 130, 255, 448, 512, 1000,
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ceil_div(a, b):
     return -(-a // b)
 

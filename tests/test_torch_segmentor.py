@@ -25,6 +25,16 @@ from vitadapter_torch.utils.weights import load_flax, state_dict_from_flax
 from torch_port_util import TINY_BACKBONE, TINY_HEAD, randomize
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_segmentor(seed):
     model = EncoderDecoderMask2Former(
         ViTAdapter(**TINY_BACKBONE),

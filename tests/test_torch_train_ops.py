@@ -50,6 +50,16 @@ from torch_port_util import (TINY_HEAD, ReplaySampler, jax_loss_draws,
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

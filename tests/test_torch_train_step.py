@@ -55,6 +55,16 @@ OPT = dict(base_lr=1e-4, depth=BACKBONE["depth"], total_steps=1000,
 LOG_KEYS = {"loss", "grad_norm", "loss_cls", "loss_mask", "loss_dice"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The test workers share the host's cores: torch's intra-op threads on
+    top of them make the small eager ops here many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def step_pair():
     """(jax new state, jax logs, jax grads, port model, port logs, initial

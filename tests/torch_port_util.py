@@ -125,6 +125,25 @@ DET_BACKBONE = dict(patch_size=16, embed_dim=48, depth=4, num_heads=4,
 DET_HEADS = dict(num_classes=5, fpn_channels=32, num_proposals_test=50,
                  num_proposals_train=50, num_roi_samples=16, max_dets=10)
 DET_HW = (64, 96)
+# the tiny HTC++ heads of `tests/test_cascade.py`: ExtraAttention, the
+# semantic branch, 3 stages with the mask information flow
+CASCADE_HEADS = dict(num_classes=5, fpn_channels=32, num_proposals=50,
+                     num_roi_samples=16, max_dets=10,
+                     use_extra_attention=True, with_semantic=True)
+
+
+def scale_cascade_logits(params):
+    """A flax `CascadeRCNN` tree with the stages' class and box layers
+    scaled by 0.01 and the mask logits' by 0.1, so that logits and deltas
+    are of order 1, as a trained head gives them (deltas of order 30 would
+    move the next stage's rois by whole boxes, and float noise with
+    them)."""
+    for s in range(3):
+        for head, layer, k in ((f"bbox_head_{s}", "fc_cls", 0.01),
+                               (f"bbox_head_{s}", "fc_reg", 0.01),
+                               (f"mask_head_{s}", "conv_logits", 0.1)):
+            params[head][layer]["kernel"] = params[head][layer]["kernel"] * k
+    return params
 
 
 def assert_close(got, want, tol=2e-4, msg=""):

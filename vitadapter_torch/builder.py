@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from vitadapter_torch.det.cascade import CascadeRCNN
 from vitadapter_torch.det.mask_rcnn import MaskRCNN
 from vitadapter_torch.heads.mask2former import Mask2FormerHead
 from vitadapter_torch.heads.upernet import FCNHead, UPerHead
@@ -44,13 +45,14 @@ REGISTRY: Dict[str, Any] = {
     "EncoderDecoderMask2Former": EncoderDecoderMask2Former,
     # detection
     "MaskRCNN": MaskRCNN,
+    "CascadeRCNN": CascadeRCNN,
 }
 
 # the JAX package's other component types, by the ROADMAP.md §1 item that
 # will port them
 NOT_PORTED = {
     "MaskFormerHead": "item 3 (MaskFormerHead and panoptic)",
-    **dict.fromkeys(("CascadeRCNN", "ATSS", "SparseRCNN", "DINO"),
+    **dict.fromkeys(("ATSS", "SparseRCNN", "DINO"),
                     "item 7 (detection)"),
     **dict.fromkeys(("GroundingDINO", "UniPerceiverAdapter",
                      "UnifiedBertEncoder"), "item 8 (grounding)"),

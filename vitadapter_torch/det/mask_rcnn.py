@@ -24,11 +24,10 @@ from vitadapter_torch.det.roi_heads import (FCNMaskHead, Shared2FCBBoxHead,
                                             bbox_head_loss,
                                             decode_detections,
                                             mask_head_loss)
-from vitadapter_torch.det.rpn import (RPNHead, get_proposals, level_anchors,
-                                      rpn_loss)
+from vitadapter_torch.det.rpn import (FPN_STRIDES, RPNHead, rpn_loss,
+                                      rpn_proposals)
 from vitadapter_torch.ops.point_sample import Sampler, uniform_sampler
 
-FPN_STRIDES = (4, 8, 16, 32, 64)
 LOSS_KEYS = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox",
              "loss_mask")
 
@@ -64,23 +63,14 @@ class MaskRCNN(nn.Module):
     def extract_feats(self, img, generator=None):
         return self.neck(self.backbone(img, generator=generator))
 
-    def _rpn(self, feats, img_hw, num_proposals):
-        cls_out, reg_out = self.rpn_head(feats)
-        anchors = level_anchors([f.shape[1:3] for f in feats], FPN_STRIDES,
-                                feats[0].device)
-        with torch.no_grad():
-            props = get_proposals(cls_out, reg_out, anchors, img_hw,
-                                  max_per_img=num_proposals)
-        return cls_out, reg_out, anchors, props
-
     def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The test path: {"boxes" (B, D, 4), "scores" (B, D), "labels"
         (B, D), "masks" (B, D, 28, 28) probabilities of each box's class in
         its box frame}, D = max_dets, -inf scores and -1 labels padded."""
         B, H, W, _ = img.shape
         feats = self.extract_feats(img)
-        _, _, _, (props, _, p_valid) = self._rpn(
-            feats, (H, W), self.num_proposals_test)
+        _, _, _, (props, _, p_valid) = rpn_proposals(
+            self.rpn_head, feats, (H, W), self.num_proposals_test)
         heads = self.roi_head
         out = {k: [] for k in ("boxes", "scores", "labels", "masks")}
         for b in range(B):
@@ -117,8 +107,8 @@ class MaskRCNN(nn.Module):
         if sampler is None:
             sampler = uniform_sampler(generator)
         feats = self.extract_feats(img, generator)
-        cls_out, reg_out, anchors, (props, _, p_valid) = self._rpn(
-            feats, (H, W), self.num_proposals_train)
+        cls_out, reg_out, anchors, (props, _, p_valid) = rpn_proposals(
+            self.rpn_head, feats, (H, W), self.num_proposals_train)
         losses = rpn_loss(cls_out, reg_out, torch.cat(anchors), gt_boxes,
                           gt_valid, sampler, (H, W))
         heads = self.roi_head

@@ -1,9 +1,10 @@
 """Detection necks (counterpart of `vitadapter/det/necks.py`): mmdet `FPN`
-(5 outputs, the extra level a stride-2 subsample of the last) and the
-reference's `ChannelMapperWithPooling`. They take and return NHWC maps;
-their keys are mmdet's (`lateral_convs.N.conv`, `fpn_convs.N.conv`,
-`convs.N.conv` / `convs.N.gn`). `ExtraAttention` and `ChannelMapper` come
-with the detectors that use them (ROADMAP.md §1 item 7)."""
+(5 outputs, the extra level a stride-2 subsample of the last), the
+reference's `ChannelMapperWithPooling` and HTC++'s `ExtraAttention`. They
+take and return NHWC maps; their keys are mmdet's (`lateral_convs.N.conv`,
+`fpn_convs.N.conv`, `convs.N.conv` / `convs.N.gn`) and the reference's
+(`norm1`, `attn.qkv`, `ffn.fc1`, `final_norm`, ...). `ChannelMapper`
+comes with the detector that uses it (ROADMAP.md §1 item 7)."""
 
 from typing import List, Optional, Sequence
 
@@ -12,8 +13,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vitadapter_torch.layers.attention import Attention
 from vitadapter_torch.layers.linear import Conv2d, conv_nhwc
-from vitadapter_torch.layers.norm import GroupNorm
+from vitadapter_torch.layers.mlp import Mlp
+from vitadapter_torch.layers.norm import GroupNorm, LayerNorm
 
 
 def nearest_resize(x: torch.Tensor, hw) -> torch.Tensor:
@@ -93,3 +96,31 @@ class ChannelMapperWithPooling(nn.Module):
             x = outs[-1].permute(0, 3, 1, 2)
             outs.append(F.max_pool2d(x, 2, 2).permute(0, 2, 3, 1))
         return outs
+
+
+class ExtraAttention(nn.Module):
+    """One global MHSA block on the coarsest level before the FPN
+    (reference `extra_attention.py:60-152`, with the JAX module's defaults,
+    which every config keeps): LayerNorm (torch's eps 1e-5), the global
+    `Attention` (8 heads, qkv with bias, the fused attention kernel on the
+    card), an FFN (ratio 4) with its own LayerNorm, and a final LayerNorm;
+    no layer-scale gammas. Other levels pass through."""
+
+    def __init__(self, dim: int, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=1e-5, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=True, dtype=dtype,
+                              device=device)
+        self.norm2 = LayerNorm(dim, eps=1e-5, device=device)
+        self.ffn = Mlp(dim, 4 * dim, dtype=dtype, device=device)
+        self.final_norm = LayerNorm(dim, eps=1e-5, device=device)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        feats = list(feats)
+        B, H, W, C = feats[-1].shape
+        x = feats[-1].reshape(B, H * W, C)
+        x = x + self.attn(self.norm1(x), H, W)
+        x = x + self.ffn(self.norm2(x))
+        feats[-1] = self.final_norm(x).reshape(B, H, W, C)
+        return feats

@@ -42,11 +42,24 @@ class Shared2FCBBoxHead(nn.Module):
 
 
 class FCNMaskHead(nn.Module):
+    """With `return_feat` (HTC's mask information flow, mmdet
+    `HTCMaskHead`) the head owns `conv_res_feat`, a 1x1 conv that adds the
+    previous stage's tower features to this stage's input, and returns its
+    own tower features beside the logits. The first stage has no previous
+    features: it adds 0 * conv_res_feat(x), as the JAX module does, so that
+    its parameters get (zero) gradients and converted checkpoints cover
+    them."""
+
     def __init__(self, num_classes: int = 80, in_channels: int = 256,
                  channels: int = 256, num_convs: int = 4,
+                 return_feat: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.return_feat = return_feat
+        if return_feat:
+            self.conv_res_feat = ConvModule(Conv2d(channels, in_channels, 1,
+                                                   **kw))
         self.convs = nn.ModuleList([
             ConvModule(Conv2d(in_channels if i == 0 else channels, channels,
                               3, padding=1, **kw))
@@ -54,12 +67,21 @@ class FCNMaskHead(nn.Module):
         self.upsample = ConvTranspose2d(channels, channels, 2, stride=2, **kw)
         self.conv_logits = Conv2d(channels, num_classes, 1, device=device)
 
-    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
-        """(R, 14, 14, C) -> fp32 mask logits (R, K, 28, 28)."""
+    def forward(self, roi_feats: torch.Tensor,
+                prev_feat: Optional[torch.Tensor] = None):
+        """(R, 14, 14, C) -> fp32 mask logits (R, K, 28, 28); with
+        `return_feat`, (logits, the tower's features (R, C, 14, 14)), the
+        previous stage's such features as `prev_feat`."""
         x = roi_feats.permute(0, 3, 1, 2)
+        if self.return_feat:
+            if prev_feat is not None:
+                x = x + self.conv_res_feat(prev_feat)
+            else:
+                x = x + 0.0 * self.conv_res_feat(x)
         for conv in self.convs:
             x = torch.relu(conv(x))
-        return self.conv_logits(torch.relu(self.upsample(x)))
+        logits = self.conv_logits(torch.relu(self.upsample(x)))
+        return (logits, x) if self.return_feat else logits
 
 
 def bbox_head_loss(cls_logits, deltas, sample, proposals, gt_boxes,

@@ -18,6 +18,8 @@ from vitadapter_torch.det.boxes import (RPN_STDS, bbox2delta, delta2bbox,
                                         nms, stable_top_k)
 from vitadapter_torch.layers.linear import Conv2d, conv_nhwc
 
+FPN_STRIDES = (4, 8, 16, 32, 64)
+
 
 class RPNHead(nn.Module):
     def __init__(self, num_anchors: int = 3, channels: int = 256,
@@ -102,6 +104,20 @@ def get_proposals(cls_out, reg_out, level_anchors: List[torch.Tensor],
            for b in range(B)]
     return (torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]),
             torch.stack([o[2] >= 0 for o in out]))
+
+
+def rpn_proposals(rpn_head: RPNHead, feats: Sequence[torch.Tensor],
+                  img_hw: Tuple[int, int], num_proposals: int):
+    """The RPN on the FPN levels `feats` (strides `FPN_STRIDES`): (cls_out,
+    reg_out, the levels' anchors, `get_proposals`' (boxes, scores, valid)
+    with `num_proposals` an image, computed without gradient)."""
+    cls_out, reg_out = rpn_head(feats)
+    anchors = level_anchors([f.shape[1:3] for f in feats], FPN_STRIDES,
+                            feats[0].device)
+    with torch.no_grad():
+        props = get_proposals(cls_out, reg_out, anchors, img_hw,
+                              max_per_img=num_proposals)
+    return cls_out, reg_out, anchors, props
 
 
 def level_anchors(feat_shapes, strides, device) -> List[torch.Tensor]:

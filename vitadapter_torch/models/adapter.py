@@ -32,7 +32,16 @@ def deform_inputs(h: int, w: int, device=None):
     """(injector_inputs, extractor_inputs) for an h x w image, each a
     (reference_points, spatial_shapes) pair. The injector queries the
     stride-16 token grid against the [8, 16, 32]-stride prior; the extractor
-    queries the prior against the stride-16 ViT map."""
+    queries the prior against the stride-16 ViT map. h and w must be
+    multiples of 32: elsewhere the prior's convolutions round the 1/16 and
+    1/32 maps up where the patch grid and these shapes round down, and the
+    JAX package fails its first injector's size assertion; the port raises
+    here (ROADMAP.md §3: the HTC++ configs' [1600, 1400] crop)."""
+    if h % 32 or w % 32:
+        raise ValueError(
+            f"the adapter's canvas must be a multiple of 32 a side; "
+            f"{h}x{w} is not (the HTC++ configs' crop_size [1600, 1400] "
+            f"runs as [1600, 1408])")
     shapes3 = ((h // 8, w // 8), (h // 16, w // 16), (h // 32, w // 32))
     shapes1 = ((h // 16, w // 16),)
 

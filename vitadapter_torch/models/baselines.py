@@ -118,11 +118,11 @@ class BEiTBaseline(BEiT):
         cls = self.cls_token.to(t.dtype).expand(B, -1, -1)
         t = torch.cat([cls, t], dim=1)
         if self.out_indices is None:
-            t = self.run_blocks(t, 0, len(self.blocks), generator)
+            t = self.run_blocks(t, H, W, 0, len(self.blocks), generator)
             return self.pyramid(t[:, 1:].reshape(B, H, W, -1))
         taps, start = [], 0
         for idx in self.out_indices:
-            t = self.run_blocks(t, start, idx + 1, generator)
+            t = self.run_blocks(t, H, W, start, idx + 1, generator)
             start = idx + 1
             taps.append(t[:, 1:].reshape(B, H, W, -1))
         return self.pyramid(taps)

@@ -1,11 +1,18 @@
-"""BEiT trunk (counterpart of `vitadapter/models/beit.py`, the segmentation
-variant): a qkv projection without bias plus separate q and v biases,
-per-block relative-position bias tables over the full patch grid with three
-cls buckets, layer scale `gamma_1`/`gamma_2`, and a cls token riding along
-every block. `embed()` / `run_blocks()` let the adapter interleave its
-interactions between block spans. Parameter names are the reference's
-(`cls_token`, `patch_embed.proj`, `blocks.N.attn.relative_position_bias_table`,
+"""BEiT trunk (counterpart of `vitadapter/models/beit.py`): a qkv
+projection without bias plus separate q and v biases, per-block
+relative-position bias tables, layer scale `gamma_1`/`gamma_2`, and
+`embed()` / `run_blocks()` to let the adapter interleave its interactions
+between block spans. Parameter names are the reference's (`cls_token`,
+`patch_embed.proj`, `blocks.N.attn.relative_position_bias_table`,
 `blocks.N.gamma_1`, ...).
+
+The segmentation variant carries a cls token along every block, and its
+tables span the `img_size // patch_size` grid with three cls buckets. The
+detection variant (reference det `base/beit.py`) sets `use_cls_token=False`
+and per-depth `window_attn` / `window_size`: a windowed block pads the
+token grid at the bottom and right to a window multiple and attends inside
+each window, its table spanning the window; a global block's table spans
+the `img_size // patch_size` grid; neither has cls buckets.
 
 The attention carries a bias, so it runs as plain PyTorch (the fused
 attention kernel takes none, as the JAX package's Pallas kernel takes
@@ -14,25 +21,27 @@ none). With `with_cp` each block is recomputed in the backward
 DropPath's draws are replayed there from the generator's saved state.
 """
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from vitadapter_torch.layers.attention import window_partition, window_reverse
 from vitadapter_torch.layers.drop import DropPath, checkpointed
 from vitadapter_torch.layers.linear import Linear
 from vitadapter_torch.layers.mlp import Mlp
 from vitadapter_torch.layers.norm import LayerNorm
 from vitadapter_torch.layers.patch_embed import PatchEmbed
+from vitadapter_torch.models.vit import per_block
 
-# the port has BEiT as every config of `configs/` sets it for segmentation:
-# q/v biases, relative-position tables with cls buckets, no absolute pos
-# embed, global attention, a cls token, layer scale
-NOT_PORTED = ("BEiT is ported as the segmentation configs set it (q/v "
-              "biases, relative-position bias, no absolute pos embed, "
-              "global attention with a cls token); the detection variant "
-              "(windowed attention, no cls token, a hybrid stem, version "
-              "'new') is not ported yet: ROADMAP.md §1 item 4")
+# the BEiT options of the JAX module that no config of `configs/` sets
+NOT_PORTED = ("BEiT is ported with q/v biases, relative-position tables, "
+              "no absolute pos embed, global or windowed attention and an "
+              "optional cls token; a hybrid CNN stem (`hybrid_backbone`), "
+              "an absolute pos embed, or no qkv bias or relative-position "
+              "bias are not ported yet: ROADMAP.md §1 item 4")
 
 
 def relative_position_index(wh: int, ww: int, with_cls: bool) -> np.ndarray:
@@ -65,22 +74,32 @@ def relative_position_index(wh: int, ww: int, with_cls: bool) -> np.ndarray:
 class BEiTAttention(nn.Module):
     """BEiT MHSA over (B, N, C) tokens: a qkv projection without bias, the
     bias cat(q_bias, 0, v_bias) added after it, and the relative-position
-    bias gathered from `relative_position_bias_table` ((nrd, heads), 3 cls
-    buckets) for the (gh, gw) patch grid plus the cls token."""
+    bias gathered from `relative_position_bias_table` for the (gh, gw)
+    grid it spans (plus 3 cls buckets `with_cls`). A `windowed` block
+    zero-pads the (H, W) token grid at the bottom and right to a multiple
+    of `window_size` before the projection (the padded tokens get the
+    biases, as in the JAX module) and attends inside each window; its grid
+    is the window."""
 
     def __init__(self, dim: int, num_heads: int, rel_pos_grid: Tuple[int, int],
-                 dtype: torch.dtype = torch.float32, device=None):
+                 with_cls: bool = True, windowed: bool = False,
+                 window_size: int = 14, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.with_cls = with_cls
+        self.windowed = windowed
+        self.window_size = window_size
         self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype,
                           device=device)
         self.q_bias = nn.Parameter(torch.zeros(dim, device=device))
         self.v_bias = nn.Parameter(torch.zeros(dim, device=device))
         self.rel_pos_grid = gh, gw = rel_pos_grid
+        extra = 3 if with_cls else 0
         self.relative_position_bias_table = nn.Parameter(
-            torch.zeros((2 * gh - 1) * (2 * gw - 1) + 3, num_heads,
+            torch.zeros((2 * gh - 1) * (2 * gw - 1) + extra, num_heads,
                         device=device))
-        n = gh * gw + 1
+        n = gh * gw + (1 if with_cls else 0)
         # recomputed, not loaded: `init_weights` fills it
         self.register_buffer("relative_position_index",
                              torch.zeros(n * n, dtype=torch.long,
@@ -92,22 +111,24 @@ class BEiTAttention(nn.Module):
         self.q_bias.zero_()
         self.v_bias.zero_()
         self.relative_position_bias_table.zero_()
-        idx = relative_position_index(*self.rel_pos_grid, with_cls=True)
+        idx = relative_position_index(*self.rel_pos_grid, self.with_cls)
         self.relative_position_index.copy_(torch.from_numpy(idx.reshape(-1)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Attention over (B, N, C) tokens whose grid is the table's."""
         B, N, C = x.shape
         h = self.num_heads
         Dh = C // h
         gh, gw = self.rel_pos_grid
-        if N != gh * gw + 1:
+        if N != gh * gw + self.with_cls:
             # as in the JAX package and the reference, whose ms test
             # pipelines resize every image's short side to at least the
             # crop (SETR_Resize) so that no crop is smaller
             raise ValueError(
                 f"BEiT's relative-position tables span a {gh}x{gw} patch "
-                f"grid (img_size / patch_size); this input has {N - 1} "
-                f"patches: crops must be img_size square (ROADMAP.md §3)")
+                f"grid (img_size / patch_size); this input has "
+                f"{N - self.with_cls} patches: crops must be img_size "
+                f"square (ROADMAP.md §3)")
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
         qkv = self.qkv(x)
@@ -122,17 +143,32 @@ class BEiTAttention(nn.Module):
         logits = (logits + rel.permute(2, 0, 1)[None]).to(v.dtype)
         w = torch.softmax(logits.float(), dim=-1).to(v.dtype)
         out = torch.matmul(w, v)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return out.transpose(1, 2).reshape(B, N, C)
+
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        if not self.windowed:
+            return self.proj(self.attend(x))
+        B, N, C = x.shape
+        ws = self.window_size
+        Hp, Wp = math.ceil(H / ws) * ws, math.ceil(W / ws) * ws
+        xm = F.pad(x.reshape(B, H, W, C), (0, 0, 0, Wp - W, 0, Hp - H))
+        wnd = window_partition(xm, ws)                  # (B, L, ws*ws, C)
+        L = wnd.shape[1]
+        out = self.attend(wnd.reshape(B * L, ws * ws, C))
+        out = window_reverse(out.reshape(B, L, ws * ws, C), ws, Hp, Wp)
+        return self.proj(out[:, :H, :W].reshape(B, N, C))
 
 
 class BEiTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, rel_pos_grid: Tuple[int, int],
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
-                 init_values: float = 1e-6,
+                 init_values: float = 1e-6, with_cls: bool = True,
+                 windowed: bool = False, window_size: int = 14,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6, device=device)
-        self.attn = BEiTAttention(dim, num_heads, rel_pos_grid, dtype=dtype,
+        self.attn = BEiTAttention(dim, num_heads, rel_pos_grid, with_cls,
+                                  windowed, window_size, dtype=dtype,
                                   device=device)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=1e-6, device=device)
@@ -146,19 +182,23 @@ class BEiTBlock(nn.Module):
         self.gamma_1.fill_(self.init_values)
         self.gamma_2.fill_(self.init_values)
 
-    def forward(self, x: torch.Tensor,
+    def forward(self, x: torch.Tensor, H: int, W: int,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + self.drop_path(self.gamma_1 * self.attn(self.norm1(x)),
+        x = x + self.drop_path(self.gamma_1 * self.attn(self.norm1(x), H, W),
                                generator)
         return x + self.drop_path(self.gamma_2 * self.mlp(self.norm2(x)),
                                   generator)
 
 
 class BEiT(nn.Module):
-    """BEiT trunk with `embed()` / `run_blocks()` for adapter interleaving;
-    the relative-position tables span the `img_size // patch_size` grid.
-    The flags of the JAX module that the configs set are taken, and must
-    have the one value every config gives them (`NOT_PORTED`)."""
+    """BEiT trunk with `embed()` / `run_blocks()` for adapter interleaving.
+    Block i attends in windows of `window_size[i]` (None meaning 14) where
+    `window_attn[i]`, each option a value or a list by depth; a windowed
+    block's table spans its window, a global block's the `img_size //
+    patch_size` grid. With `use_cls_token` (the segmentation variant) the
+    cls token rides along the blocks, which then must all be global. The
+    flags of the JAX module that no config sets must keep their one value
+    (`NOT_PORTED`)."""
 
     def __init__(self, img_size: int = 512, patch_size: int = 16,
                  embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
@@ -170,14 +210,17 @@ class BEiT(nn.Module):
                  hybrid_backbone=None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        windowed = (any(window_attn) if isinstance(window_attn, (list, tuple))
-                    else bool(window_attn))
         if (not qkv_bias or use_abs_pos_emb or not use_rel_pos_bias
-                or windowed or not use_cls_token
                 or hybrid_backbone is not None):
             raise NotImplementedError(NOT_PORTED)
+        windowed = [bool(w) for w in per_block(window_attn, depth)]
+        sizes = [int(s or 14) for s in per_block(window_size, depth)]
+        if use_cls_token and any(windowed):
+            # the JAX module's windowed blocks take no cls token
+            raise ValueError("windowed BEiT blocks need use_cls_token=False")
         self.embed_dim = embed_dim
         self.with_cp = with_cp
+        self.use_cls_token = use_cls_token
         grid = img_size // patch_size
         dpr = np.linspace(0, drop_path_rate, depth)
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim, dtype=dtype,
@@ -185,8 +228,12 @@ class BEiT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim,
                                                   device=device))
         self.blocks = nn.ModuleList([
-            BEiTBlock(embed_dim, num_heads, (grid, grid), mlp_ratio,
-                      drop_path=float(dpr[i]), init_values=init_values,
+            BEiTBlock(embed_dim, num_heads,
+                      (sizes[i], sizes[i]) if windowed[i] else (grid, grid),
+                      mlp_ratio, drop_path=float(dpr[i]),
+                      init_values=init_values,
+                      with_cls=use_cls_token and not windowed[i],
+                      windowed=windowed[i], window_size=sizes[i],
                       dtype=dtype, device=device)
             for i in range(depth)])
 
@@ -198,19 +245,23 @@ class BEiT(nn.Module):
         """Patchify: (B, H*W, C) tokens, no cls token."""
         return self.patch_embed(x)
 
-    def run_blocks(self, x: torch.Tensor, start: int, end: int,
-                   generator: Optional[torch.Generator] = None
+    def run_blocks(self, x: torch.Tensor, H: int, W: int, start: int,
+                   end: int, generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        """Blocks [start, end) on (B, 1 + H*W, C) tokens, cls first; each
-        block is checkpointed under `with_cp` when a gradient is taken."""
+        """Blocks [start, end) on (B, H*W, C) tokens of an (H, W) grid, the
+        cls token first under `use_cls_token`; each block is checkpointed
+        under `with_cp` when a gradient is taken."""
         cp = self.with_cp and self.training and torch.is_grad_enabled()
         for blk in self.blocks[start:end]:
-            x = checkpointed(blk, x, generator) if cp else blk(x, generator)
+            x = (checkpointed(blk, x, generator, H, W) if cp
+                 else blk(x, H, W, generator))
         return x
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        tokens, _, _ = self.embed(x)
-        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
-        tokens = torch.cat([cls, tokens], dim=1)
-        return self.run_blocks(tokens, 0, len(self.blocks), generator)
+        tokens, H, W = self.embed(x)
+        if self.use_cls_token:
+            cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1,
+                                                          -1)
+            tokens = torch.cat([cls, tokens], dim=1)
+        return self.run_blocks(tokens, H, W, 0, len(self.blocks), generator)

@@ -1,14 +1,17 @@
-"""BEiT-Adapter backbone (counterpart of `vitadapter/models/beit_adapter.py`,
-the segmentation variant, `version="seg"`): the ViT-Adapter skeleton around
-a BEiT trunk.
+"""BEiT-Adapter backbone (counterpart of `vitadapter/models/beit_adapter.py`):
+the ViT-Adapter skeleton around a BEiT trunk.
 
 forward(image NHWC) -> [f1, f2, f3, f4] NHWC maps at strides 4/8/16/32, all
-with `embed_dim` channels. The BEiT cls token rides along each span of
-trunk blocks and is split off for the deformable interactions; the ViT
-features added to the four scales are the per-interaction trunk outputs
-x1..x4 (reference seg `beit_adapter.py:111-131`). As in the reference, the
-adapter subclasses the trunk, so parameter names are the reference's
-(`cls_token`, `blocks.N...`, `spm...`, `interactions.N...`).
+with `embed_dim` channels. In the segmentation variant the BEiT cls token
+rides along each span of trunk blocks and is split off for the deformable
+interactions; the detection variant (`use_cls_token=False`, windowed
+blocks) has none. The ViT features added to the four scales are the
+per-interaction trunk outputs x1..x4 (`version` "seg", reference seg
+`beit_adapter.py:111-131`, or its det alias "old"), or the final trunk map
+broadcast to all four (`version="new"`, the det default, det
+`beit_adapter.py:129`). As in the reference, the adapter subclasses the
+trunk, so parameter names are the reference's (`cls_token`, `blocks.N...`,
+`spm...`, `interactions.N...`).
 """
 
 from typing import Optional, Sequence
@@ -20,7 +23,7 @@ from vitadapter_torch.layers.linear import ConvTranspose2d
 from vitadapter_torch.layers.norm import BatchNorm
 from vitadapter_torch.models.adapter import (InteractionBlock,
                                              SpatialPriorModule, deform_inputs)
-from vitadapter_torch.models.beit import BEiT, NOT_PORTED
+from vitadapter_torch.models.beit import BEiT
 from vitadapter_torch.utils.resize import resize_2d
 
 
@@ -37,11 +40,12 @@ class BEiTAdapter(BEiT):
                  cffn_ratio: float = 0.25, deform_ratio: float = 0.5,
                  version: str = "seg", dtype: torch.dtype = torch.float32,
                  device=None, **trunk):
-        if version not in ("seg", "old"):
-            raise NotImplementedError(NOT_PORTED)
+        if version not in ("seg", "old", "new"):
+            raise ValueError(f"version {version!r}: 'seg', 'old' or 'new'")
         super().__init__(embed_dim=embed_dim, init_values=init_values,
                          drop_path_rate=drop_path_rate, dtype=dtype,
                          device=device, **trunk)
+        self.version = version
         self.interaction_indexes = tuple(tuple(s) for s in interaction_indexes)
         self.level_embed = nn.Parameter(torch.zeros(3, embed_dim,
                                                     device=device))
@@ -89,12 +93,16 @@ class BEiTAdapter(BEiT):
         dim = t.shape[-1]
         cls = [self.cls_token.to(t.dtype).expand(B, -1, -1)]
 
-        # interleaved interaction; the cls token rides along the blocks only
+        # interleaved interaction; the cls token (if any) rides along the
+        # blocks only
         outs = []
         for (a, b), layer in zip(self.interaction_indexes, self.interactions):
             def blocks_fn(tokens, _a=a, _b=b):
+                if not self.use_cls_token:
+                    return self.run_blocks(tokens, H, W, _a, _b + 1,
+                                           generator)
                 tokens = torch.cat([cls[0], tokens], dim=1)
-                tokens = self.run_blocks(tokens, _a, _b + 1, generator)
+                tokens = self.run_blocks(tokens, H, W, _a, _b + 1, generator)
                 cls[0] = tokens[:, :1]
                 return tokens[:, 1:]
 
@@ -108,9 +116,10 @@ class BEiTAdapter(BEiT):
         c4 = c[:, n2 + n3:].reshape(B, H // 2, W // 2, dim)
         c1 = self.up(c2.permute(0, 3, 1, 2)).permute(0, 2, 3, 1) + c1
 
-        # add the per-interaction trunk maps (the last one to every scale
-        # when there are not four interactions, as the JAX module does)
-        x1, x2, x3, x4 = outs if len(outs) == 4 else [outs[-1]] * 4
+        # add the per-interaction trunk maps, or the last one to every
+        # scale (version "new", or not four interactions, as the JAX module)
+        x1, x2, x3, x4 = (outs if self.version != "new" and len(outs) == 4
+                          else [outs[-1]] * 4)
         c1 = c1 + resize_2d(x1, (H * 4, W * 4), "bilinear")
         c2 = c2 + resize_2d(x2, (H * 2, W * 2), "bilinear")
         c3 = c3 + x3

@@ -1,14 +1,17 @@
 """Config-driven detection training and evaluation (counterpart of
-`vitadapter/train/det_loop.py`, on one device), for Mask R-CNN.
+`vitadapter/train/det_loop.py`, on one device), for Mask R-CNN and
+Cascade Mask R-CNN / HTC++.
 
 `run_det_training` is the reference's `detection/train.py` on the port's
 step loop (`train/loop.py::train_steps`): the COCO pipeline (flip,
 AutoAugment or one multi-scale resize, crop and zero pad to the static
 `crop_size` canvas) or synthetic batches, checkpoints, resume and the
 in-training `bbox`/`segm` evaluation. `run_det_eval` is `test.py --eval
-bbox segm`: keep-ratio resize to `test_cfg.img_scale`, zero pad to one of
-two canvases (landscape or portrait), detections mapped back to the
-original frame, masks pasted from their 28x28 box crops, COCO metrics.
+bbox segm [--aug-test]`: keep-ratio resize to `test_cfg.img_scale` (or to
+each `tta` scale, flipped and not), zero pad to one of two canvases
+(landscape or portrait), detections mapped back to the original frame
+(and the augs merged), masks pasted from their 28x28 box crops, COCO
+metrics.
 The JAX version shards images over a device mesh with one compiled program
 per canvas; the port runs `test_cfg.images_per_device` images of a canvas
 a model call, eagerly. Ground-truth masks travel as bool and are read as
@@ -29,6 +32,7 @@ from vitadapter_torch.data import transforms as T
 from vitadapter_torch.data.coco import CocoDataset, pad_targets
 from vitadapter_torch.data.loader import EpochSampler, prefetch
 from vitadapter_torch.data.preprocess import normalize
+from vitadapter_torch.det.cascade import merge_aug_detections
 from vitadapter_torch.det.coco_eval import COCOEvaluator
 from vitadapter_torch.train.loop import build_train_state, train_steps
 from vitadapter_torch.train.trainer import TrainState, make_det_train_step
@@ -263,34 +267,63 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
     """COCO-protocol metrics of `model` on `dataset` (reference
     `detection/test.py --eval bbox segm`): images keep-ratio resized to
     `test_cfg.img_scale` ((1333, 800) by default) and padded to one of two
-    static canvases, `test_cfg.images_per_device` (2) images of a canvas a
-    model call, detections mapped back to the original frame. `--aug-test`
-    needs the config's `tta` scales (HTC++'s); the merge of augmented
-    detections comes with Cascade/HTC (ROADMAP.md §1 item 7). The model
-    runs on the device of its parameters, in eval mode. Returns the
-    metrics, and under `timing` the seconds spent in model calls (to a
-    synchronize) and on the host (load, resize, paste, evaluator)."""
+    static canvases, `test_cfg.images_per_device` (2) inputs of a canvas a
+    model call, detections mapped back to the original frame. With
+    `aug_test` and the config's `tta` scales (HTC++'s `_ms` configs), the
+    reference HTC-Aug protocol (`htc_aug.py:203-241`): every scale with and
+    without the flip, each aug's boxes gated by its `tta.scale_ranges`
+    entry (the JAX package's `ranges[i // 2]` over the (scale 0, scale 0
+    flipped, scale 1, ...) order), then `det/cascade.py::
+    merge_aug_detections`. The model runs on the device of its parameters,
+    in eval mode. Returns the metrics, and under `timing` the seconds spent
+    in model calls (to a synchronize) and on the host (load, resize, merge,
+    paste, evaluator)."""
     tcfg = dict(cfg.get("test_cfg") or {})
     img_scale = tuple(tcfg.get("img_scale", (1333, 800)))
+    tta = dict(cfg.get("tta") or {}) if aug_test else {}
+    if aug_test and not (tta.get("scales") and tta.get("scale_ranges")):
+        raise ValueError(
+            "--aug-test requires a `tta = dict(scales=[...], "
+            "scale_ranges=[...])` config (see configs/htc/htc++_..._ms.py)")
     if aug_test:
-        if not dict(cfg.get("tta") or {}).get("scales"):
-            raise ValueError(
-                "--aug-test requires a `tta = dict(scales=[...])` config "
-                "(see configs/htc/htc++_..._ms.py)")
-        raise NotImplementedError(
-            "--aug-test's merge of augmented detections is not ported yet: "
-            "ROADMAP.md §1 item 7 (Cascade/HTC)")
+        scales = [tuple(sc) for sc in tta["scales"]]
+        flips = (False, True)
+        per_aug_ranges = [bands for bands in tta["scale_ranges"]
+                          for _ in flips]
+    else:
+        scales, flips, per_aug_ranges = [img_scale], (False,), None
+    augs = [(sc, f) for sc in scales for f in flips]
     evaluators = {t: COCOEvaluator(dataset.num_classes, iou_type=t)
                   for t in iou_types}
     per_call = int(tcfg.get("images_per_device", 2))
     device = next(model.parameters()).device
     n = min(len(dataset), max_images or len(dataset))
+    results: Dict[int, list] = {}
+    per_img: Dict[int, tuple] = {}
     pending: Dict[tuple, list] = {}
     forward_s = 0.0
     done = 0
 
+    def finalize(i):
+        nonlocal done
+        per_aug = results.pop(i)
+        H, W, gts = per_img.pop(i)
+        if aug_test:
+            dets = merge_aug_detections(
+                per_aug, scale_ranges=per_aug_ranges,
+                max_dets=tta.get("max_per_img", 100))
+        else:
+            dets = per_aug[0]
+        if "masks" in dets and "segm" in evaluators:
+            dets["masks"] = paste_mask_crops(dets, H, W)
+        for ev in evaluators.values():
+            ev.add_image(dets, gts)
+        done += 1
+        if done % 100 == 0 or done == n:
+            log_fn(f"eval {done}/{n}")
+
     def flush(key):
-        nonlocal forward_s, done
+        nonlocal forward_s
         items = pending.pop(key, [])
         if not items:
             return
@@ -299,16 +332,11 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
         out = {k: v.float().cpu().numpy() if v.is_floating_point()
                else v.cpu().numpy() for k, v in model(normalize(x)).items()}
         forward_s += time.perf_counter() - t0
-        for j, (_, meta, H, W, gts) in enumerate(items):
-            dets = _map_back_one_aug({k: v[j].copy() for k, v in out.items()},
-                                     meta)
-            if "segm" in evaluators:
-                dets["masks"] = paste_mask_crops(dets, H, W)
-            for ev in evaluators.values():
-                ev.add_image(dets, gts)
-            done += 1
-            if done % 100 == 0 or done == n:
-                log_fn(f"eval {done}/{n}")
+        for j, (_, meta, i, a) in enumerate(items):
+            results[i][a] = _map_back_one_aug(
+                {k: v[j].copy() for k, v in out.items()}, meta)
+            if all(r is not None for r in results[i]):
+                finalize(i)
 
     t_start = time.perf_counter()
     was_training = model.training
@@ -317,12 +345,14 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
         with torch.inference_mode():
             for i in range(n):
                 img, gts = dataset.load(i)
-                x, meta = _prep_one_aug(img, img_scale, False)
-                key = x.shape[:2]
-                pending.setdefault(key, []).append(
-                    (x, meta, img.shape[0], img.shape[1], gts))
-                if len(pending[key]) == per_call:
-                    flush(key)
+                results[i] = [None] * len(augs)
+                per_img[i] = (img.shape[0], img.shape[1], gts)
+                for a, (sc, flip) in enumerate(augs):
+                    x, meta = _prep_one_aug(img, sc, flip)
+                    key = x.shape[:2]
+                    pending.setdefault(key, []).append((x, meta, i, a))
+                    if len(pending[key]) == per_call:
+                        flush(key)
             for key in list(pending):
                 flush(key)
     finally:
@@ -332,8 +362,9 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
         metrics.update(ev.summarize())
     log_fn(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     total_s = time.perf_counter() - t_start
-    metrics["timing"] = {"images": n, "forward_s": forward_s,
+    metrics["timing"] = {"images": n, "augs": len(augs),
+                         "forward_s": forward_s,
                          "host_s": total_s - forward_s}
-    log_fn(f"eval time: {n} images, model calls {forward_s:.3f} s, host "
-           f"{total_s - forward_s:.3f} s")
+    log_fn(f"eval time: {n} images x {len(augs)} augs, model calls "
+           f"{forward_s:.3f} s, host {total_s - forward_s:.3f} s")
     return metrics

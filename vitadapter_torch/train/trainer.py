@@ -1,11 +1,11 @@
-"""Training state and the Mask2Former, UperNet and Mask R-CNN train steps
+"""Training state and the Mask2Former, UperNet and detector train steps
 (counterpart of `vitadapter/train/trainer.py` and of the step in
 `vitadapter/train/det_loop.py`).
 
 One step: the model's forward in training mode (DropPath and dropout
 drawing from a `torch.Generator`, BatchNorm on batch statistics, moving its
 running statistics), the loss (Mask2Former's over every decoder layer, the
-decode and auxiliary heads' cross entropy, or Mask R-CNN's five), the
+decode and auxiliary heads' cross entropy, or a detector's), the
 backward, and one optimizer update. The port updates the model and the optimizer in
 place, where JAX returns a new state.
 """
@@ -120,14 +120,19 @@ def make_seg_train_step(model: nn.Module, aux_weight: float = 0.4,
 
 
 def make_det_train_step(model: nn.Module) -> Callable:
-    """Train step for `det.mask_rcnn.MaskRCNN`: its five losses summed.
+    """Train step for a detector's `forward_train` (`det.mask_rcnn.MaskRCNN`,
+    `det.cascade.CascadeRCNN`): the sum of its losses.
 
     train_step(state, batch, generator, sampler=None) -> (state, logs):
     batch {"image": (B, H, W, 3) normalized float, "gt_boxes" (B, G, 4),
     "gt_labels" (B, G) int, "gt_masks" (B, G, H, W) bool, "gt_valid" (B,
     G) bool}. DropPath draws from `generator`, the RPN and RoI samplers
-    from `sampler` (by default from `generator`). logs holds the five
-    losses, `loss` and `grad_norm` (before clipping), as 0-d tensors."""
+    from `sampler` (by default from `generator`). A parameter that no loss
+    reaches (HTC's semantic logits, which take no loss; a cls token the
+    detection BEiT does not use) gets a zero gradient, as JAX's
+    `value_and_grad` gives it, so that AdamW decays it as optax does. logs
+    holds the losses, `loss` and `grad_norm` (before clipping), as 0-d
+    tensors."""
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
                    sampler: Optional[Sampler] = None):
@@ -138,6 +143,9 @@ def make_det_train_step(model: nn.Module) -> Callable:
             sampler=sampler)
         state.optimizer.zero_grad()
         losses["loss"].backward()
+        for p in model.parameters():
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         grad_norm = state.optimizer.step()
         state.step += 1
         state.update_ema()

@@ -408,9 +408,12 @@ def bbox_head_from_flax(p: Tree, roi: int = 7) -> StateDict:
 
 
 def mask_head_from_flax(p: Tree) -> StateDict:
-    """`FCNMaskHead`: flax `conv_N` -> `convs.N.conv`."""
+    """`FCNMaskHead`: flax `conv_N` -> `convs.N.conv`, HTC's
+    `conv_res_feat` -> `conv_res_feat.conv`."""
     sd = {**_prefixed("upsample", _conv_transpose(p["upsample"])),
           **_prefixed("conv_logits", _conv(p["conv_logits"]))}
+    if "conv_res_feat" in p:
+        sd.update(_prefixed("conv_res_feat.conv", _conv(p["conv_res_feat"])))
     i = 0
     while f"conv_{i}" in p:
         sd.update(_prefixed(f"convs.{i}.conv", _conv(p[f"conv_{i}"])))
@@ -432,11 +435,69 @@ def mask_rcnn_from_flax(p: Tree, s: Tree) -> StateDict:
                         mask_head_from_flax(p["mask_head"]))}
 
 
+def extra_attention_from_flax(p: Tree) -> StateDict:
+    """`ExtraAttention`: flax `norm1_0`, `attn_0`, `ffn_fc1_0`, ... ->
+    `norm1`, `attn`, `ffn.fc1`, ... (the inverse of
+    `convert_detector_checkpoint`'s `neck.0` keys)."""
+    return {**_prefixed("norm1", _norm(p["norm1_0"])),
+            **_prefixed("attn.qkv", _linear(p["attn_0"]["qkv"])),
+            **_prefixed("attn.proj", _linear(p["attn_0"]["proj"])),
+            **_prefixed("norm2", _norm(p["norm2_0"])),
+            **_prefixed("ffn.fc1", _linear(p["ffn_fc1_0"])),
+            **_prefixed("ffn.fc2", _linear(p["ffn_fc2_0"])),
+            **_prefixed("final_norm", _norm(p["final_norm_0"]))}
+
+
+def semantic_head_from_flax(p: Tree) -> StateDict:
+    """HTC's `SemanticHead`: flax `lateral_fuse` (level 1) and `lateral_N`
+    -> `lateral_convs.N.conv`, `conv_N` -> `convs.N.conv`, `conv_seg` ->
+    `conv_logits`."""
+    sd = {**_prefixed("conv_embedding.conv", _conv(p["conv_embedding"])),
+          **_prefixed("conv_logits", _conv(p["conv_seg"])),
+          **_prefixed("lateral_convs.1.conv", _conv(p["lateral_fuse"]))}
+    for name, sub in p.items():
+        kind, _, i = name.rpartition("_")
+        if kind in ("lateral", "conv") and i.isdigit():
+            dst = "lateral_convs" if kind == "lateral" else "convs"
+            sd.update(_prefixed(f"{dst}.{i}.conv", _conv(sub)))
+    return sd
+
+
+def cascade_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`CascadeRCNN` with any backbone `backbone_from_flax` takes: the
+    inverse of `convert_detector_checkpoint` for mmdet's HTC keys (`neck.0`
+    the ExtraAttention and `neck.1` the FPN where there is one,
+    `roi_head.{bbox,mask}_head.{s}`, `roi_head.semantic_head`)."""
+    rpn = {f"rpn_head.{n}.{k}": v for n in ("rpn_conv", "rpn_cls", "rpn_reg")
+           for k, v in _conv(p["rpn_head"][n]).items()}
+    sd = {**_prefixed("backbone", backbone_from_flax(
+              p["backbone"], s.get("backbone", {}))), **rpn}
+    if "extra_attn" in p:
+        sd.update({**_prefixed("neck.0", extra_attention_from_flax(
+                       p["extra_attn"])),
+                   **_prefixed("neck.1", neck_from_flax(p["neck"]))})
+    else:
+        sd.update(_prefixed("neck", neck_from_flax(p["neck"])))
+    i = 0
+    while f"bbox_head_{i}" in p:
+        sd.update(_prefixed(f"roi_head.bbox_head.{i}",
+                            bbox_head_from_flax(p[f"bbox_head_{i}"])))
+        if f"mask_head_{i}" in p:
+            sd.update(_prefixed(f"roi_head.mask_head.{i}",
+                                mask_head_from_flax(p[f"mask_head_{i}"])))
+        i += 1
+    if "semantic_head" in p:
+        sd.update(_prefixed("roi_head.semantic_head",
+                            semantic_head_from_flax(p["semantic_head"])))
+    return sd
+
+
 def state_dict_from_flax(params: Tree,
                          batch_stats: Optional[Tree] = None) -> StateDict:
     """A flax variable tree -> the port's `state_dict`. Takes the tree of a
     whole `MaskRCNN` (`backbone`, `neck`, `rpn_head`, `bbox_head`,
-    `mask_head`), `EncoderDecoderMask2Former` or `EncoderDecoder`
+    `mask_head`), `CascadeRCNN` (`bbox_head_0`, ...),
+    `EncoderDecoderMask2Former` or `EncoderDecoder`
     (`backbone`, `decode_head`, `auxiliary_head`), or of one of their
     modules:
     `ViTAdapter`, `BEiTAdapter`, `ViTBaseline`, `BEiTBaseline`,
@@ -444,6 +505,8 @@ def state_dict_from_flax(params: Tree,
     the pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a
     ViT `Block`, a `BEiTBlock`, an `MSDeformAttn` or a `PatchMerging`."""
     s = batch_stats or {}
+    if "backbone" in params and "bbox_head_0" in params:
+        return cascade_from_flax(params, s)
     if "backbone" in params and "rpn_head" in params:
         return mask_rcnn_from_flax(params, s)
     if "backbone" in params and "decode_head" in params:
