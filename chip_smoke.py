@@ -107,7 +107,27 @@ Phases (each failure exits non-zero; nothing is caught):
      the FPN and RPN outputs, the semantic features and the three stages'
      outputs on the card's proposals, the detections' kept sets, then one
      train step's losses and gradient norm (the same sampler draws, the
-     CPU on the card's proposals).
+     CPU on the card's proposals);
+ 20. drives the config entry points on the large WSDM2023 GroundingDINO
+     config (the Uni-Perceiver-Adapter-L, 24 joint layers, fp32, TF32 off,
+     batch 2 on the 1024 canvas) on synthetic WSDM-layout images with
+     questions and a tiny CLIP merge table: 4 train steps through the real
+     pipeline with a checkpoint, `--resume` for a fifth, `tools.test
+     --eval IoU` and `--aug-test` (3 scales x flip), each against
+     `run_grounding_eval` called directly (boxes included), then
+     `tools.generate_results` on a 2-row CSV, through the driver of
+     phases 15 and 17 (`run_cli`); checks the launches of each
+     train step (22/22/7 for msda fwd/bwd and the auction) and of each
+     model call (22), and reports s/step, peak memory, the checkpoint and
+     the tests' s/image (model calls and host apart);
+ 21. takes one train step of the base GQA config (`VGDataset`, questions
+     of 64 tokens) with its eval hook off: finite, exact launches;
+ 22. runs the large WSDM2023 config at depth 4 and full width on the 256
+     canvas, fp32, on the card and on the CPU: the encoder's top-100 sets,
+     the last layer's outputs of every query and the decoded top box and
+     scores within `GROUNDING_RTOL` of their scale, then one train step's
+     losses and float64 gradient norm (the card's denoising draws, the CPU
+     on the card's assignments).
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -134,7 +154,11 @@ kernels at phase 15's detection shapes and at the bf16 DeiT-S Mask R-CNN
 step's (the rows' `paths["det"]`, `["det_test"]`, `["det_bf16"]`), and at
 phase 17's on the 1600x1408 canvas (ExtraAttention's 2200 tokens at head
 dim 128, windows of N 196, global N 8800; the SPM pyramid of 46200
-values; `paths["htc"]`); and
+values; `paths["htc"]`); the fused MSDA kernels at phase 20's shapes (the
+adapter's, the DINO encoder's 21760 queries over its 4 levels and the
+decoder's 104 queries sampling around 4-d boxes, `msda_box_locations`)
+and the auction at its (2, 100, 1) matrices, n_valid 1 and 0
+(`paths["grounding"]`); and
 the NMS kernel (`nms.cu`, not a TPU kernel) at the proposals' 4768 boxes
 and the detections' 2048 for bitwise-equal kept flags. The fp32
 attention (split TF32 on the tensor cores) is launched
@@ -185,6 +209,12 @@ GRAD_TOL = 1e-5
 # reduced-depth model, card (kernels, cuDNN convs) vs CPU, fp32, TF32 off:
 # float reassociation across ~60 layers, relative to the logits' scale
 E2E_RTOL = 1e-3
+# phase 22's eval outputs, GroundingDINO card against CPU, of their scale
+GROUNDING_RTOL = 1e-4
+# phase 22's train step, card vs CPU, fp32, TF32 off, relative: the losses
+# and the float64 gradient norm (no bf16 point sampling on this path, so
+# only reassociation; 3.8e-6 and 1.6e-5 seen on the H100)
+GROUNDING_TRAIN_RTOL = 1e-4
 # reduced-depth train step, card vs CPU, fp32, TF32 off: besides the
 # reassociation, the loss samples bf16-rounded mask logits, where a 1e-6
 # difference can flip one rounding and move an uncertainty-selected point
@@ -290,6 +320,7 @@ POINT_CLI = {
 # 10 x batch 1 of 100 queries x 60 gts
 AUCTION_SHAPE = (20, 200, 60)
 AUCTION_CLI = (10, 100, 60)
+AUCTION_GROUNDING = (2, 100, 1)
 SERVE_REQUESTS = 4   # batch-2 requests of the main path (phase 4)
 TRAIN_STEPS = 6      # flagship train steps (phase 6)
 TRAIN_LAUNCHES = {   # kernel launches per train step
@@ -341,6 +372,7 @@ SPM640 = ((80, 80), (40, 40), (20, 20))
 SPM1024 = ((128, 128), (64, 64), (32, 32))
 SPM800 = ((100, 168), (50, 84), (25, 42))   # the 800x1344 canvas
 SPM1600 = ((200, 176), (100, 88), (50, 44))  # the 1600x1408 canvas
+DINO1024 = ((128, 128), (64, 64), (32, 32), (16, 16))  # DINO's 4 levels
 MSDA_PATH_CASES = {
     "eval_r1.0_injector": (R10[::-1], 8192, 16, (64, 128), "eval_whole", 8,
                            False),
@@ -385,16 +417,29 @@ MSDA_PATH_CASES = {
     # 32): 46200 values, 5.9 MB a head, under the 8 MiB line
     "htc_injector": (SPM1600, 8800, 16, (100, 88), "htc", 4, True),
     "htc_extractor": (((100, 88),), 46200, 16, SPM1600, "htc", 6, True),
+    # phase 20's GroundingDINO step (the large wsdm2023 config, 1024
+    # canvas, batch 2, fp32): the adapter's calls as phase 15's (16 heads,
+    # D 32), the DINO encoder's self attention over the 4 neck levels
+    # (strides 8-64: 21760 values and queries, 8 heads, D 32; 2.8 MB a
+    # head) and the decoder's cross attention of 104 queries (100 and 4
+    # denoising) around 4-d reference boxes (`"boxes"`: locations as
+    # `MSDeformAttn` makes them from boxes)
+    "grounding_injector": (SPM1024, 4096, 16, (64, 64), "grounding", 4,
+                           True),
+    "grounding_extractor": (((64, 64),), 21504, 16, SPM1024, "grounding", 6,
+                            True),
+    "grounding_encoder": (DINO1024, 21760, 8, None, "grounding", 6, True),
+    "grounding_decoder": (DINO1024, 104, 8, "boxes", "grounding", 6, True),
 }
 # the batch, dtype and head dim of each path's MSDA calls in
 # `MSDA_PATH_CASES` (1, fp32 and 32 elsewhere)
-PATH_BATCH = {"upernet": 2, "det_bf16": 2}
+PATH_BATCH = {"upernet": 2, "det_bf16": 2, "grounding": 2}
 PATH_DTYPE = {"det_bf16": BF16}
 PATH_D = {"det_bf16": 64}
 # the paths whose `MSDA_PATH_CASES` are also checked on model-shaped
 # locations
 MODEL_SHAPED_PATHS = ("cli", "upernet", "det", "det_test", "det_bf16",
-                      "htc")
+                      "htc", "grounding")
 # the fused kernels off the flagship's layout, fp32 and bf16 each: name:
 # (spatial shapes, query grid, heads, D, P, the value 2 or 4 bytes off
 # 16-byte alignment). As `LEVEL_LAYOUTS`: ragged and narrow rows and other
@@ -838,6 +883,8 @@ def msda_model_locations(shapes, grid, M, P, gen, device="cuda", B=1):
     from vitadapter_torch.ops import msda
 
     L = len(shapes)
+    if grid == "boxes":
+        return msda_box_locations(shapes, M, P, gen, device, B)
     refs = []
     grids = (shapes if grid is None else (grid,) if isinstance(grid[0], int)
              else grid)
@@ -862,6 +909,30 @@ def msda_model_locations(shapes, grid, M, P, gen, device="cuda", B=1):
     border = (rand(1) < 0.02) & torch.cat([first, ~first], -1)
     loc = torch.where(border, (edge + rand(2)) / size, loc)
     snap = rand(1) < 0.1
+    loc = torch.where(snap, (torch.floor(loc * size) + 0.5) / size, loc)
+    return loc.contiguous()
+
+
+def msda_box_locations(shapes, M, P, gen, device="cuda", B=1, Lq=104):
+    """Sampling locations (B, Lq, M, L, P, 2) as `MSDeformAttn` makes them
+    from 4-d reference boxes: centre + (msda_grid_init offsets + N(0, 1)
+    noise) / P * box side / 2, 10% of the points snapped to integer pixel
+    coordinates of their level."""
+    from vitadapter_torch.ops import msda
+
+    L = len(shapes)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    centre = 0.05 + 0.9 * rand(B, Lq, 1, 1, 1, 2)
+    side = 0.02 + 0.58 * rand(B, Lq, 1, 1, 1, 2)
+    offsets = msda.msda_grid_init(M, L, P).to(device).reshape(M, L, P, 2)
+    noise = torch.randn(B, Lq, M, L, P, 2, generator=gen, device=device)
+    loc = centre + (offsets + noise) / P * side * 0.5
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                        device=device)[:, None, :]
+    snap = rand(B, Lq, M, L, P, 1) < 0.1
     loc = torch.where(snap, (torch.floor(loc * size) + 0.5) / size, loc)
     return loc.contiguous()
 
@@ -933,6 +1004,15 @@ def auction_cases(gen):
     cases["cli"] = (auction_costs(gen, B, Q, G, contested=True), full)
     cases["cli_ties"] = (torch.randint(0, 4, (B, Q, G), generator=gen,
                                        device="cuda").float(), full)
+    # phase 20's GroundingDINO step: 7 launches of batch-2 matrices of 100
+    # queries x 1 gt (DINO's focal + L1 + GIoU costs, of order 1-10), the
+    # gt valid; and an image whose one box the crop removed (n_valid 0:
+    # every query unmatched)
+    B, Q, G = AUCTION_GROUNDING
+    cost = 10 * torch.rand(B, Q, G, generator=gen, device="cuda") - 2
+    cases["grounding"] = (cost, torch.full((B,), G, device="cuda"))
+    cases["grounding_nv0"] = (cost.clone(),
+                              torch.tensor([0, G], device="cuda"))
     return cases
 
 
@@ -1000,6 +1080,10 @@ def check_auction(rows, flush, gen):
         elif case == "cli":
             add_to_row(rows["auction"].setdefault("paths", {}).setdefault(
                 "cli", new_row(library=False)), 1, err, k_ms, p_ms, b)
+        elif case == "grounding":
+            # 7 assignments a phase 20 step: 6 decoder layers, the encoder
+            add_to_row(rows["auction"].setdefault("paths", {}).setdefault(
+                "grounding", new_row(library=False)), 7, err, k_ms, p_ms, b)
 
     def refused(fn, exc, words):
         try:
@@ -3031,50 +3115,100 @@ def det_cli():
     """Phase 15: the config entry points in this process on the AugReg-L
     Mask R-CNN config as shipped (`DET_CONFIG`: ViT-Adapter-L in fp32 with
     `with_cp`, drop path 0.4, 20 windowed and 4 global blocks, batch 1 on
-    the 1024 canvas, 100 synthetic instances), through `run_det_cli`.
+    the 1024 canvas, 100 synthetic instances), through `run_cli`.
     Returns the launches of the first run's train steps and of one model
     call of the test CLI."""
     from vitadapter_torch.det.mask_rcnn import MaskRCNN
 
-    train_counts, test_counts, _ = run_det_cli(
-        "det", MaskRCNN, DET_CONFIG, DET_OPTIONS, DET_STEPS,
-        DET_STEP_LAUNCHES, DET_FORWARD_LAUNCHES, DET_NEVER, DET_IMAGES)
+    train_counts, test_counts, _, _ = run_cli(
+        "det", MaskRCNN, DET_CONFIG, DET_STEPS, DET_STEP_LAUNCHES,
+        DET_FORWARD_LAUNCHES, det_cli_data(DET_OPTIONS), det_eval,
+        DET_EVAL_ARGS, DET_HEADLINE, never=DET_NEVER,
+        per_input=DET_PER_INPUT)
     return train_counts, test_counts
 
 
-def run_det_cli(label, model_cls, config, options, steps, step_launches,
-                call_launches, never, images, aug_config=None):
-    """The config entry points in this process on a detection `config`:
-    `tools.train.main` on synthetic data for `steps` steps with `options`
-    (a checkpoint at the last), `--resume` for one more, then
-    `tools.test.main --eval bbox segm` on two COCO-layout images (`images`:
-    one landscape, one portrait, so both canvases run), and `run_det_eval`
-    called directly on the same weights; with `aug_config`, the test CLI
-    again with `--aug-test` on that config (its `tta` scales) and
-    `run_det_eval(aug_test=True)` called directly on those weights. Checks
-    the launches of each train step (`step_launches`) and of each model
-    call of the tests (`call_launches` a call, `nms` 2 an input image: one
-    proposal and one detection NMS; the plain test CLI's calls one image
-    each), that no kernel of `never` runs, the resume, finite losses and
-    gradient norms, and each test CLI's metrics equal to `run_det_eval`'s. Logs s/step (CUDA events, the first step
-    apart), peak memory, the checkpoint's bytes and seconds, and the
-    tests' s/image with and without the model's build, model-call seconds
-    beside host seconds. Returns the launches of the first run's train
-    steps, the plain test CLI's launches divided by its model calls, and
-    the `--aug-test` run's metrics (or None)."""
+# the detection test CLIs' metrics (those that must be finite: no
+# small objects, so mAP_s is NaN), and the NMS launches of one input: a
+# proposal and a detection NMS
+DET_EVAL_ARGS = ["--eval", "bbox", "segm"]
+DET_HEADLINE = ("bbox_mAP", "segm_mAP")
+DET_PER_INPUT = {"nms": 2}
+
+
+def det_cli_data(options):
+    """`run_cli`'s `prepare` for a detection phase: the train runs take
+    synthetic data and `options`; the tests take `DET_IMAGES` (one
+    landscape, one portrait image, so both canvases run) written as a
+    COCO-layout set under the run's directory."""
+    def prepare(tmp):
+        root = os.path.join(tmp, "coco")
+        write_coco(root, DET_IMAGES, 15)
+        return (["--synthetic-data", "--cfg-options", *options],
+                [f"data.data_root={root}"])
+    return prepare
+
+
+def det_eval(cfg, model, aug_test):
+    """`run_det_eval` on the val split, as `tools.test --eval bbox segm`
+    calls it."""
+    from vitadapter_torch.train.det_loop import build_det_dataset, run_det_eval
+
+    return run_det_eval(cfg, model, build_det_dataset(cfg.data, "val"),
+                        ("bbox", "segm"), aug_test=aug_test,
+                        log_fn=lambda *_: None)
+
+
+def cli_log(lines, marks, line):
+    """`log_fn` body of the config CLI runs: echo, keep, and at each
+    step's log line snapshot the launches (before its checkpoint)."""
+    from vitadapter_torch.ops import cuda_ext
+
+    log(f"  | {line}")
+    lines.append(line)
+    m = re.match(r"iter (\d+)/", line)
+    if m:
+        marks[int(m.group(1))] = dict(cuda_ext.launches)
+
+
+def run_cli(label, model_cls, config, steps, step_launches, call_launches,
+            prepare, evaluate, eval_args, headline, never=(),
+            per_input=None, inputs_per_call=1, aug_config=None, aug_augs=12,
+            after=None):
+    """The config entry points in this process on `config`. `prepare(tmp)`
+    writes the data under a temporary directory and returns the train CLI's
+    arguments and the test CLI's `--cfg-options`. Then `tools.train.main`
+    for `steps` steps (a checkpoint at the last), `--resume` for one more,
+    `tools.test.main` with `eval_args` on the val split and `evaluate(cfg,
+    model, aug_test)` (the eval function the test CLI calls) directly on
+    the same weights; with `aug_config`, the test CLI again with
+    `--aug-test` on that config and `evaluate(..., True)` on those weights;
+    then `after(tmp, ckpt, test_options)`, if given, with the checkpoint.
+    Checks the launches of each train step (`step_launches`) and of each
+    model call of the tests (`call_launches` a call and `per_input` an
+    input; `inputs_per_call` inputs a call of the plain test), that no
+    kernel of `never` runs, the resume, finite losses and gradient norms,
+    finite `headline` metrics (logged), `aug_augs` augs an image, and each
+    test CLI's metrics (predicted boxes included) equal to the direct
+    call's. Logs s/step (CUDA events, the first step apart), peak memory,
+    the checkpoint's bytes and seconds, and the tests' s/image with and
+    without the model's build, model-call seconds beside host seconds.
+    Returns the launches of the first run's train steps, the plain test
+    CLI's launches divided by its model calls, the `--aug-test` run's
+    metrics (or None) and what `after` returned."""
     import tempfile
 
     from vitadapter_torch.builder import build_model
     from vitadapter_torch.ops import cuda_ext
     from vitadapter_torch.tools import test as test_cli
     from vitadapter_torch.tools import train as train_cli
-    from vitadapter_torch.train.det_loop import build_det_dataset, run_det_eval
     from vitadapter_torch.utils.checkpoint_io import load_model_weights
-    from vitadapter_torch.utils.config import Config
+    from vitadapter_torch.utils.config import Config, parse_cfg_options
 
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
     calls, inputs = [0], [0]
     forward = model_cls.forward
+    per_input = per_input or {}
 
     def counted(self, img, *a, **kw):
         calls[0] += 1
@@ -3083,23 +3217,46 @@ def run_det_cli(label, model_cls, config, options, steps, step_launches,
 
     def call_counts():
         want = {k: v * calls[0] for k, v in call_launches.items()}
-        want["nms"] = 2 * inputs[0]
+        want.update({k: v * inputs[0] for k, v in per_input.items()})
         return want
+
+    def run_test(cfg_path, extra):
+        before = dict(cuda_ext.launches)
+        calls[0] = inputs[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([cfg_path, ckpt, *eval_args, *extra,
+                                 "--cfg-options", *test_options],
+                                log_fn=log_fn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        used = launch_diff(cuda_ext.launches, before)
+        return metrics, secs, used, calls[0], inputs[0], used == call_counts()
+
+    def direct(cfg_path, aug_test):
+        cfg = Config.fromfile(cfg_path)
+        cfg.merge_from_options(parse_cfg_options(test_options))
+        model = load_model_weights(ckpt, build_model(dict(cfg.model)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(cfg, model, aug_test)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        return out, secs
 
     try:
         model_cls.forward = counted
-        work, root = os.path.join(tmp, "work"), os.path.join(tmp, "coco")
+        train_args, test_options = prepare(tmp)
+        work = os.path.join(tmp, "work")
+        ckpt = os.path.join(work, "ckpt")
+        train_args = [config, "--work-dir", work, *train_args]
         lines, marks = [], {}
 
         def log_fn(line):
-            log(f"  | {line}")
-            lines.append(line)
-            m = re.match(r"iter (\d+)/", line)
-            if m:       # the step's launches, before its checkpoint
-                marks[int(m.group(1))] = dict(cuda_ext.launches)
+            cli_log(lines, marks, line)
 
-        train_args = [config, "--synthetic-data", "--work-dir", work,
-                      "--cfg-options", *options]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda_ext.launches.clear()
@@ -3135,73 +3292,43 @@ def run_det_cli(label, model_cls, config, options, steps, step_launches,
         del state
         torch.cuda.empty_cache()
 
-        write_coco(root, images, 15)
-        ckpt = os.path.join(work, "ckpt")
-        before = dict(cuda_ext.launches)
-        calls[0] = inputs[0] = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = test_cli.main([config, ckpt, "--eval", "bbox", "segm",
-                                 "--cfg-options", f"data.data_root={root}"],
-                                log_fn=log_fn)
-        torch.cuda.synchronize()
-        test_s = time.perf_counter() - t0
-        test_counts = launch_diff(cuda_ext.launches, before)
-        forwards_ok = test_counts == call_counts() and inputs[0] == calls[0]
-        n_calls = calls[0]
-
+        (metrics, test_s, test_counts, n_calls, n_inputs,
+         forwards_ok) = run_test(config, [])
+        forwards_ok &= n_inputs == inputs_per_call * n_calls
+        ref, direct_s = direct(config, False)
         aug = None
         if aug_config is not None:
-            before = dict(cuda_ext.launches)
-            calls[0] = inputs[0] = 0
-            t0 = time.perf_counter()
-            aug = test_cli.main([aug_config, ckpt, "--eval", "bbox", "segm",
-                                 "--aug-test", "--cfg-options",
-                                 f"data.data_root={root}"], log_fn=log_fn)
-            torch.cuda.synchronize()
-            aug_s = time.perf_counter() - t0
-            aug_counts = launch_diff(cuda_ext.launches, before)
+            (aug, aug_s, aug_counts, aug_calls, aug_inputs,
+             aug_launch_ok) = run_test(aug_config, ["--aug-test"])
             aug_want = call_counts()
-            aug_calls, aug_inputs = calls[0], inputs[0]
-
-        cfg = Config.fromfile(config)
-        cfg.merge_from_options({"data.data_root": root})
-        model = load_model_weights(ckpt, build_model(dict(cfg.model)))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        direct = run_det_eval(cfg, model, build_det_dataset(cfg.data, "val"),
-                              ("bbox", "segm"), log_fn=lambda *_: None)
-        torch.cuda.synchronize()
-        direct_s = time.perf_counter() - t0
-        del model
-        torch.cuda.empty_cache()
-        direct_aug = None
-        if aug_config is not None:
-            cfg = Config.fromfile(aug_config)
-            cfg.merge_from_options({"data.data_root": root})
-            model = load_model_weights(ckpt, build_model(dict(cfg.model)))
-            direct_aug = run_det_eval(cfg, model,
-                                      build_det_dataset(cfg.data, "val"),
-                                      ("bbox", "segm"), aug_test=True,
-                                      log_fn=lambda *_: None)
-            del model
-            torch.cuda.empty_cache()
+            ref_aug, _ = direct(aug_config, True)
+        extra = after(tmp, ckpt, test_options) if after else None
     finally:
         model_cls.forward = forward
         shutil.rmtree(tmp, ignore_errors=True)
 
     def summary(m):
-        return {k: v for k, v in m.items() if k != "timing"}
+        return json.dumps({k: v.tolist() if hasattr(v, "tolist") else v
+                           for k, v in m.items() if k != "timing"},
+                          sort_keys=True)
 
-    same = json.dumps(summary(metrics)) == json.dumps(summary(direct))
-    finite = all(v == v and abs(v) != float("inf")
-                 for v in vals["loss"] + vals["grad_norm"])
+    def scalars(m):
+        return {k: m[k] for k in headline if isinstance(m[k], float)}
+
+    def finite(m):
+        return all(bool(torch.isfinite(torch.as_tensor(m[k])).all())
+                   for k in headline)
+
+    same = summary(metrics) == summary(ref)
+    finite_train = all(v == v and abs(v) != float("inf")
+                       for v in vals["loss"] + vals["grad_norm"])
     ran = dict(marks[steps])
     for k, v in test_counts.items():
         ran[k] = ran.get(k, 0) + v
     bad_never = {k: v for k, v in ran.items() if k in never}
-    n_img = len(images)
-    timing = direct["timing"]
+    timing = ref["timing"]
+    n_img = timing["images"]
+    words = " ".join(eval_args)
     log(f"{label} CLI {config}: {built}")
     log(f"{label} CLI train steps (s, CUDA events): {secs}; "
         f"{sum(secs[1:]) / (len(secs) - 1):.3f} s/step over steps "
@@ -3213,38 +3340,36 @@ def run_det_cli(label, model_cls, config, options, steps, step_launches,
     log(f"{label} CLI launches per train step: {per_step} (want "
         f"{step_launches} each); resumed at step {steps} and took step "
         f"{steps + 1}: {resumed_ok}")
-    log(f"{label} CLI test --eval bbox segm (host clock to a synchronize): "
+    log(f"{label} CLI test {words} (host clock to a synchronize): "
         f"{test_s:.2f} s for {n_img} images with the model's build and "
-        f"weight load, {test_s / n_img:.2f} s/image; run_det_eval alone "
+        f"weight load, {test_s / n_img:.2f} s/image; the eval alone "
         f"{direct_s / n_img:.2f} s/image, of which model calls "
         f"{1e3 * timing['forward_s'] / n_img:.1f} ms/image and host "
-        f"{1e3 * timing['host_s'] / n_img:.1f} ms/image; bbox_mAP "
-        f"{metrics['bbox_mAP']:.4f} segm_mAP {metrics['segm_mAP']:.4f} "
-        f"(random weights); metrics equal to run_det_eval's={same}; "
+        f"{1e3 * timing['host_s'] / n_img:.1f} ms/image; {scalars(metrics)} "
+        f"(random weights); metrics equal to the direct call's={same}; "
         f"launches {test_counts} over {n_calls} model calls (want "
-        f"{call_launches} a call and nms 2 an image)")
+        f"{call_launches} a call, {per_input} an input)")
     aug_ok = True
     if aug is not None:
         t = aug["timing"]
-        same_aug = (json.dumps(summary(aug))
-                    == json.dumps(summary(direct_aug)))
-        aug_ok = (aug_counts == aug_want and t["augs"] == 12 and same_aug
-                  and all(aug[k] == aug[k] for k in ("bbox_mAP",
-                                                     "segm_mAP")))
-        log(f"{label} CLI test --aug-test {aug_config}: {t['augs']} augs "
-            f"an image, {aug_s:.2f} s for {n_img} images with the model's "
-            f"build and weight load, {aug_s / n_img:.2f} s/image; model "
-            f"calls {t['forward_s']:.3f} s ({1e3 * t['forward_s'] / n_img:.1f}"
+        same_aug = summary(aug) == summary(ref_aug)
+        aug_ok = (aug_launch_ok and t["augs"] == aug_augs and same_aug
+                  and finite(aug))
+        log(f"{label} CLI test {words} --aug-test {aug_config}: "
+            f"{t['augs']} augs an image, {aug_s:.2f} s for {n_img} images "
+            f"with the model's build and weight load, "
+            f"{aug_s / n_img:.2f} s/image; model calls "
+            f"{t['forward_s']:.3f} s ({1e3 * t['forward_s'] / n_img:.1f}"
             f" ms/image), host {t['host_s']:.3f} s "
             f"({1e3 * t['host_s'] / n_img:.1f} ms/image: load, resizes, "
-            f"soft-NMS merge, paste, evaluator); bbox_mAP "
-            f"{aug['bbox_mAP']:.4f} segm_mAP {aug['segm_mAP']:.4f}; "
-            f"metrics equal to run_det_eval(aug_test=True)'s={same_aug}; "
-            f"launches {aug_counts} over {aug_calls} model calls of "
-            f"{aug_inputs} inputs (want {aug_want}) ok={aug_ok}")
-    if not (finite and resumed_ok and same and aug_ok):
-        raise SystemExit(f"FAIL: {label} CLI (non-finite loss or grad "
-                         "norm, resume, the test CLI's metrics or "
+            f"merge or vote, evaluator); {scalars(aug)}; metrics equal to "
+            f"the direct call's with aug_test={same_aug}; launches "
+            f"{aug_counts} over {aug_calls} model calls of {aug_inputs} "
+            f"inputs (want {aug_want}) ok={aug_ok}")
+    if not (finite_train and resumed_ok and same and finite(metrics)
+            and aug_ok):
+        raise SystemExit(f"FAIL: {label} CLI (non-finite loss, grad norm "
+                         "or metrics, resume, the test CLI's metrics or "
                          "--aug-test)")
     if (any(st != step_launches for st in per_step) or bad_never
             or not forwards_ok):
@@ -3252,7 +3377,7 @@ def run_det_cli(label, model_cls, config, options, steps, step_launches,
                          f"per test call {test_counts} over {n_calls}, "
                          f"kernels that must not run {bad_never}")
     return (train_counts, {k: v // n_calls for k, v in test_counts.items()},
-            aug)
+            aug, extra)
 
 
 def flat_detection_ids(cls_logits, deltas, props, valid, hw):
@@ -3448,7 +3573,7 @@ def det_card_vs_cpu():
 
 def htc_cli():
     """Phase 17: the shipped crop raises the port's ValueError (one
-    `tools.train.main` step as shipped), then `run_det_cli` on
+    `tools.train.main` step as shipped), then `run_cli` on
     `HTC_CONFIG` at the 1600x1408 canvas with `--aug-test` on
     `HTC_MS_CONFIG`. Returns the launches of the first run's train steps
     and of one model call of the test CLI."""
@@ -3474,10 +3599,11 @@ def htc_cli():
     if error is None or "multiple of 32" not in error:
         raise SystemExit("FAIL: the HTC++ configs' shipped crop did not "
                          "raise the port's ValueError")
-    train_counts, test_counts, _ = run_det_cli(
-        "htc", CascadeRCNN, HTC_CONFIG, HTC_OPTIONS, HTC_STEPS,
-        HTC_STEP_LAUNCHES, HTC_CALL_LAUNCHES, DET_NEVER, DET_IMAGES,
-        aug_config=HTC_MS_CONFIG)
+    train_counts, test_counts, _, _ = run_cli(
+        "htc", CascadeRCNN, HTC_CONFIG, HTC_STEPS, HTC_STEP_LAUNCHES,
+        HTC_CALL_LAUNCHES, det_cli_data(HTC_OPTIONS), det_eval,
+        DET_EVAL_ARGS, DET_HEADLINE, never=DET_NEVER,
+        per_input=DET_PER_INPUT, aug_config=HTC_MS_CONFIG)
     return train_counts, test_counts
 
 
@@ -3740,6 +3866,403 @@ def htc_card_vs_cpu():
                          f"(launches {used}, want {want})")
 
 
+# phase 20: the config CLIs on the large WSDM2023 GroundingDINO config (the
+# Uni-Perceiver-Adapter-L, 24 joint layers, fp32, the config's batch of 2
+# on the 1024 canvas) on a few synthetic WSDM-layout images with questions
+# and a tiny CLIP merge table; phase 21: one step of the base GQA config
+# on VG-layout records (its eval hook, which calls the detector without
+# its text as the JAX package's does, off); phase 22: the large config at
+# depth 4 (one joint layer per interaction) on the 256 canvas, card vs CPU
+GROUNDING_CONFIG = ("configs/wsdm2023/dino_4scale_uniperceiver_adapter_"
+                    "large_24ep_gqa_wsdm2023.py")
+GQA_CONFIG = ("configs/wsdm2023/dino_4scale_uniperceiver_adapter_base_"
+              "6ep_gqa.py")
+GROUNDING_STEPS = 4
+GROUNDING_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=4",
+                     "data.workers=2"]
+# landscape and portrait images: both test canvases (800x1344, 1344x800)
+GROUNDING_IMAGES = ((600, 800), (800, 600), (480, 640), (640, 480))
+GROUNDING_QUESTIONS = ("What is the object on the left side?",
+                       "Which thing is right of the cup?",
+                       "the red square", "Where can I sit down?")
+# a train step: the adapter's 4 injectors and 6 extractors, the DINO
+# encoder's 6 and decoder's 6 layers, each forward and backward; 7
+# assignments (6 decoder layers and the encoder's proposals); a model call
+# of the tests: the 22 forwards
+GROUNDING_STEP_LAUNCHES = {"msda_fwd": 22, "msda_bwd": 22, "auction": 7}
+GROUNDING_CALL_LAUNCHES = {"msda_fwd": 22}
+GROUNDING_CALL_INPUTS = 2  # `test_cfg.images_per_device`, with batch slack
+GROUNDING_TEST_AUGS = 6   # the default 3 scales x flip of `--aug-test`
+# a train step of the config as shipped (no `with_cp`) keeps every joint
+# layer's fp32 softmax (16 heads x 4224^2 tokens x 4 B = 1.14 GB an image a
+# layer) for the backward: with 2 images x 24 layers it may not fit in
+# 80 GB, and then the CLI runs recompute the trunk in the backward
+WITH_CP = "model.backbone.with_cp=True"
+
+
+def write_grounding_set(root, layout):
+    """Synthetic grounding data under `root`: `GROUNDING_IMAGES` as JPEGs
+    with one box each and a question, as a WSDM-layout COCO json
+    (`annotations/{train,val}.json`, layout "wsdm") or VG-layout records
+    (`annotations/{train,val}.json` lists, layout "vg"); the val split is
+    the first two images. And a tiny CLIP merge table (`bpe.txt.gz`).
+    Returns its path."""
+    import gzip
+
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "annotations"))
+    host = torch.Generator().manual_seed(20)
+    images, anns, records = [], [], []
+    for i, (h, w) in enumerate(GROUNDING_IMAGES):
+        name = f"{i}.jpg"
+        img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8,
+                            generator=host).numpy()
+        Image.fromarray(img).save(os.path.join(root, "images", name),
+                                  quality=95)
+        x, y = (float(v) for v in torch.rand(2, generator=host) * 0.5
+                * torch.tensor([w, h]))
+        bw, bh = (float(v) for v in (0.1 + 0.3 * torch.rand(
+            2, generator=host)) * torch.tensor([w, h]))
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w, "question": GROUNDING_QUESTIONS[i]})
+        anns.append({"id": i + 1, "image_id": i + 1, "category_id": 1,
+                     "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": 0})
+        records.append({"image": name, "expression": GROUNDING_QUESTIONS[i],
+                        "bbox": [x, y, x + bw, y + bh]})
+    for split, n in (("train", len(images)), ("val", 2)):
+        with open(os.path.join(root, "annotations", f"{split}.json"),
+                  "w") as f:
+            json.dump(records[:n] if layout == "vg" else {
+                "images": images[:n], "annotations": anns[:n],
+                "categories": [{"id": 1, "name": "object"}]}, f)
+    path = os.path.join(root, "bpe.txt.gz")
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: tiny\nt h\ne d</w>\nr e\nl e\nf t</w>\n")
+    return path
+
+
+def grounding_step_as_shipped():
+    """One train step of `GROUNDING_CONFIG` as shipped on a synthetic batch
+    (`make_det_train_step`, the det loop's optimizer). Returns the peak
+    GiB, or None where the card's memory ran out (logged either way)."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.train.det_loop import (det_batch_to_device,
+                                                 synthetic_det_batches)
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_det_train_step
+    from vitadapter_torch.utils.config import Config
+
+    cfg = Config.fromfile(GROUNDING_CONFIG)
+    model = build_model(dict(cfg.model))
+    opt = cfg.optimizer
+    optimizer, _ = make_optimizer(
+        model, base_lr=opt["lr"], weight_decay=opt["weight_decay"],
+        depth=cfg.model["backbone"]["depth"],
+        layer_decay_rate=opt["layer_decay_rate"], total_steps=1000,
+        warmup_steps=500, grad_clip=opt.get("grad_clip"))
+    b = det_batch_to_device(next(synthetic_det_batches(
+        cfg.data["samples_per_chip"], tuple(cfg.data["crop_size"]), 1, 1,
+        masks=False, text=(49411, cfg.data["max_sent_len"]))),
+        torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peak, words = None, ""
+    try:
+        make_det_train_step(model)(TrainState.create(model, optimizer), b,
+                                   torch.Generator("cuda").manual_seed(20))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    except torch.cuda.OutOfMemoryError as e:
+        words = str(e).split(". ")[0]
+    high = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, optimizer, b
+    torch.cuda.empty_cache()
+    if peak:
+        verdict = f"fits, peak {peak:.2f} GiB"
+    else:
+        verdict = (f"out of memory ({words}; {high:.2f} GiB allocated at "
+                   f"the failure); the CLI runs take {WITH_CP}")
+    log(f"grounding step as shipped (no with_cp, batch 2, 1024 canvas, "
+        f"fp32): {verdict}")
+    return peak
+
+
+def grounding_cli():
+    """Phase 20: one train step of `GROUNDING_CONFIG` as shipped
+    (`grounding_step_as_shipped`); where it runs out of the card's memory
+    the runs below take `WITH_CP`. Then `run_cli` on the config (fp32,
+    TF32 off, batch 2 on the 1024 canvas, drop path 0.3, the box-rectangle
+    aux loss) for `GROUNDING_STEPS` steps on `write_grounding_set` data
+    (the real pipeline: AutoAugment, flip with the question's left/right
+    swap, the CLIP tokenizer), a checkpoint at the last, and the resume;
+    `tools.test --eval IoU` on the two val images and `--aug-test` (3
+    scales x flip, the vote), each equal to `run_grounding_eval` called
+    directly, boxes included; then `grounding_submission`. Returns the
+    launches of the train steps and of one test model call."""
+    from vitadapter_torch.det.grounding_dino import GroundingDINO
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with_cp = [] if grounding_step_as_shipped() else [WITH_CP]
+
+    def prepare(tmp):
+        root = os.path.join(tmp, "data")
+        bpe = write_grounding_set(root, "wsdm")
+        options = GROUNDING_OPTIONS + with_cp + [
+            f"data.data_root={root}", f"data.bpe_vocab={bpe}"]
+        return ["--cfg-options", *options], options
+
+    log(f"grounding CLI {GROUNDING_CONFIG}: "
+        f"{'with_cp' if with_cp else 'as shipped'}; TF32 off")
+    train_counts, test_counts, _, _ = run_cli(
+        "grounding", GroundingDINO, GROUNDING_CONFIG, GROUNDING_STEPS,
+        GROUNDING_STEP_LAUNCHES, GROUNDING_CALL_LAUNCHES, prepare,
+        grounding_eval, ["--eval", "IoU"], ("mIoU", "Acc@0.5", "boxes"),
+        inputs_per_call=GROUNDING_CALL_INPUTS, aug_config=GROUNDING_CONFIG,
+        aug_augs=GROUNDING_TEST_AUGS, after=grounding_submission)
+    return train_counts, test_counts
+
+
+def grounding_eval(cfg, model, aug_test):
+    """`run_grounding_eval` on the val split, as `tools.test --eval IoU`
+    calls it."""
+    from vitadapter_torch.train.det_loop import (build_det_dataset,
+                                                 run_grounding_eval)
+
+    return run_grounding_eval(
+        cfg, model, build_det_dataset(cfg.data, "val", with_masks=False),
+        aug_test=aug_test, log_fn=lambda *_: None)
+
+
+def grounding_submission(tmp, ckpt, options):
+    """`tools.generate_results` with the checkpoint on a 2-row CSV of the
+    set's images: the header and a row each, and one model call of
+    `GROUNDING_CALL_LAUNCHES` a row."""
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.tools import generate_results as gen_cli
+
+    csv_in, csv_out = (os.path.join(tmp, "in.csv"),
+                       os.path.join(tmp, "out.csv"))
+    with open(csv_in, "w") as f:
+        f.write("image,question\n0.jpg,the left one\n"
+                "1.jpg,what is right of it\n")
+    before = dict(cuda_ext.launches)
+    t0 = time.perf_counter()
+    rows = gen_cli.main([GROUNDING_CONFIG, ckpt, csv_in, csv_out,
+                         "--img-root", os.path.join(tmp, "data", "images"),
+                         "--cfg-options", *options],
+                        log_fn=lambda line: log(f"  | {line}"))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    used = launch_diff(cuda_ext.launches, before)
+    with open(csv_out) as f:
+        written = f.read().splitlines()
+    ok = (len(rows) == 2 and len(written) == 3
+          and written[0] == "image,left,top,right,bottom"
+          and used == {k: 2 * v for k, v in GROUNDING_CALL_LAUNCHES.items()})
+    log(f"grounding CLI generate_results: {gen_s:.2f} s for 2 rows with the "
+        f"build; launches {used}; wrote {written} ok={ok}")
+    if not ok:
+        raise SystemExit("FAIL: grounding CLI generate_results")
+
+
+def gqa_step():
+    """Phase 21: one `tools.train` step of `GQA_CONFIG` (the base
+    Uni-Perceiver-Adapter, `VGDataset`, questions of 64 tokens, batch 2 on
+    the 1024 canvas) on VG-layout records of `write_grounding_set`, with
+    `evaluation.interval=0`: finite loss and grad norm and the step's
+    launches."""
+    import tempfile
+
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.tools import train as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gqa_")
+    try:
+        root = os.path.join(tmp, "data")
+        bpe = write_grounding_set(root, "vg")
+        lines, marks = [], {0: dict(cuda_ext.launches)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.main([GQA_CONFIG, "--work-dir", os.path.join(tmp, "work"),
+                        "--max-iters", "1", "--cfg-options",
+                        "log_config.interval=1", "evaluation.interval=0",
+                        "data.workers=2", f"data.data_root={root}",
+                        f"data.bpe_vocab={bpe}"],
+                       log_fn=lambda line: cli_log(lines, marks, line))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    used = launch_diff(marks[1], marks[0])
+    it = next(l for l in lines if l.startswith("iter 1/"))
+    loss = float(re.search(r"loss=(\S+)", it).group(1))
+    norm = float(re.search(r"grad_norm=(\S+)", it).group(1))
+    ok = (used == GROUNDING_STEP_LAUNCHES and loss == loss and norm == norm
+          and abs(loss) != float("inf") and abs(norm) != float("inf"))
+    log(f"gqa step {GQA_CONFIG} (batch 2, 1024 canvas, max_sent_len 64, "
+        f"evaluation.interval=0): {secs:.2f} s with the build and the "
+        f"checkpoint (host clock); peak memory {peak:.2f} GiB; loss {loss} "
+        f"grad_norm {norm}; launches {used} (want {GROUNDING_STEP_LAUNCHES}) "
+        f"ok={ok}")
+    if not ok:
+        raise SystemExit("FAIL: the GQA config's train step")
+
+
+def grounding_card_vs_cpu():
+    """Phase 22: `GROUNDING_CONFIG` at depth 4 (one joint layer per
+    interaction) and full width (the trunk 1024 wide, 16 heads; the DINO
+    head 256 wide, 6 + 6 layers, 100 queries), fp32, TF32 off, drop path
+    0, on the 256 canvas with batch 2 and questions of 16 tokens (the
+    second padded), on the card and on the CPU from the same random
+    weights. Eval: the encoder keeps the same 100 proposals (the cut's
+    margin logged), the last layer's class logits and boxes of every
+    query within `GROUNDING_RTOL` of their scale, the decoded top box the
+    same and the decoded scores within `GROUNDING_RTOL`. Train: one
+    `make_det_train_step` each on the same batch (the config's optimizer
+    without its clipping, so that the gradients stay as the loss gave
+    them), the denoising draws made on the card and the CPU on the card's
+    assignments, compared by the losses and the float64 gradient norm
+    (`GROUNDING_TRAIN_RTOL`)."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.det.dino import cdn_draws
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.ops.matching import hungarian_assign
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_det_train_step
+    from vitadapter_torch.utils.config import Config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(GROUNDING_CONFIG)
+    cfg.merge_from_options({
+        "model.backbone.depth": 4, "model.backbone.drop_path_rate": 0.0,
+        "model.backbone.interaction_indexes": [[0, 0], [1, 1], [2, 2],
+                                               [3, 3]]})
+    gen = torch.Generator().manual_seed(22)
+    cpu = build_model(dict(cfg.model), device="cpu", generator=gen)
+    randomize(cpu, gen)
+    card = copy.deepcopy(cpu).cuda()
+    hw, T = (256, 256), 16
+    img = torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8, generator=gen)
+    refer = torch.randint(0, 49408, (2, T), generator=gen)
+    r_mask = torch.ones(2, T, dtype=torch.int32)
+    r_mask[1, 9:] = 0
+
+    def outputs(model, dev):
+        scores = []
+        n_dec = len(model.bbox_head.transformer.decoder.layers)
+        hook = model.bbox_head.cls_branches[n_dec].register_forward_hook(
+            lambda m, i, o: scores.append(o.float().amax(-1)))
+        with torch.inference_mode():
+            x = normalize(img.to(dev))
+            outs = model.bbox_head(model.extract(x, refer.to(dev),
+                                                 r_mask.to(dev)))
+            dec = model(x, refer.to(dev), r_mask.to(dev))
+        hook.remove()
+        return ({k: v.float().cpu() for k, v in dec.items()},
+                outs["cls"][-1].float().cpu(),
+                outs["boxes"][-1].float().cpu(), scores[0].cpu())
+
+    before = dict(cuda_ext.launches)
+    t0 = time.perf_counter()
+    dec_c, cls_c, box_c, enc_c = outputs(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    dec_g, cls_g, box_g, enc_g = outputs(card, "cuda")
+    used = launch_diff(cuda_ext.launches, before)
+    top = torch.sort(enc_c, -1, descending=True)
+    k = cfg.model["num_queries"]
+    margin = float((top.values[:, k - 1] - top.values[:, k]).min())
+    same_set = all(set(a.tolist()) == set(b.tolist()) for a, b in zip(
+        torch.sort(enc_g, -1, descending=True).indices[:, :k],
+        top.indices[:, :k]))
+
+    def rel(got, ref):
+        return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                    1e-12)
+
+    errs = {"cls": rel(cls_g, cls_c), "boxes": rel(box_g, box_c),
+            "scores": rel(dec_g["scores"], dec_c["scores"]),
+            "top_box": rel(dec_g["boxes"][:, 0], dec_c["boxes"][:, 0])}
+    s = dec_c["scores"]
+    top_gap = float((s[:, 0] - s[:, 1]).min())
+    eval_ok = (same_set and max(errs.values()) <= GROUNDING_RTOL
+               and used == {"msda_fwd": 44})
+    log(f"grounding card vs CPU (depth 4, full width, 256 canvas, batch 2) "
+        f"eval: encoder top-{k} sets equal={same_set} (cut margin "
+        f"{margin:.3e}); relative errors {json.dumps(errs)} (tol "
+        f"{GROUNDING_RTOL}); decoded top-score gap {top_gap:.3e}; CPU eval "
+        f"{t_cpu:.1f} s; card launches {used} (two model calls) "
+        f"ok={eval_ok}")
+
+    # one train step each: the card's denoising draws and assignments
+    H, W = hw
+    boxes = torch.tensor([[[30.0, 40.0, 150.0, 200.0]],
+                          [[100.0, 20.0, 240.0, 120.0]]])
+    batch = {"image": normalize(img), "refer": refer, "r_mask": r_mask,
+             "gt_boxes": boxes, "gt_labels": torch.zeros(2, 1,
+                                                         dtype=torch.long),
+             "gt_valid": torch.ones(2, 1, dtype=torch.bool)}
+    draws = cdn_draws(torch.Generator("cuda").manual_seed(23), 2, 1,
+                      cfg.model["dn_groups"], 1, device="cuda")
+    assigned = []
+
+    def card_assigner(cost, n_valid):
+        out = hungarian_assign(cost, n_valid)
+        assigned.append(out.cpu())
+        return out
+
+    replayed = []
+
+    def cpu_assigner(cost, n_valid):
+        replayed.append(cost)
+        return assigned[len(replayed) - 1]
+
+    logs = {}
+    for name, model, dev, assigner in (("card", card, "cuda", card_assigner),
+                                       ("cpu", cpu, "cpu", cpu_assigner)):
+        opt = cfg.optimizer
+        optimizer, _ = make_optimizer(
+            model, base_lr=opt["lr"], weight_decay=opt["weight_decay"],
+            depth=4, layer_decay_rate=opt.get("layer_decay_rate", 1.0),
+            total_steps=100, warmup_steps=0)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        _, out = make_det_train_step(model)(
+            TrainState.create(model, optimizer), b,
+            torch.Generator(dev).manual_seed(24),
+            dn_draws=type(draws)(*(d.to(dev) for d in draws)),
+            assigner=assigner)
+        secs = time.perf_counter() - t0
+        norm64 = float(torch.sqrt(sum(
+            p.grad.double().square().sum() for p in model.parameters())))
+        logs[name] = ({k: float(v) for k, v in out.items()}, norm64, secs)
+    (lg, ng, sg), (lc, nc, sc) = logs["card"], logs["cpu"]
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc
+                if k != "grad_norm"}
+    norm_err = abs(ng - nc) / nc
+    train_ok = (len(assigned) == 7 and len(replayed) == 7
+                and max(loss_err.values()) <= GROUNDING_TRAIN_RTOL
+                and norm_err <= GROUNDING_TRAIN_RTOL)
+    log(f"grounding card vs CPU train step (the CPU on the card's 7 "
+        f"assignments and denoising draws): loss card {lg['loss']:.6f} cpu "
+        f"{lc['loss']:.6f}; largest relative loss error "
+        f"{max(loss_err.values()):.3e} ({max(loss_err, key=loss_err.get)}); "
+        f"float64 grad norm card {ng:.6f} cpu {nc:.6f} rel {norm_err:.3e} "
+        f"(tol {GROUNDING_TRAIN_RTOL}); card {sg:.2f} s, CPU {sc:.2f} s "
+        f"(host clock) "
+        f"ok={train_ok}")
+    if not (eval_ok and train_ok):
+        raise SystemExit("FAIL: grounding card vs CPU")
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3855,11 +4378,28 @@ def main():
     log(f"phases 17, 18 and 19 took {t17:.1f}, {t18:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
+    # phase 20: the grounding CLIs on the large WSDM2023 config
+    t0 = time.perf_counter()
+    grounding_counts, grounding_test_counts = grounding_cli()
+    t20 = time.perf_counter() - t0
+
+    # phase 21: one step of the base GQA config
+    t0 = time.perf_counter()
+    gqa_step()
+    t21 = time.perf_counter() - t0
+
+    # phase 22: GroundingDINO, card against CPU
+    t0 = time.perf_counter()
+    grounding_card_vs_cpu()
+    log(f"phases 20, 21 and 22 took {t20:.1f}, {t21:.1f} and "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+
     paths = {"serve": serve_counts, "train": train_counts,
              "eval_whole": eval_counts, "train_overline": overline_counts,
              "cli": cli_counts, "upernet": upernet_counts, "det": det_counts,
              "det_test": det_test_counts, "htc": htc_counts,
-             "htc_test": htc_test_counts}
+             "htc_test": htc_test_counts, "grounding": grounding_counts,
+             "grounding_test": grounding_test_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -3897,6 +4437,9 @@ def main():
         if "htc" in r.get("paths", {}):
             per += ("; paths.htc: per phase 17 train step (AugReg-L HTC++, "
                     "1600x1408 canvas, batch 1, fp32)")
+        if "grounding" in r.get("paths", {}):
+            per += ("; paths.grounding: per phase 20 train step (the large "
+                    "WSDM2023 GroundingDINO, 1024 canvas, batch 2, fp32)")
         if "det_bf16" in r.get("paths", {}):
             per += ("; paths.det_bf16: per train step of the DeiT-S Mask "
                     "R-CNN configs (1024 canvas, batch 2, bf16; not run "

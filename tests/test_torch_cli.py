@@ -25,6 +25,7 @@ from vitadapter_torch.utils import checkpoint_io
 from vitadapter_torch.utils.config import Config
 
 from test_m2f_cli_learns import write_color_task
+from torch_port_util import UNIPERCEIVER_TINY
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -204,8 +205,10 @@ def test_test_cli_reports_run_evals_miou(trained):
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    """What is not ported raises and names its ROADMAP item; no CUDA and
-    no `--device` raises."""
+    """What is not ported raises and names its ROADMAP item; the UperNet
+    Uni-Perceiver config (shrunk) trains into the TypeError naming `refer`
+    at its first forward, as the JAX package does; no CUDA and no
+    `--device` raises."""
     cfg = _config(tmp_path)
     detector = os.path.join(ROOT, "configs/atss/atss_deit_adapter_small_"
                             "fpn_3x_coco.py")
@@ -217,9 +220,14 @@ def test_cli_refusals(tmp_path, monkeypatch):
                         "--device", "cpu"])
     upernet = os.path.join(ROOT, "configs/ade20k/upernet_uniperceiver_"
                            "adapter_large_512_160k_ade20k.py")
-    with pytest.raises(KeyError, match="item 8"):
+    with pytest.raises(TypeError, match="refer"):
         train_cli.main([upernet, "--work-dir", str(tmp_path / "u"),
-                        "--device", "cpu"])
+                        "--device", "cpu", "--synthetic-data",
+                        "--max-iters", "1", "--cfg-options",
+                        *UNIPERCEIVER_TINY, "model.decode_head.channels=32",
+                        "model.auxiliary_head.channels=16",
+                        "data.crop_size=[64,64]", "data.samples_per_chip=1"],
+                       log_fn=lambda *_: None)
     with pytest.raises(SystemExit):
         test_cli.parse_args([cfg, "x.pth", "--eval", "nope"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -25,6 +25,8 @@ from vitadapter_torch.data import transforms as ttransforms
 from vitadapter_torch.data.datasets import DATASETS
 from vitadapter_torch.utils.config import Config, parse_cfg_options
 
+from torch_port_util import assert_refer_required_at_first_forward
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, ROOT)
                  for p in glob.glob(os.path.join(ROOT, "configs/*/*.py")))
@@ -116,11 +118,12 @@ def test_640_config_parameter_count_matches_jax():
 def test_builder_refuses_what_is_not_ported():
     with pytest.raises(KeyError, match="item 3"):
         builder.build({"type": "MaskFormerHead"})
-    uniperceiver = Config.fromfile(os.path.join(
-        ROOT, "configs/ade20k/upernet_uniperceiver_adapter_large_512_160k_"
-        "ade20k.py"))
-    with pytest.raises(KeyError, match="item 8"):
-        builder.build(dict(uniperceiver.model))
+    # the UperNet Uni-Perceiver config builds and, as in JAX, its first
+    # forward calls the backbone without the text
+    assert_refer_required_at_first_forward(
+        "configs/ade20k/upernet_uniperceiver_adapter_large_512_160k_"
+        "ade20k.py", ["model.decode_head.channels=32",
+                      "model.auxiliary_head.channels=16"])
     with pytest.raises(KeyError, match="item 7"):
         builder.build({"type": "ATSS"})
     with pytest.raises(KeyError, match="unknown component type"):

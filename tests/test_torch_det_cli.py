@@ -33,7 +33,8 @@ from vitadapter_torch.train.det_loop import build_det_dataset, run_det_eval
 from vitadapter_torch.utils.checkpoint_io import load_model_weights
 from vitadapter_torch.utils.config import Config, parse_cfg_options
 
-from torch_port_util import write_coco
+from torch_port_util import (assert_refer_required_at_first_forward,
+                             write_coco)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = "configs/mask_rcnn/mask_rcnn_deit_adapter_tiny_fpn_1x_coco.py"
@@ -232,15 +233,14 @@ def test_mask_rcnn_parameter_count_matches_jax():
     assert got == want
 
 
-@pytest.mark.parametrize("path,error,item", [
-    ("configs/mask_rcnn/mask_rcnn_uniperceiver_adapter_base_fpn_3x_coco.py",
-     KeyError, "item 8"),
-    ("configs/htc/htc++_uniperceiver_adapter_large_fpn_3x_coco.py",
-     KeyError, "item 8")])
-def test_mask_rcnn_configs_not_ported_raise(path, error, item):
-    cfg = Config.fromfile(os.path.join(ROOT, path))
-    with pytest.raises(error, match=item):
-        builder.build(dict(cfg.model))
+@pytest.mark.parametrize("path", [
+    "configs/mask_rcnn/mask_rcnn_uniperceiver_adapter_base_fpn_3x_coco.py",
+    "configs/htc/htc++_uniperceiver_adapter_large_fpn_3x_coco.py"])
+def test_mask_rcnn_configs_not_ported_raise(path):
+    """The R-CNN Uni-Perceiver configs build (shrunk) and, as in JAX, their
+    first forward calls the backbone without the text: the TypeError
+    naming `refer`."""
+    assert_refer_required_at_first_forward(path)
 
 
 def test_htc_shipped_crop_raises(tmp_path):

@@ -13,11 +13,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vitadapter")
-# the detection modules, which the walk below must import too
+# the detection and grounding modules, which the walk below must import too
 DET_MODULES = {f"vitadapter_torch.{m}" for m in (
     "det.anchors", "det.assign", "det.boxes", "det.coco_eval",
     "det.mask_rcnn", "det.mask_utils", "det.necks", "det.roi_align",
-    "det.roi_heads", "det.rpn", "data.coco", "ops.nms", "train.det_loop")}
+    "det.roi_heads", "det.rpn", "data.coco", "ops.nms", "train.det_loop",
+    "det.dino", "det.dino_detector", "det.grounding_dino", "det.losses",
+    "data.grounding", "data.tokenization", "models.uniperceiver",
+    "models.uniperceiver_adapter", "tools.generate_results")}
 
 
 @pytest.fixture(autouse=True, scope="module")

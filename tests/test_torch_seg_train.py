@@ -47,7 +47,9 @@ from vitadapter_torch.utils.config import Config
 from vitadapter_torch.utils.weights import load_flax, state_dict_from_flax
 
 from test_m2f_cli_learns import write_color_task
-from torch_port_util import TINY_TRAIN_BACKBONE, randomize_flax, to_np
+from torch_port_util import (TINY_TRAIN_BACKBONE,
+                             assert_refer_required_at_first_forward,
+                             randomize_flax, to_np)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UPERNET = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
@@ -203,9 +205,13 @@ def test_upernet_config_builds_on_meta(path):
 
 
 def test_uniperceiver_upernet_config_is_refused_naming_item_8():
-    cfg = Config.fromfile(os.path.join(ROOT, UNIPERCEIVER))
-    with pytest.raises(KeyError, match="item 8"):
-        builder.build(dict(cfg.model))
+    """The UperNet Uni-Perceiver config builds since the grounding port
+    (ROADMAP.md §1 item 8, done); its segmentor calls the backbone without
+    the text and raises the TypeError naming `refer`, as the JAX
+    package's does."""
+    assert_refer_required_at_first_forward(
+        UNIPERCEIVER, ["model.decode_head.channels=32",
+                       "model.auxiliary_head.channels=16"])
 
 
 def test_augreg_large_parameter_count_matches_jax():

@@ -244,6 +244,38 @@ def proposal_margins(cls_out, reg_out, anchors, img_hw, nms_pre=1000,
     return cut, iou_gap, logit_gap, kept
 
 
+# a Uni-Perceiver-Adapter config's backbone at a tiny size (2 global joint
+# layers 48 wide, one per interaction), for the configs that call it
+# without its text
+UNIPERCEIVER_TINY = [
+    "model.backbone.depth=2", "model.backbone.embed_dim=48",
+    "model.backbone.num_heads=4", "model.backbone.deform_num_heads=4",
+    "model.backbone.conv_inplane=16",
+    "model.backbone.interaction_indexes=[[0,0],[1,1]]",
+    "model.backbone.window_attn=False", "model.backbone.window_size=14"]
+
+
+def assert_refer_required_at_first_forward(path, options=()):
+    """The config at `path`, its Uni-Perceiver-Adapter shrunk by
+    `UNIPERCEIVER_TINY` and `options`, builds; its first forward calls the
+    backbone with the image alone and raises the TypeError naming `refer`,
+    as the JAX package's does."""
+    import os
+
+    import pytest
+
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.utils.config import Config, parse_cfg_options
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config.fromfile(os.path.join(root, path))
+    cfg.merge_from_options(parse_cfg_options(UNIPERCEIVER_TINY
+                                             + list(options)))
+    model = build_model(dict(cfg.model), device="cpu")
+    with pytest.raises(TypeError, match="refer"):
+        model(torch.zeros(1, 64, 64, 3))
+
+
 COCO_CATEGORIES = (1, 3, 7)
 
 

@@ -16,6 +16,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from vitadapter_torch.det.cascade import CascadeRCNN
+from vitadapter_torch.det.dino_detector import DINO
+from vitadapter_torch.det.grounding_dino import GroundingDINO
 from vitadapter_torch.det.mask_rcnn import MaskRCNN
 from vitadapter_torch.heads.mask2former import Mask2FormerHead
 from vitadapter_torch.heads.upernet import FCNHead, UPerHead
@@ -25,6 +27,8 @@ from vitadapter_torch.models.beit_adapter import BEiTAdapter
 from vitadapter_torch.models.mask2former_segmentor import \
     EncoderDecoderMask2Former
 from vitadapter_torch.models.segmentor import EncoderDecoder
+from vitadapter_torch.models.uniperceiver import UnifiedBertEncoder
+from vitadapter_torch.models.uniperceiver_adapter import UniPerceiverAdapter
 from vitadapter_torch.models.vit import TIMMVisionTransformer
 from vitadapter_torch.models.vit_adapter import ViTAdapter
 from vitadapter_torch.zoo import materialize, resolve_device
@@ -37,6 +41,8 @@ REGISTRY: Dict[str, Any] = {
     "TIMMVisionTransformer": TIMMVisionTransformer,
     "ViTBaseline": ViTBaseline,
     "BEiTBaseline": BEiTBaseline,
+    "UniPerceiverAdapter": UniPerceiverAdapter,
+    "UnifiedBertEncoder": UnifiedBertEncoder,
     # segmentation
     "UPerHead": UPerHead,
     "FCNHead": FCNHead,
@@ -46,16 +52,15 @@ REGISTRY: Dict[str, Any] = {
     # detection
     "MaskRCNN": MaskRCNN,
     "CascadeRCNN": CascadeRCNN,
+    "DINO": DINO,
+    "GroundingDINO": GroundingDINO,
 }
 
 # the JAX package's other component types, by the ROADMAP.md §1 item that
 # will port them
 NOT_PORTED = {
     "MaskFormerHead": "item 3 (MaskFormerHead and panoptic)",
-    **dict.fromkeys(("ATSS", "SparseRCNN", "DINO"),
-                    "item 7 (detection)"),
-    **dict.fromkeys(("GroundingDINO", "UniPerceiverAdapter",
-                     "UnifiedBertEncoder"), "item 8 (grounding)"),
+    **dict.fromkeys(("ATSS", "SparseRCNN"), "item 7 (detection)"),
 }
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

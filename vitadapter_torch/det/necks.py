@@ -2,9 +2,9 @@
 (5 outputs, the extra level a stride-2 subsample of the last), the
 reference's `ChannelMapperWithPooling` and HTC++'s `ExtraAttention`. They
 take and return NHWC maps; their keys are mmdet's (`lateral_convs.N.conv`,
-`fpn_convs.N.conv`, `convs.N.conv` / `convs.N.gn`) and the reference's
-(`norm1`, `attn.qkv`, `ffn.fc1`, `final_norm`, ...). `ChannelMapper`
-comes with the detector that uses it (ROADMAP.md §1 item 7)."""
+`fpn_convs.N.conv`, `convs.N.conv` / `convs.N.gn`, `extra_convs.N.conv`)
+and the reference's (`norm1`, `attn.qkv`, `ffn.fc1`, `final_norm`, ...).
+mmdet's `ChannelMapper` feeds the DINO detectors."""
 
 from typing import List, Optional, Sequence
 
@@ -95,6 +95,40 @@ class ChannelMapperWithPooling(nn.Module):
         while len(outs) < self.num_outs:
             x = outs[-1].permute(0, 3, 1, 2)
             outs.append(F.max_pool2d(x, 2, 2).permute(0, 2, 3, 1))
+        return outs
+
+
+class ChannelMapper(nn.Module):
+    """mmdet's `ChannelMapper` as the DINO configs use it (kernel 1,
+    GroupNorm(32), no activation): a 1x1 conv (no bias) and GroupNorm per
+    input level, then LEARNED extra levels, each a 3x3 stride-2 conv (no
+    bias) and GroupNorm; the first extra reads the last INPUT map, later
+    ones chain."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
+                 num_outs: int = 4, groups: int = 32,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+
+        def conv_gn(cin, kernel, stride):
+            return ConvModule(
+                Conv2d(cin, out_channels, kernel, stride=stride,
+                       padding=kernel // 2, bias=False, **kw),
+                GroupNorm(groups, out_channels, **kw))
+
+        self.convs = nn.ModuleList([conv_gn(c, 1, 1) for c in in_channels])
+        n_extra = max(num_outs - len(in_channels), 0)
+        self.extra_convs = nn.ModuleList([
+            conv_gn(in_channels[-1] if j == 0 else out_channels, 3, 2)
+            for j in range(n_extra)])
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        outs = [conv_nhwc(m, f) for m, f in zip(self.convs, feats)]
+        src = feats[-1]
+        for m in self.extra_convs:
+            src = conv_nhwc(m, src)
+            outs.append(src)
         return outs
 
 

@@ -25,7 +25,7 @@ class EncoderDecoderMask2Former(nn.Module):
         size or, with `return_queries`, the final layer's raw cls logits
         (B, Q, K+1) and mask logits (B, Q, H, W) at input size (for
         panoptic / instance fusion)."""
-        feats = self.backbone(img, generator)
+        feats = self.backbone(img, generator=generator)
         cls_list, mask_list = self.decode_head(feats)
         if self.training:
             return cls_list, mask_list

@@ -39,7 +39,7 @@ class EncoderDecoder(nn.Module):
         an auxiliary head) also the auxiliary logits at input size. In
         training mode BatchNorm takes batch statistics and DropPath and
         dropout draw from `generator`."""
-        feats = self.backbone(img, generator)
+        feats = self.backbone(img, generator=generator)
         hw = img.shape[1:3]
         logits = resize_2d(self.decode_head(feats, generator).float(), hw,
                            "bilinear")

@@ -1,6 +1,6 @@
 """Config-driven detection training and evaluation (counterpart of
-`vitadapter/train/det_loop.py`, on one device), for Mask R-CNN and
-Cascade Mask R-CNN / HTC++.
+`vitadapter/train/det_loop.py`, on one device), for Mask R-CNN, Cascade
+Mask R-CNN / HTC++ and the DINO detectors, GroundingDINO among them.
 
 `run_det_training` is the reference's `detection/train.py` on the port's
 step loop (`train/loop.py::train_steps`): the COCO pipeline (flip,
@@ -11,7 +11,9 @@ bbox segm [--aug-test]`: keep-ratio resize to `test_cfg.img_scale` (or to
 each `tta` scale, flipped and not), zero pad to one of two canvases
 (landscape or portrait), detections mapped back to the original frame
 (and the augs merged), masks pasted from their 28x28 box crops, COCO
-metrics.
+metrics. `run_grounding_eval` is `test.py --eval IoU [--aug-test]`: the
+top box of each image (or the vote over the scales and flips), Acc@0.5
+and mIoU against its one gt box.
 The JAX version shards images over a device mesh with one compiled program
 per canvas; the port runs `test_cfg.images_per_device` images of a canvas
 a model call, eagerly. Ground-truth masks travel as bool and are read as
@@ -30,20 +32,28 @@ from PIL import Image
 
 from vitadapter_torch.data import transforms as T
 from vitadapter_torch.data.coco import CocoDataset, pad_targets
+from vitadapter_torch.data.grounding import (ParaphraseCache, VGDataset,
+                                             WSDMCocoDataset,
+                                             grounding_metrics)
+from vitadapter_torch.data.tokenization import ClipTokenizer, random_flip_refer
 from vitadapter_torch.data.loader import EpochSampler, prefetch
 from vitadapter_torch.data.preprocess import normalize
 from vitadapter_torch.det.cascade import merge_aug_detections
 from vitadapter_torch.det.coco_eval import COCOEvaluator
+from vitadapter_torch.det.grounding_dino import aug_test_vote
 from vitadapter_torch.train.loop import build_train_state, train_steps
 from vitadapter_torch.train.trainer import TrainState, make_det_train_step
 from vitadapter_torch.zoo import resolve_device
 
 # the root `train.py`'s detector types: `tools.train` sends these here, and
-# `build_model` names the ROADMAP.md item of those not ported yet
+# `build_model` names the ROADMAP.md item of those not ported yet (ATSS,
+# SparseRCNN)
 DETECTORS = ("MaskRCNN", "CascadeRCNN", "ATSS", "SparseRCNN", "DINO",
              "GroundingDINO")
-# the grounding datasets come with ROADMAP.md §1 item 8
-DET_DATASETS = {"CocoDataset": CocoDataset}
+# the detectors trained on masks
+MASK_DETECTORS = ("MaskRCNN", "CascadeRCNN")
+DET_DATASETS = {"CocoDataset": CocoDataset,
+                "WSDMCocoDataset": WSDMCocoDataset, "VGDataset": VGDataset}
 
 
 def build_det_dataset(data_cfg: Dict[str, Any], split: str,
@@ -51,19 +61,28 @@ def build_det_dataset(data_cfg: Dict[str, Any], split: str,
     cls = DET_DATASETS[data_cfg["dataset_type"]]
     sub = data_cfg[split]
     root = data_cfg.get("data_root", "")
+    kwargs = {"with_masks": with_masks} if cls is CocoDataset else {}
     return cls(os.path.join(root, sub["ann_file"]),
-               os.path.join(root, sub["img_dir"]), with_masks=with_masks)
+               os.path.join(root, sub["img_dir"]), **kwargs)
 
 
 def det_train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
+                      tokenizer=None,
                       sampler=None) -> Iterator[Dict[str, np.ndarray]]:
     """The reference det pipeline into static-shape batches, as the JAX
     package's `det_train_batches` (same draws from `seed`): RandomFlip ->
     AutoAugment (11-scale short-edge resize | resize -> absolute-range crop
     -> resize) -> crop and pad to the static canvas, photometric distortion
     where the config asks; targets padded to `max_instances`. Images ship
-    as uint8 and masks as bool."""
+    as uint8 and masks as bool. With a `tokenizer` (grounding) each image's
+    question rides along: a paraphrase from `data.paraphrase_cache` where
+    it holds one, the left/right words swapped with the flip, then
+    `refer`/`r_mask` ids and mask padded to `max_sent_len`."""
     rng = np.random.RandomState(seed)
+    max_sent = data_cfg.get("max_sent_len", 128)
+    para = None
+    if tokenizer is not None and data_cfg.get("paraphrase_cache"):
+        para = ParaphraseCache(data_cfg["paraphrase_cache"])
     ch, cw = data_cfg["crop_size"]
     max_inst = data_cfg.get("max_instances", 100)
     kw = dict(autoaug=data_cfg.get("autoaug", True),
@@ -87,7 +106,7 @@ def det_train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
                     pos = 0
                 idxs.append(int(order[pos]))
                 pos += 1
-        imgs, targets = [], []
+        imgs, targets, refs = [], [], []
         for idx in idxs:
             img, t = dataset.load(idx)
             flip = bool(rng.rand() < 0.5)
@@ -100,6 +119,13 @@ def det_train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
             t2["masks"] = masks[keep] if masks is not None else None
             targets.append(pad_targets(t2, max_inst))
             imgs.append(img2)
+            if tokenizer is not None:
+                q = t.get("question", "")
+                if para is not None:
+                    q = para.maybe_paraphrase(rng, q)
+                if flip:
+                    q = random_flip_refer(q)
+                refs.append(tokenizer.tokenize_refer(q, max_sent))
         batch = {"image": np.stack(imgs).astype(np.uint8),
                  "gt_boxes": np.stack([t["boxes"] for t in targets]),
                  "gt_labels": np.stack([t["labels"] for t in targets]),
@@ -107,16 +133,24 @@ def det_train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
         if targets[0].get("masks") is not None:
             batch["gt_masks"] = np.stack(
                 [t["masks"] for t in targets]).astype(bool)
+        if tokenizer is not None:
+            batch["refer"] = np.asarray([r[0] for r in refs], np.int32)
+            batch["r_mask"] = np.asarray([r[1] for r in refs], np.int32)
         yield batch
 
 
 def synthetic_det_batches(batch: int, crop, max_inst: int,
-                          num_classes: int) -> Iterator[Dict[str, np.ndarray]]:
+                          num_classes: int, masks: bool = True,
+                          text: Optional[tuple] = None
+                          ) -> Iterator[Dict[str, np.ndarray]]:
     """The JAX loop's synthetic batches (`max_inst` random boxes of 8-40
     pixels in the canvas's top-left quarter, random labels and pixels),
-    with random masks drawn as bits: each pixel of each instance is set
-    with probability 1/2, as the JAX loop's `rand > 0.5`, but from random
-    bytes (0.1 s for 100 masks of 1024x1024, where `rand` takes 1.8)."""
+    with random masks drawn as bits where `masks`: each pixel of each
+    instance is set with probability 1/2, as the JAX loop's `rand > 0.5`,
+    but from random bytes (0.1 s for 100 masks of 1024x1024, where `rand`
+    takes 1.8). With `text` = (vocab size, sentence length), random
+    `refer` ids and an all-ones `r_mask`, as the JAX loop's grounding
+    batches."""
     rng = np.random.RandomState(0)
     ch, cw = crop
     while True:
@@ -127,18 +161,28 @@ def synthetic_det_batches(batch: int, crop, max_inst: int,
              "gt_labels": rng.randint(0, num_classes, (batch, max_inst)
                                       ).astype(np.int32),
              "gt_valid": np.ones((batch, max_inst), bool)}
-        bits = rng.randint(0, 256, (batch, max_inst, ch, -(-cw // 8)),
-                           dtype=np.uint8)
-        b["gt_masks"] = np.unpackbits(bits, axis=-1)[..., :cw].astype(bool)
+        if masks:
+            bits = rng.randint(0, 256, (batch, max_inst, ch, -(-cw // 8)),
+                               dtype=np.uint8)
+            b["gt_masks"] = np.unpackbits(bits, axis=-1)[..., :cw].astype(
+                bool)
+        if text is not None:
+            vocab, max_sent = text
+            b["refer"] = rng.randint(0, vocab, (batch, max_sent)).astype(
+                np.int32)
+            b["r_mask"] = np.ones((batch, max_sent), np.int32)
         yield b
 
 
 def det_batch_to_device(b: Dict[str, np.ndarray], device: torch.device):
-    return {"image": normalize(torch.from_numpy(b["image"]).to(device)),
-            "gt_boxes": torch.from_numpy(b["gt_boxes"]).to(device).float(),
-            "gt_labels": torch.from_numpy(b["gt_labels"]).to(device).long(),
-            "gt_valid": torch.from_numpy(b["gt_valid"]).to(device),
-            "gt_masks": torch.from_numpy(b["gt_masks"]).to(device)}
+    out = {"image": normalize(torch.from_numpy(b["image"]).to(device)),
+           "gt_boxes": torch.from_numpy(b["gt_boxes"]).to(device).float(),
+           "gt_labels": torch.from_numpy(b["gt_labels"]).to(device).long(),
+           "gt_valid": torch.from_numpy(b["gt_valid"]).to(device)}
+    for k in ("gt_masks", "refer", "r_mask"):
+        if k in b:
+            out[k] = torch.from_numpy(b[k]).to(device)
+    return out
 
 
 def _iou_types(metric) -> tuple:
@@ -165,23 +209,34 @@ def run_det_training(cfg, work_dir: str, resume: bool = False,
     batch = cfg.data.get("samples_per_chip", 2)
     crop = tuple(cfg.data["crop_size"])
     max_inst = cfg.data.get("max_instances", 100)
+    needs_masks = cfg.model["type"] in MASK_DETECTORS
+    grounding = cfg.model["type"] == "GroundingDINO"
     if synthetic:
+        text = ((cfg.model["backbone"].get("vocab_size", 49411),
+                 cfg.data.get("max_sent_len", 128)) if grounding else None)
         it = synthetic_det_batches(batch, crop, max_inst,
-                                   cfg.model.get("num_classes", 80))
+                                   cfg.model.get("num_classes", 80),
+                                   masks=needs_masks, text=text)
     else:
-        ds = build_det_dataset(cfg.data, "train")
+        ds = build_det_dataset(cfg.data, "train", with_masks=needs_masks)
+        tok = ClipTokenizer(cfg.data.get("bpe_vocab")) if grounding else None
         sampler = EpochSampler(len(ds), seed=0)
         it = prefetch(lambda s: det_train_batches(ds, cfg.data, batch,
-                                                  seed=s, sampler=sampler),
+                                                  seed=s, tokenizer=tok,
+                                                  sampler=sampler),
                       num_threads=cfg.data.get("workers", 4))
 
     # the in-training evaluation (mmcv EvalHook; the det configs set
-    # `evaluation = dict(metric=['bbox', 'segm'])`)
+    # `evaluation = dict(metric=['bbox', 'segm'])`). As in the JAX loop it
+    # is `run_det_eval` for every detector: the GQA grounding configs'
+    # `interval=1` hook calls GroundingDINO without its text and raises
+    # (ROADMAP.md §3)
     ev_cfg = dict(cfg.get("evaluation", {}))
     evaluate = None
     if ev_cfg.get("interval") and not synthetic:
         try:
-            val_ds = build_det_dataset(cfg.data, "val")
+            val_ds = build_det_dataset(cfg.data, "val",
+                                       with_masks=needs_masks)
         except (KeyError, FileNotFoundError) as e:
             log_fn(f"eval hook disabled (no val dataset: {e})")
             val_ds = None
@@ -366,5 +421,138 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
                          "forward_s": forward_s,
                          "host_s": total_s - forward_s}
     log_fn(f"eval time: {n} images x {len(augs)} augs, model calls "
+           f"{forward_s:.3f} s, host {total_s - forward_s:.3f} s")
+    return metrics
+
+
+def grounding_tta_scales(cfg, aug_test: bool):
+    """(scales, flips) of a grounding test run: `test_cfg.img_scale`
+    ((1333, 800) by default) unflipped, or with `aug_test` the config's
+    `tta.scales` ((long, short) pairs, or floats as ratios of img_scale;
+    (1333, 600), (1333, 800), (1333, 1000) by default), each unflipped and,
+    unless `tta.flip` is False, flipped."""
+    img_scale = tuple((cfg.get("test_cfg") or {}).get("img_scale",
+                                                       (1333, 800)))
+    if not aug_test:
+        return [img_scale], (False,)
+    tta = dict(cfg.get("tta") or {})
+    raw = tta.get("scales", [(1333, 600), (1333, 800), (1333, 1000)])
+    scales = [tuple(sc) if isinstance(sc, (tuple, list))
+              else (int(max(img_scale) * sc), int(min(img_scale) * sc))
+              for sc in raw]
+    return scales, ((False, True) if tta.get("flip", True) else (False,))
+
+
+def run_grounding_eval(cfg, model: torch.nn.Module, dataset,
+                       aug_test: bool = False,
+                       max_images: Optional[int] = None, log_fn=print,
+                       tokenizer=None) -> Dict[str, Any]:
+    """Single-box grounding metrics of `model` on `dataset` (`test.py
+    --eval IoU`; reference `vg_dataset.py:45-100`): each image keep-ratio
+    resized to each test scale (`grounding_tta_scales`), flipped where the
+    aug says (its question's left/right words swapped), zero padded to the
+    scale's landscape or portrait canvas, `test_cfg.images_per_device` (2)
+    inputs of a canvas a model call (the last call of a canvas filled up by
+    repeating its last input, whose results are dropped, as the JAX
+    package's batch slack); boxes unflipped in the aug's frame, then
+    unscaled. The prediction is the top-scoring box, or with `aug_test`
+    `det/grounding_dino.py::aug_test_vote` over the augs. Returns mIoU and
+    Acc@0.5 against each image's first gt box, the predictions
+    (`boxes`, (n, 4) in original pixels) and under `timing` the seconds in
+    model calls (to a synchronize) and on the host."""
+    if tokenizer is None:
+        tokenizer = ClipTokenizer(cfg.data.get("bpe_vocab"))
+    max_sent = cfg.data.get("max_sent_len", 128)
+    scales, flips = grounding_tta_scales(cfg, aug_test)
+    per_call = int((cfg.get("test_cfg") or {}).get("images_per_device", 2))
+    device = next(model.parameters()).device
+    n = min(len(dataset), max_images or len(dataset))
+    n_aug = len(scales) * len(flips)
+    results: Dict[int, list] = {}
+    preds: Dict[int, np.ndarray] = {}
+    gts: Dict[int, np.ndarray] = {}
+    pending: Dict[tuple, list] = {}
+    forward_s = 0.0
+
+    def finalize(i):
+        per_aug = results.pop(i)
+        if len(per_aug) == 1:
+            preds[i] = per_aug[0]["boxes"][int(np.argmax(
+                per_aug[0]["scores"]))]
+        else:
+            preds[i] = aug_test_vote(per_aug)
+        if len(preds) % 100 == 0 or len(preds) == n:
+            log_fn(f"eval {len(preds)}/{n}")
+
+    def flush(key):
+        nonlocal forward_s
+        items = pending.pop(key, [])
+        if not items:
+            return
+        k_real = len(items)
+        items = items + [items[-1]] * (-k_real % per_call)
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.stack([it[0] for it in items])).to(device)
+        ids = torch.from_numpy(np.stack([it[1] for it in items])).to(device)
+        rm = torch.from_numpy(np.stack([it[2] for it in items])).to(device)
+        out = model(normalize(x), ids, rm)
+        out = {k: v.float().cpu().numpy() for k, v in out.items()}
+        forward_s += time.perf_counter() - t0
+        for j in range(k_real):
+            _, _, _, (rh, rw, fl, h0, w0), i, a = items[j]
+            boxes = out["boxes"][j].astype(np.float32)
+            if fl:      # unflip in the aug's frame, then unscale
+                boxes = np.stack([rw - boxes[:, 2], boxes[:, 1],
+                                  rw - boxes[:, 0], boxes[:, 3]], -1)
+            results[i][a] = {
+                "boxes": boxes * np.asarray([w0 / rw, h0 / rh, w0 / rw,
+                                             h0 / rh], np.float32),
+                "scores": out["scores"][j]}
+            if all(r is not None for r in results[i]):
+                finalize(i)
+
+    t_start = time.perf_counter()
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            for i in range(n):
+                img, t = dataset.load(i)
+                question = t.get("question", "")
+                toks = {fl: tokenizer.tokenize_refer(
+                    random_flip_refer(question) if fl else question,
+                    max_sent) for fl in flips}
+                gts[i] = np.asarray(t["boxes"][0], np.float32)
+                results[i] = [None] * n_aug
+                a = 0
+                for sc in scales:
+                    im2, _ = T.resize_keep_ratio(img, None, sc)
+                    rh, rw = im2.shape[:2]
+                    land, port = test_canvas(sc)
+                    ch, cw = land if rw >= rh else port
+                    for fl in flips:
+                        x = np.zeros((ch, cw, 3), np.float32)
+                        x[:rh, :rw] = im2[:, ::-1] if fl else im2
+                        ids, r_mask = toks[fl]
+                        pending.setdefault((ch, cw), []).append(
+                            (x, np.asarray(ids, np.int32),
+                             np.asarray(r_mask, np.int32),
+                             (rh, rw, fl, img.shape[0], img.shape[1]), i, a))
+                        if len(pending[(ch, cw)]) == per_call:
+                            flush((ch, cw))
+                        a += 1
+            for key in list(pending):
+                flush(key)
+    finally:
+        model.train(was_training)
+    metrics: Dict[str, Any] = grounding_metrics(
+        [preds[i] for i in range(n)], [gts[i] for i in range(n)])
+    log_fn(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    total_s = time.perf_counter() - t_start
+    metrics["boxes"] = np.stack([preds[i] for i in range(n)]) if n else \
+        np.zeros((0, 4), np.float32)
+    metrics["timing"] = {"images": n, "augs": n_aug, "forward_s": forward_s,
+                         "host_s": total_s - forward_s}
+    log_fn(f"eval time: {n} images x {n_aug} augs, model calls "
            f"{forward_s:.3f} s, host {total_s - forward_s:.3f} s")
     return metrics

@@ -27,11 +27,28 @@ from torch import nn
 
 Schedule = Callable[[int], float]
 STACKED = "pixel_decoder.encoder.layers."
+# the port keeps the reference's names where the JAX package renamed a
+# parameter, and the layer-decay id and the decay mask go by the JAX names:
+# the Uni-Perceiver patch projection (JAX `visual_embed/proj`: no
+# `patch_embed`, so scale 1) and its text position table (JAX
+# `token_embed/pos_embed`: id 0 and no weight decay)
+JAX_NAMES = (("visual_embed.patch_embed.proj.", "visual_embed.proj."),
+             ("token_embed.embeddings_pos.position_embeddings.",
+              "token_embed.pos_embed."))
+
+
+def jax_name(name: str) -> str:
+    """The port's parameter name as the JAX package's rules read it."""
+    for ours, theirs in JAX_NAMES:
+        name = name.replace(ours, theirs)
+    return name
 
 
 def vit_layer_id(name: str, num_layers: int) -> int:
     """A parameter name's layer-decay id (reference `get_num_layer_for_vit`);
-    the port's names carry `blocks.<i>.` where JAX's carry `blocks_<i>`."""
+    the port's names carry `blocks.<i>.` where JAX's carry `blocks_<i>`
+    (the Uni-Perceiver trunk's `layers.<i>` take the last id in both)."""
+    name = jax_name(name)
     if "pos_embed" in name or "cls_token" in name or "patch_embed" in name:
         return 0
     m = re.search(r"(?:^|\.)blocks\.(\d+)\.", name)
@@ -57,7 +74,7 @@ def weight_decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]]
     def ndim(n, p):
         return p.dim() + (STACKED in n)
 
-    return {n: (ndim(n, p) > 1 and "pos_embed" not in n
+    return {n: (ndim(n, p) > 1 and "pos_embed" not in jax_name(n)
                 and "cls_token" not in n) for n, p in named_params}
 
 

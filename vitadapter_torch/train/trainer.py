@@ -119,28 +119,50 @@ def make_seg_train_step(model: nn.Module, aux_weight: float = 0.4,
     return train_step
 
 
+def det_losses(model: nn.Module, batch, generator: torch.Generator,
+               sampler: Optional[Sampler] = None, **kw):
+    """A detector's `forward_train` on a batch: `GroundingDINO` takes the
+    text (`refer`, `r_mask`), `DINO` the boxes alone, Mask R-CNN and Cascade
+    Mask R-CNN the masks and the `sampler`; `kw` go to the DINO detectors
+    (`dn_draws`, `assigner`)."""
+    if "refer" in batch:
+        return model.forward_train(
+            batch["image"], batch["refer"], batch["r_mask"],
+            batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"],
+            generator=generator, **kw)
+    if "gt_masks" not in batch:
+        return model.forward_train(batch["image"], batch["gt_boxes"],
+                                   batch["gt_labels"], batch["gt_valid"],
+                                   generator=generator, **kw)
+    return model.forward_train(
+        batch["image"], batch["gt_boxes"], batch["gt_labels"],
+        batch["gt_masks"], batch["gt_valid"], generator=generator,
+        sampler=sampler)
+
+
 def make_det_train_step(model: nn.Module) -> Callable:
     """Train step for a detector's `forward_train` (`det.mask_rcnn.MaskRCNN`,
-    `det.cascade.CascadeRCNN`): the sum of its losses.
+    `det.cascade.CascadeRCNN`, `det.dino_detector.DINO`,
+    `det.grounding_dino.GroundingDINO`): the sum of its losses.
 
-    train_step(state, batch, generator, sampler=None) -> (state, logs):
-    batch {"image": (B, H, W, 3) normalized float, "gt_boxes" (B, G, 4),
-    "gt_labels" (B, G) int, "gt_masks" (B, G, H, W) bool, "gt_valid" (B,
-    G) bool}. DropPath draws from `generator`, the RPN and RoI samplers
-    from `sampler` (by default from `generator`). A parameter that no loss
-    reaches (HTC's semantic logits, which take no loss; a cls token the
-    detection BEiT does not use) gets a zero gradient, as JAX's
-    `value_and_grad` gives it, so that AdamW decays it as optax does. logs
-    holds the losses, `loss` and `grad_norm` (before clipping), as 0-d
-    tensors."""
+    train_step(state, batch, generator, sampler=None, **kw) -> (state,
+    logs): batch {"image": (B, H, W, 3) normalized float, "gt_boxes" (B, G,
+    4), "gt_labels" (B, G) int, "gt_valid" (B, G) bool, and "gt_masks" (B,
+    G, H, W) bool for the R-CNNs or "refer"/"r_mask" (B, T) for
+    GroundingDINO}. DropPath (and DINO's denoising noise) draws from
+    `generator`, the RPN and RoI samplers from `sampler` (by default from
+    `generator`); `kw` go to a DINO detector's `forward_train`. A parameter
+    that no loss reaches (HTC's semantic logits, which take no loss; a cls
+    token the detection BEiT does not use; the adapter's `up` where the
+    grounding configs return strides 8-32 only) gets a zero gradient, as
+    JAX's `value_and_grad` gives it, so that AdamW decays it as optax
+    does. logs holds the losses, `loss` and `grad_norm` (before clipping),
+    as 0-d tensors."""
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
-                   sampler: Optional[Sampler] = None):
+                   sampler: Optional[Sampler] = None, **kw):
         model.train()
-        losses = model.forward_train(
-            batch["image"], batch["gt_boxes"], batch["gt_labels"],
-            batch["gt_masks"], batch["gt_valid"], generator=generator,
-            sampler=sampler)
+        losses = det_losses(model, batch, generator, sampler, **kw)
         state.optimizer.zero_grad()
         losses["loss"].backward()
         for p in model.parameters():

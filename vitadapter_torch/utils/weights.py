@@ -3,10 +3,12 @@
 `state_dict_from_flax(params, batch_stats)` turns a flax variable tree (numpy
 arrays or anything `np.asarray` takes) into a PyTorch `state_dict` with the
 reference's key names: the inverse of the JAX package's checkpoint
-converters for the ViT-Adapter and BEiT-Adapter backbones
-(`convert_vit_adapter_backbone`, `convert_beit_backbone`), the
-Mask2Former head, the UperNet heads (`convert_upernet_heads`) and Mask
-R-CNN's neck, RPN and RoI heads (`convert_detector_checkpoint`). The
+converters for the ViT-Adapter, BEiT-Adapter and UniPerceiver-Adapter
+backbones (`convert_vit_adapter_backbone`, `convert_beit_backbone`,
+`convert_uniperceiver_backbone`), the Mask2Former head, the UperNet heads
+(`convert_upernet_heads`), Mask R-CNN's neck, RPN and RoI heads
+(`convert_detector_checkpoint`) and the DINO detectors
+(`convert_grounding_dino_checkpoint`). The
 baselines' pyramid and `PatchMerging`, which no JAX converter reads, keep
 their flax names (`models/baselines.py`). Layout rules (flax -> torch):
 
@@ -238,9 +240,75 @@ def beit_baseline_from_flax(p: Tree) -> StateDict:
             **_prefixed("pyramid", pyramid_from_flax(p["pyramid"]))}
 
 
+def uniperceiver_layer_from_flax(p: Tree) -> StateDict:
+    """`MultiModelBertLayer`."""
+    return {**_prefixed("self_attn.in_proj",
+                        _linear(p["self_attn"]["in_proj"])),
+            **_prefixed("self_attn.out_proj",
+                        _linear(p["self_attn"]["out_proj"])),
+            **_prefixed("linear1", _linear(p["linear1"])),
+            **_prefixed("linear2", _linear(p["linear2"])),
+            **_prefixed("norm1", _norm(p["norm1"])),
+            **_prefixed("norm2", _norm(p["norm2"])),
+            "gamma_1": _t(p["gamma_1"]), "gamma_2": _t(p["gamma_2"])}
+
+
+def grounding_block_from_flax(p: Tree) -> StateDict:
+    """`GroundingCrossAttention`: flax `k_proj` and `v_proj` -> the fused
+    `attn.kv` (k rows first), `q_proj` -> `attn.q`, `out_proj` ->
+    `attn.proj`, `mlp_fc1`/`mlp_fc2` -> `mlp.fc1`/`mlp.fc2` (the inverse
+    of `convert_uniperceiver_backbone`'s `cross_attn` keys)."""
+    k, v = _linear(p["k_proj"]), _linear(p["v_proj"])
+    return {**_prefixed("norm1", _norm(p["norm1"])),
+            **_prefixed("norm2", _norm(p["norm2"])),
+            **_prefixed("attn.q", _linear(p["q_proj"])),
+            "attn.kv.weight": torch.cat([k["weight"], v["weight"]]),
+            "attn.kv.bias": torch.cat([k["bias"], v["bias"]]),
+            **_prefixed("attn.proj", _linear(p["out_proj"])),
+            **_prefixed("mlp.fc1", _linear(p["mlp_fc1"])),
+            **_prefixed("mlp.fc2", _linear(p["mlp_fc2"]))}
+
+
+def uniperceiver_adapter_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`UniPerceiverAdapter`: the flax `trunk` flattened as in the
+    reference (`layers.N`, `visual_embed.patch_embed.*`, `token_embed.*`),
+    `grounding_N` -> `cross_attn.N`, and the adapter's keys (the inverse of
+    `convert_uniperceiver_backbone`)."""
+    t = p["trunk"]
+    ve, te = t["visual_embed"], t["token_embed"]
+    sd = {**_prefixed("visual_embed.patch_embed.proj", _conv(ve["proj"])),
+          "visual_embed.patch_embed.spatial_pos_embed.weight":
+              _t(ve["spatial_pos_embed"]),
+          "visual_embed.patch_embed.temporal_pos_embed.weight":
+              _t(ve["temporal_pos_embed"]),
+          **_prefixed("visual_embed.embeddings_norm",
+                      _norm(ve["embeddings_norm"])),
+          "token_embed.embeddings.weight":
+              _t(te["embeddings"]["embedding"]),
+          "token_embed.embeddings_pos.position_embeddings.weight":
+              _t(te["pos_embed"]),
+          "token_embed.embeddings_token_type.weight": _t(te["token_type"]),
+          **_prefixed("token_embed.embeddings_norm",
+                      _norm(te["embeddings_norm"])),
+          **_adapter_from_flax(p, s)}
+    i = 0
+    while f"layers_{i}" in t:
+        sd.update(_prefixed(f"layers.{i}",
+                            uniperceiver_layer_from_flax(t[f"layers_{i}"])))
+        i += 1
+    g = 0
+    while f"grounding_{g}" in p:
+        sd.update(_prefixed(f"cross_attn.{g}",
+                            grounding_block_from_flax(p[f"grounding_{g}"])))
+        g += 1
+    return sd
+
+
 def backbone_from_flax(p: Tree, s: Tree) -> StateDict:
-    """A ViT-Adapter, a BEiT-Adapter or one of the baselines, by its
-    subtrees."""
+    """A ViT-Adapter, a BEiT-Adapter, a UniPerceiver-Adapter or one of the
+    baselines, by its subtrees."""
+    if "trunk" in p:
+        return uniperceiver_adapter_from_flax(p, s)
     if "pyramid" in p:
         return (beit_baseline_from_flax(p) if "beit" in p
                 else vit_baseline_from_flax(p))
@@ -492,19 +560,105 @@ def cascade_from_flax(p: Tree, s: Tree) -> StateDict:
     return sd
 
 
+def channel_mapper_from_flax(p: Tree) -> StateDict:
+    """`ChannelMapper`: flax `conv_N`/`gn_N` -> `convs.N.conv`/`.gn`,
+    `extra_conv_N`/`extra_gn_N` -> `extra_convs.N.conv`/`.gn`."""
+    sd: StateDict = {}
+    for flax_name, name in (("", "convs"), ("extra_", "extra_convs")):
+        i = 0
+        while f"{flax_name}conv_{i}" in p:
+            sd.update(_prefixed(f"{name}.{i}.conv",
+                                _conv(p[f"{flax_name}conv_{i}"])))
+            sd.update(_prefixed(f"{name}.{i}.gn",
+                                _norm(p[f"{flax_name}gn_{i}"])))
+            i += 1
+    return sd
+
+
+def dino_transformer_from_flax(p: Tree) -> StateDict:
+    """`DinoTransformer` without the label embedding (the inverse of the JAX
+    `convert_dino_head`): `transformer.*` and the head's branches, flax
+    `reg_branch_N_fc0`/`_fc1`/`_out` -> `reg_branches.N.0`/`.2`/`.4`."""
+    tr = {"level_embeds": _t(p["level_embed"]),
+          "query_embed.weight": _t(p["query_embed"]),
+          **_prefixed("enc_output", _linear(p["enc_output"])),
+          **_prefixed("enc_output_norm", _norm(p["enc_output_norm"])),
+          **_prefixed("decoder.norm", _norm(p["decoder_norm"])),
+          **_prefixed("decoder.ref_point_head.0",
+                      _linear(p["ref_point_fc1"])),
+          **_prefixed("decoder.ref_point_head.2",
+                      _linear(p["ref_point_fc2"]))}
+    i = 0
+    while f"encoder_layer_{i}" in p:
+        lp = p[f"encoder_layer_{i}"]
+        pre = f"encoder.layers.{i}"
+        tr.update(_prefixed(f"{pre}.attentions.0", msda_from_flax(lp["attn"])))
+        tr.update(_prefixed(f"{pre}.norms.0", _norm(lp["norm1"])))
+        tr.update(_prefixed(f"{pre}.norms.1", _norm(lp["norm2"])))
+        tr.update(_prefixed(f"{pre}.ffns.0", _ffn(lp["ffn_fc1"],
+                                                   lp["ffn_fc2"])))
+        i += 1
+    i = 0
+    while f"decoder_layer_{i}" in p:
+        lp = p[f"decoder_layer_{i}"]
+        pre = f"decoder.layers.{i}"
+        tr.update(_prefixed(f"{pre}.attentions.0", _mha(lp["self_attn"])))
+        tr.update(_prefixed(f"{pre}.attentions.1",
+                            msda_from_flax(lp["cross_attn"])))
+        for j in (0, 1, 2):
+            tr.update(_prefixed(f"{pre}.norms.{j}",
+                                _norm(lp[f"norm{j + 1}"])))
+        tr.update(_prefixed(f"{pre}.ffns.0", _ffn(lp["ffn_fc1"],
+                                                   lp["ffn_fc2"])))
+        i += 1
+    sd = _prefixed("transformer", tr)
+    i = 0
+    while f"cls_branch_{i}" in p:
+        sd.update(_prefixed(f"cls_branches.{i}",
+                            _linear(p[f"cls_branch_{i}"])))
+        for j, name in ((0, "fc0"), (2, "fc1"), (4, "out")):
+            sd.update(_prefixed(f"reg_branches.{i}.{j}",
+                                _linear(p[f"reg_branch_{i}_{name}"])))
+        i += 1
+    return sd
+
+
+def grounding_dino_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`GroundingDINO` or `DINO` (the inverse of the JAX
+    `convert_grounding_dino_checkpoint`): `backbone`, `neck`, `bbox_head`
+    (the transformer, the branches and `label_embedding`) and, where the
+    branch is on, `aux_seg_conv_0`/`_1`/`aux_seg_out` ->
+    `aux_seg_convs.0`/`.1`/`.2`."""
+    sd = {**_prefixed("backbone", backbone_from_flax(
+              p["backbone"], s.get("backbone", {}))),
+          **_prefixed("neck", channel_mapper_from_flax(p["neck"])),
+          **_prefixed("bbox_head",
+                      dino_transformer_from_flax(p["transformer"])),
+          "bbox_head.label_embedding.weight": _t(p["label_embed"])}
+    for i, name in enumerate(("aux_seg_conv_0", "aux_seg_conv_1",
+                              "aux_seg_out")):
+        if name in p:
+            sd.update(_prefixed(f"aux_seg_convs.{i}", _conv(p[name])))
+    return sd
+
+
 def state_dict_from_flax(params: Tree,
                          batch_stats: Optional[Tree] = None) -> StateDict:
     """A flax variable tree -> the port's `state_dict`. Takes the tree of a
     whole `MaskRCNN` (`backbone`, `neck`, `rpn_head`, `bbox_head`,
-    `mask_head`), `CascadeRCNN` (`bbox_head_0`, ...),
+    `mask_head`), `CascadeRCNN` (`bbox_head_0`, ...), `GroundingDINO` or
+    `DINO` (`backbone`, `neck`, `transformer`, `label_embed`),
     `EncoderDecoderMask2Former` or `EncoderDecoder`
     (`backbone`, `decode_head`, `auxiliary_head`), or of one of their
     modules:
-    `ViTAdapter`, `BEiTAdapter`, `ViTBaseline`, `BEiTBaseline`,
+    `ViTAdapter`, `BEiTAdapter`, `UniPerceiverAdapter`, `ViTBaseline`,
+    `BEiTBaseline`, `DinoTransformer`,
     `Mask2FormerHead`, `UPerHead`, `FCNHead`, the `SimpleFeaturePyramid`,
     the pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a
     ViT `Block`, a `BEiTBlock`, an `MSDeformAttn` or a `PatchMerging`."""
     s = batch_stats or {}
+    if "backbone" in params and "transformer" in params:
+        return grounding_dino_from_flax(params, s)
     if "backbone" in params and "bbox_head_0" in params:
         return cascade_from_flax(params, s)
     if "backbone" in params and "rpn_head" in params:
@@ -517,8 +671,10 @@ def state_dict_from_flax(params: Tree,
                 sd.update(_prefixed(head, head_from_flax(
                     params[head], s.get(head, {}))))
         return sd
-    if "vit" in params or "beit" in params:
+    if "vit" in params or "beit" in params or "trunk" in params:
         return backbone_from_flax(params, s)
+    if "enc_output" in params:
+        return dino_transformer_from_flax(params)
     if "pixel_decoder" in params or "psp" in params or "conv_seg" in params:
         return head_from_flax(params, s)
     if "up4_a" in params:
