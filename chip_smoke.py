@@ -127,7 +127,29 @@ Phases (each failure exits non-zero; nothing is caught):
      the last layer's outputs of every query and the decoded top box and
      scores within `GROUNDING_RTOL` of their scale, then one train step's
      losses and float64 gradient norm (the card's denoising draws, the CPU
-     on the card's assignments).
+     on the card's assignments);
+ 23. shows the MaskFormer config's first forward raising JAX's `memory
+     dim mismatch` as shipped (its plain pixel decoder's memory is the
+     1024-wide BEiT map), then drives its CLIs with the encoder pixel
+     decoder through `run_config_cli` (4 steps, resume, the test CLI with
+     and without `--aug-test`; 10/10/20/6/1 launches a step for msda
+     fwd/bwd, point-sample fwd/bwd and the auction, 10 a model call);
+ 24. drives the COCO-panoptic config as shipped through `run_cli`: 2
+     synthetic steps, a resumed third, `tools.test --eval PQ` on two
+     COCO-panoptic images it writes (80 thing and 53 stuff categories,
+     RGB-encoded segment PNGs) equal to `run_panoptic_eval`'s
+     (16/16/32/10/1 a step, 16 a model call);
+ 25. drives the ATSS config as shipped (bf16, batch 2) through `run_cli`
+     (`--eval bbox`; 12/12/10/10 for attention and msda fwd/bwd a step, a
+     model call 12/10 and an NMS an input), then one step and one test
+     image of the GFL config;
+ 26. drives the Sparse R-CNN config as shipped (fp32) through `run_cli`
+     (12/12/10/10 and 6 auctions a step);
+ 27. runs each of those families at depth 4, full width, fp32, on the
+     card and on the CPU: outputs within `E2E_RTOL` of their scale, one
+     train step's losses and float64 gradient norm within `TRAIN_RTOL`
+     with the CPU on the card's matches, the launches of the card's
+     model call and step exact.
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -158,7 +180,12 @@ values; `paths["htc"]`); the fused MSDA kernels at phase 20's shapes (the
 adapter's, the DINO encoder's 21760 queries over its 4 levels and the
 decoder's 104 queries sampling around 4-d boxes, `msda_box_locations`)
 and the auction at its (2, 100, 1) matrices, n_valid 1 and 0
-(`paths["grounding"]`); and
+(`paths["grounding"]`); the fused MSDA kernels, point sampling and the
+auction at phase 24's panoptic step (the 1024-wide pixel decoder's 21504
+queries at 32 heads, `POINT_PANOPTIC`, `AUCTION_PANOPTIC`;
+`paths["panoptic"]`); the fp32 attention, fused MSDA kernels and the
+auction at phase 26's Sparse R-CNN step (DeiT-S's 6 heads, batch 2,
+`AUCTION_SPARSE`; `paths["sparse"]`); and
 the NMS kernel (`nms.cu`, not a TPU kernel) at the proposals' 4768 boxes
 and the detections' 2048 for bitwise-equal kept flags. The fp32
 attention (split TF32 on the tensor cores) is launched
@@ -268,6 +295,9 @@ ATTN_PATH_CASES = {
     "htc_window": (56, 16, 196, F32, "htc", 40, 20),
     "htc_global": (1, 16, 8800, F32, "htc", 8, 4),
     "htc_extra": (1, 8, 2200, F32, "htc", 1, 1),
+    # phase 26's Sparse R-CNN step: the DeiT-S trunk of "det_bf16" in fp32
+    "sparse_window": (50, 6, 196, F32, "sparse", 8, 8),
+    "sparse_global": (2, 6, 4096, F32, "sparse", 4, 4),
 }
 # the head dim of an `ATTN_PATH_CASES` case (64 elsewhere)
 ATTN_PATH_D = {"htc_extra": 128}
@@ -315,12 +345,26 @@ POINT_CLI = {
     "loss_pred": (100, 160, 160, 12544, True, 10),
     "loss_gt": (100, 640, 640, 12544, True, 10),
 }
+# point sampling in one train step of phase 24 (batch 1, 200 queries, 60
+# gt classes, 10 decoder outputs, 256x256 mask logits at 1024x1024), as
+# `POINT_GEOMETRIES`' entries
+POINT_PANOPTIC = {
+    "assign_pred": (2000, 256, 256, 12544, True, 1),
+    "assign_gt": (60, 1024, 1024, 125440, True, 1),
+    "uncertainty": (200, 256, 256, 37632, False, 10),
+    "loss_pred": (200, 256, 256, 12544, True, 10),
+    "loss_gt": (200, 1024, 1024, 12544, True, 10),
+}
 # the assignment of one flagship train step: 10 decoder outputs x batch 2
 # cost matrices of 200 queries x 60 gts, solved in one launch; phase 11's:
-# 10 x batch 1 of 100 queries x 60 gts
+# 10 x batch 1 of 100 queries x 60 gts; phase 24's: 10 x batch 1 of 200
+# queries x 60 gts; phase 26's: one launch a stage (6) of batch 2, 100
+# proposals x 100 gts
 AUCTION_SHAPE = (20, 200, 60)
 AUCTION_CLI = (10, 100, 60)
 AUCTION_GROUNDING = (2, 100, 1)
+AUCTION_PANOPTIC = (10, 200, 60)
+AUCTION_SPARSE = (2, 100, 100)
 SERVE_REQUESTS = 4   # batch-2 requests of the main path (phase 4)
 TRAIN_STEPS = 6      # flagship train steps (phase 6)
 TRAIN_LAUNCHES = {   # kernel launches per train step
@@ -430,16 +474,28 @@ MSDA_PATH_CASES = {
                             True),
     "grounding_encoder": (DINO1024, 21760, 8, None, "grounding", 6, True),
     "grounding_decoder": (DINO1024, 104, 8, "boxes", "grounding", 6, True),
+    # phase 24's panoptic step (BEiTv2-Adapter-L at 1024, batch 1, fp32):
+    # the adapter's calls as phase 15's and the 1024-wide pixel decoder's
+    # (32 heads, D 32) over its own 21504 value rows, levels coarse first
+    "panoptic_injector": (SPM1024, 4096, 16, (64, 64), "panoptic", 4, True),
+    "panoptic_extractor": (((64, 64),), 21504, 16, SPM1024, "panoptic", 6,
+                           True),
+    "panoptic_pixel_decoder": (SPM1024[::-1], 21504, 32, None, "panoptic", 6,
+                               True),
+    # phase 26's Sparse R-CNN step: the DeiT-S adapter's calls of
+    # "det_bf16" (batch 2, 6 heads, D 64) in fp32
+    "sparse_injector": (SPM1024, 4096, 6, (64, 64), "sparse", 4, True),
+    "sparse_extractor": (((64, 64),), 21504, 6, SPM1024, "sparse", 6, True),
 }
 # the batch, dtype and head dim of each path's MSDA calls in
 # `MSDA_PATH_CASES` (1, fp32 and 32 elsewhere)
-PATH_BATCH = {"upernet": 2, "det_bf16": 2, "grounding": 2}
+PATH_BATCH = {"upernet": 2, "det_bf16": 2, "grounding": 2, "sparse": 2}
 PATH_DTYPE = {"det_bf16": BF16}
-PATH_D = {"det_bf16": 64}
+PATH_D = {"det_bf16": 64, "sparse": 64}
 # the paths whose `MSDA_PATH_CASES` are also checked on model-shaped
 # locations
 MODEL_SHAPED_PATHS = ("cli", "upernet", "det", "det_test", "det_bf16",
-                      "htc", "grounding")
+                      "htc", "grounding", "panoptic", "sparse")
 # the fused kernels off the flagship's layout, fp32 and bf16 each: name:
 # (spatial shapes, query grid, heads, D, P, the value 2 or 4 bytes off
 # 16-byte alignment). As `LEVEL_LAYOUTS`: ragged and narrow rows and other
@@ -817,6 +873,23 @@ def touched_rows(loc_l, H, W):
     return int(seen.sum())
 
 
+def touched_mask_bytes(masks, pts):
+    """Bytes of the (N, H, W) masks that bilinear sampling at the points
+    (N, P, 2) in [0, 1] reads: its distinct in-map corner values, the
+    values a sampling function must load at least once."""
+    N, H, W = masks.shape
+    x0 = torch.floor(pts[..., 0] * W - 0.5).long()
+    y0 = torch.floor(pts[..., 1] * H - 0.5).long()
+    n = torch.arange(N, device=pts.device)[:, None] * (H * W)
+    seen = torch.zeros(N * H * W, dtype=torch.bool, device=pts.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+            seen[(n + yi * W + xi)[inside]] = True
+    return int(seen.sum()) * masks.element_size()
+
+
 def msda_touched_bytes(shapes, value, loc):
     """Bytes of the value rows that the points of all levels read."""
     row = value.shape[-1] * value.element_size()
@@ -1013,6 +1086,15 @@ def auction_cases(gen):
     cases["grounding"] = (cost, torch.full((B,), G, device="cuda"))
     cases["grounding_nv0"] = (cost.clone(),
                               torch.tensor([0, G], device="cuda"))
+    # phase 24's step: contested costs as the flagship's
+    B, Q, G = AUCTION_PANOPTIC
+    cases["panoptic"] = (auction_costs(gen, B, Q, G, contested=True),
+                         torch.full((B,), G, device="cuda"))
+    # phase 26's step: Sparse R-CNN's focal + L1 + GIoU costs (of order
+    # 1-10), every gt valid, so that every proposal is matched
+    B, Q, G = AUCTION_SPARSE
+    cases["sparse"] = (10 * torch.rand(B, Q, G, generator=gen, device="cuda")
+                       - 2, torch.full((B,), G, device="cuda"))
     return cases
 
 
@@ -1084,6 +1166,11 @@ def check_auction(rows, flush, gen):
             # 7 assignments a phase 20 step: 6 decoder layers, the encoder
             add_to_row(rows["auction"].setdefault("paths", {}).setdefault(
                 "grounding", new_row(library=False)), 7, err, k_ms, p_ms, b)
+        elif case in ("panoptic", "sparse"):
+            # one assignment a phase 24 step, one a stage (6) a phase 26 one
+            add_to_row(rows["auction"].setdefault("paths", {}).setdefault(
+                case, new_row(library=False)), 1 if case == "panoptic" else 6,
+                err, k_ms, p_ms, b)
 
     def refused(fn, exc, words):
         try:
@@ -2060,8 +2147,8 @@ def check_point_sample(rows, flush, gen, geometries=POINT_GEOMETRIES,
                 lib_ms = time_ms(lambda: F.grid_sample(
                     m4, grid, mode="bilinear", padding_mode="zeros",
                     align_corners=False), flush)
-            fb = bound_ms(nbytes(masks, pts) + N * P * 4, 2 * corners,
-                          torch.float32)
+            fb = bound_ms(touched_mask_bytes(masks, pts) + nbytes(pts)
+                          + N * P * 4, 2 * corners, torch.float32)
             log(f"point_sample_fwd {head}{name:12s} {str(dtype):14s} "
                 f"({N}, {H}, {W}) x {P} {'sorted' if sort else 'unsorted'} "
                 f"points max_abs_err={err:.3e} ok={good} kernel_ms="
@@ -2110,6 +2197,7 @@ def check_kernels(flush):
     ok &= check_attention_paths(rows, flush, gen)
     ok &= check_point_sample(rows, flush, gen)
     ok &= check_point_sample(rows, flush, gen, POINT_CLI, "cli")
+    ok &= check_point_sample(rows, flush, gen, POINT_PANOPTIC, "panoptic")
     ok &= check_point_bwd_layouts(rows, flush, gen)
     ok &= check_auction(rows, flush, gen)
     ok &= check_nms(rows, flush, gen)
@@ -2573,7 +2661,8 @@ def launch_diff(after, before):
 
 
 def run_config_cli(name, config, options, step_launches, never, aug_options,
-                   forward_launches=None, refuse_small_crops=False):
+                   forward_launches=None, refuse_small_crops=False,
+                   model_options=()):
     """The config entry points in this process, so that the launch counters
     can be read: `tools.train.main` for `CLI_STEPS` steps on synthetic data
     with `options` (checkpoints, the eval hook), `--resume` for one more
@@ -2586,7 +2675,9 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
     matrix against `run_eval`'s; with `refuse_small_crops`, that the
     default `--aug-test` ratios raise (BEiT's tables). Everything is
     written into a temporary directory, removed at the end. Logs under
-    `name`; returns the launches of the first run's train steps."""
+    `name`; `model_options` also go to the test runs. Returns the launches
+    of the first run's train steps and the plain test CLI's launches
+    divided by its model calls."""
     import tempfile
 
     from vitadapter_torch.builder import build_model
@@ -2599,7 +2690,7 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
     from vitadapter_torch.train.loop import (build_dataset, eval_config,
                                              run_eval)
     from vitadapter_torch.utils.checkpoint_io import load_model_weights
-    from vitadapter_torch.utils.config import Config
+    from vitadapter_torch.utils.config import Config, parse_cfg_options
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     steps = CLI_STEPS
@@ -2669,7 +2760,8 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
 
         def test_args(flags, options=()):
             return [config, ckpt, "--eval", "mIoU", *flags,
-                    "--cfg-options", f"data.data_root={root}", *options]
+                    "--cfg-options", f"data.data_root={root}",
+                    *model_options, *options]
 
         aug = ["--aug-test", "--max-images", "1"]
         results, eval_s, eval_counts, n_calls = {}, {}, {}, {}
@@ -2695,7 +2787,8 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
                 refused = "patch grid" in str(e)
 
         cfg = Config.fromfile(config)
-        cfg.merge_from_options({"data.data_root": root})
+        cfg.merge_from_options({"data.data_root": root,
+                                **parse_cfg_options(model_options)})
         model = load_model_weights(ckpt, build_model(dict(cfg.model)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2756,7 +2849,8 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
         raise SystemExit(f"FAIL: {name} launches per step {per_step}, per "
                          f"test call {eval_counts} over {n_calls}, kernels "
                          f"that must not run {bad_never}")
-    return train_counts
+    return train_counts, {k: v // n_calls["slide"]
+                          for k, v in eval_counts["slide"].items()}
 
 
 def config_cli():
@@ -2768,7 +2862,7 @@ def config_cli():
     (BEiT's biased attention is plain PyTorch) and no per-level one."""
     return run_config_cli("config CLI", CLI_CONFIG, CLI_OPTIONS,
                           CLI_STEP_LAUNCHES, CLI_NEVER, [CLI_AUG_RATIOS],
-                          refuse_small_crops=True)
+                          refuse_small_crops=True)[0]
 
 
 def upernet_cli():
@@ -2781,7 +2875,7 @@ def upernet_cli():
     kernel."""
     return run_config_cli("UperNet CLI", UPERNET_CONFIG, UPERNET_OPTIONS,
                           UPERNET_STEP_LAUNCHES, UPERNET_NEVER, [],
-                          forward_launches=UPERNET_FORWARD_LAUNCHES)
+                          forward_launches=UPERNET_FORWARD_LAUNCHES)[0]
 
 
 def assignment_cost(cost, owner):
@@ -3149,14 +3243,18 @@ def det_cli_data(options):
     return prepare
 
 
-def det_eval(cfg, model, aug_test):
-    """`run_det_eval` on the val split, as `tools.test --eval bbox segm`
-    calls it."""
+def det_eval(cfg, model, aug_test, iou_types=("bbox", "segm")):
+    """`run_det_eval` on the val split, as `tools.test --eval
+    <iou_types>` calls it."""
     from vitadapter_torch.train.det_loop import build_det_dataset, run_det_eval
 
     return run_det_eval(cfg, model, build_det_dataset(cfg.data, "val"),
-                        ("bbox", "segm"), aug_test=aug_test,
-                        log_fn=lambda *_: None)
+                        iou_types, aug_test=aug_test, log_fn=lambda *_: None)
+
+
+def bbox_eval(cfg, model, aug_test):
+    """`det_eval` of the box-only detectors (`tools.test --eval bbox`)."""
+    return det_eval(cfg, model, aug_test, ("bbox",))
 
 
 def cli_log(lines, marks, line):
@@ -3607,25 +3705,36 @@ def htc_cli():
     return train_counts, test_counts
 
 
-def one_det_steps():
-    """Phase 18: one train step of each `ONE_STEP_CONFIGS` config at full
-    size on a synthetic batch (the config's `samples_per_chip` and crop,
-    100 instances): `build_model`, `make_optimizer` as the det loop builds
-    it, `make_det_train_step`. Checks finite losses and gradient norm and
-    the step's launches; logs the step's seconds (host clock to a
-    synchronize, its first step: the kernels are built) and peak
-    memory."""
+def one_det_steps(configs=ONE_STEP_CONFIGS):
+    """Phase 18: one train step of each `configs` config at full size on a
+    synthetic batch (the config's `samples_per_chip` and crop, 100
+    instances, masks where the detector takes them): `build_model`,
+    `make_optimizer` as the det loop builds it, `make_det_train_step`;
+    where the entry names a test, `det_eval` with its iou types on one
+    COCO-layout image. Checks finite losses, gradient norm and headline
+    metrics and the launches; logs the seconds (host clock to a
+    synchronize, first calls: the kernels are built) and the step's peak
+    memory. Returns {config: (the step's launches, the test's or None)}."""
+    import tempfile
+
     from vitadapter_torch.builder import build_model
     from vitadapter_torch.ops import cuda_ext
-    from vitadapter_torch.train.det_loop import (det_batch_to_device,
+    from vitadapter_torch.train.det_loop import (MASK_DETECTORS,
+                                                 det_batch_to_device,
                                                  synthetic_det_batches)
     from vitadapter_torch.train.optim import make_optimizer
     from vitadapter_torch.train.trainer import TrainState, make_det_train_step
     from vitadapter_torch.utils.config import Config
 
-    for config, (options, want) in ONE_STEP_CONFIGS.items():
+    counts = {}
+    for config, (options, want, *test) in configs.items():
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_step_")
         cfg = Config.fromfile(config)
         cfg.merge_from_options(options)
+        if test:
+            root = os.path.join(tmp, "coco")
+            write_coco(root, DET_IMAGES[:1], 25)
+            cfg.merge_from_options({"data.data_root": root})
         model = build_model(dict(cfg.model))
         opt = cfg.optimizer
         optimizer, _ = make_optimizer(
@@ -3634,8 +3743,10 @@ def one_det_steps():
             layer_decay_rate=opt.get("layer_decay_rate", 1.0),
             total_steps=1000, warmup_steps=500)
         crop = tuple(cfg.data["crop_size"])
-        b = next(synthetic_det_batches(cfg.data["samples_per_chip"], crop,
-                                       100, cfg.model["num_classes"]))
+        b = next(synthetic_det_batches(
+            cfg.data["samples_per_chip"], crop, 100,
+            cfg.model["num_classes"],
+            masks=cfg.model["type"] in MASK_DETECTORS))
         b = det_batch_to_device(b, torch.device("cuda"))
         step = make_det_train_step(model)
         torch.cuda.synchronize()
@@ -3649,16 +3760,33 @@ def one_det_steps():
         used = launch_diff(cuda_ext.launches, before)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         logs = {k: float(v) for k, v in logs.items()}
+        del optimizer, step, b
+        test_used, test_words, headline = None, "", []
+        if test:
+            iou_types, want_test = test[0]
+            before = dict(cuda_ext.launches)
+            t0 = time.perf_counter()
+            metrics = det_eval(cfg, model, False, iou_types)
+            torch.cuda.synchronize()
+            test_used = launch_diff(cuda_ext.launches, before)
+            headline = [metrics[f"{t}_mAP"] for t in iou_types]
+            test_words = (f"; one test image {time.perf_counter() - t0:.2f} "
+                          f"s, mAP {headline} (random weights), launches "
+                          f"{test_used} (want {want_test})")
+        shutil.rmtree(tmp, ignore_errors=True)
         finite = all(v == v and abs(v) != float("inf")
-                     for v in logs.values())
+                     for v in list(logs.values()) + headline)
         dtype = cfg.model.get("dtype", "float32")
         log(f"one det step {config} (crop {list(crop)}, batch "
-            f"{cfg.data['samples_per_chip']}, {dtype}): {secs:.2f} s (host clock, first step), peak memory "
-            f"{peak:.2f} GiB; logs {logs}; launches {used} (want {want})")
-        del model, optimizer, step, b, logs
+            f"{cfg.data['samples_per_chip']}, {dtype}): {secs:.2f} s (host "
+            f"clock, first step), peak memory {peak:.2f} GiB; logs {logs}; "
+            f"launches {used} (want {want}){test_words}")
+        del model, logs
         torch.cuda.empty_cache()
-        if not finite or used != want:
+        if not finite or used != want or (test and test_used != want_test):
             raise SystemExit(f"FAIL: one det step of {config}")
+        counts[config] = (used, test_used)
+    return counts
 
 
 def cascade_detection_ids(stage_outs, rois, valid, K, hw):
@@ -4263,6 +4391,512 @@ def grounding_card_vs_cpu():
 
 
 
+# phase 23: the MaskFormer config (BEiT-Adapter-L at 640, fp32, batch 1,
+# 100 queries, 150 classes). As shipped its plain pixel decoder hands the
+# 1024-wide BEiT map to the 256-wide decoder as memory and the first
+# forward raises `memory dim mismatch`, as the JAX package's does
+# (ROADMAP.md §3); the runs take the encoder pixel decoder. 6 decoder
+# outputs and no MSDA in the head: the adapter's 10 MSDA calls, 6 x 3 + 2
+# point samplings, 6 of them with a gradient, one auction a step
+MF_CONFIG = "configs/ade20k/maskformer_beit_adapter_large_640_160k_ade20k_ss.py"
+MF_ENCODER = "model.decode_head.use_encoder_decoder=True"
+MF_STEP_LAUNCHES = {"msda_fwd": 10, "msda_bwd": 10, "point_sample_fwd": 20,
+                    "point_sample_bwd": 6, "auction": 1}
+MF_FORWARD_LAUNCHES = {"msda_fwd": 10}
+# phase 24: the COCO-panoptic Mask2Former config as shipped (BEiTv2-Adapter-L
+# at 1024, `with_cp`, fp32, batch 1; the head 1024 wide, 200 queries, 133
+# classes), synthetic training; `tools.test --eval PQ` on two images that
+# pad to the one 1024 x 1024 bucket (BEiT's tables span img_size), both in
+# one model call. The config keeps the 896 base's slide `test_cfg` (crop
+# 896) while its BEiT's tables span img_size 1024, so the eval hook that
+# closes a run raises as it does in JAX (ROADMAP.md §3): the runs turn it
+# off
+PAN_CONFIG = ("configs/mask2former/mask2former_beitv2_adapter_large_16x1_3x_"
+              "coco-panoptic.py")
+PAN_STEPS = 2
+PAN_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=2",
+               "evaluation.interval=0"]
+PAN_IMAGES = ((1000, 968), (936, 1024))
+PAN_CALL_LAUNCHES = {"msda_fwd": 16}
+PAN_NEVER = CLI_NEVER
+# phases 25-26: the DeiT-S adapter detectors (12 blocks, 8 of them windowed
+# by 14, 4 interactions; batch 2 on the 1024 canvas; no `with_cp`): ATSS and
+# GFL in bf16, Sparse R-CNN in fp32 with one auction a stage (6)
+ATSS_CONFIG = "configs/atss/atss_deit_adapter_small_fpn_3x_coco.py"
+GFL_CONFIG = "configs/gfl/gfl_deit_adapter_small_fpn_3x_coco.py"
+SPARSE_CONFIG = "configs/sparse_rcnn/sparse_rcnn_deit_adapter_small_fpn_3x_coco.py"
+DEIT_S_CALL_LAUNCHES = {"attention_fwd": 12, "msda_fwd": 10}
+ATSS_STEP_LAUNCHES = {"attention_fwd": 12, "attention_bwd": 12,
+                      "msda_fwd": 10, "msda_bwd": 10}
+SPARSE_STEP_LAUNCHES = dict(ATSS_STEP_LAUNCHES, auction=6)
+# phase 25's GFL step and test image, as `ONE_STEP_CONFIGS`' entries
+GFL_STEP = {GFL_CONFIG: ({}, ATSS_STEP_LAUNCHES,
+                         (("bbox",), dict(DEIT_S_CALL_LAUNCHES, nms=1)))}
+SPARSE_NEVER = ("msda_level_fwd", "msda_level_dv", "msda_level_dgrid",
+                "point_sample_fwd", "point_sample_bwd", "nms")
+ONE_STAGE_STEPS = 4
+BBOX_EVAL_ARGS = ["--eval", "bbox"]
+
+
+def maskformer_cli():
+    """Phase 23: the shipped MaskFormer config's first forward raises
+    `memory dim mismatch` (one model call of the shipped build); then
+    `run_config_cli` with the encoder pixel decoder: 4 steps (checkpoints
+    every 2, the eval hook at the last), a resumed fifth, the test CLI
+    `--eval mIoU` on two ADE-layout images and with `--aug-test` at
+    ratios 1.0-1.75. Returns the launches of the first run's train steps
+    and of one test model call."""
+    import gc
+
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.utils.config import Config
+
+    model = build_model(dict(Config.fromfile(MF_CONFIG).model))
+    error = None
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, 640, 640, 3, device="cuda"))
+    except ValueError as e:
+        error = str(e)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"MaskFormer CLI as shipped (plain pixel decoder): ValueError "
+        f"{error!r}; the runs below take {MF_ENCODER}")
+    if error != "memory dim mismatch":
+        raise SystemExit("FAIL: the shipped MaskFormer config did not "
+                         "raise JAX's memory dim mismatch")
+    return run_config_cli("MaskFormer CLI", MF_CONFIG,
+                          CLI_OPTIONS + [MF_ENCODER], MF_STEP_LAUNCHES,
+                          CLI_NEVER, [CLI_AUG_RATIOS],
+                          forward_launches=MF_FORWARD_LAUNCHES,
+                          model_options=[MF_ENCODER])
+
+
+def write_coco_panoptic(root, sizes, seed):
+    """A COCO-panoptic val split under `root`: JPEG images of `sizes`, the
+    panoptic JSON with 80 thing and 53 stuff categories (COCO's count) and
+    per image an RGB-encoded segment PNG (id = R + 256 G + 65536 B, 0
+    void) of three thing instances, two stuff regions and a crowd
+    segment, in `annotations/panoptic_val2017/` (the JSON's stem)."""
+    import numpy as np
+    from PIL import Image
+
+    img_dir = os.path.join(root, "val2017")
+    seg_dir = os.path.join(root, "annotations", "panoptic_val2017")
+    os.makedirs(img_dir)
+    os.makedirs(seg_dir)
+    host = torch.Generator().manual_seed(seed)
+    cats = ([{"id": c, "name": f"t{c}", "isthing": 1}
+             for c in range(1, 81)]
+            + [{"id": c, "name": f"s{c}", "isthing": 0}
+               for c in range(92, 145)])
+    images, anns = [], []
+    for i, (h, w) in enumerate(sizes):
+        name = f"{i:012d}"
+        Image.fromarray(torch.randint(0, 256, (h, w, 3), dtype=torch.uint8,
+                                      generator=host).numpy()).save(
+            os.path.join(img_dir, name + ".jpg"), quality=95)
+        ids = np.zeros((h, w), np.int64)
+        segs = []
+        for k in range(6):
+            y0, x0 = (int(v) for v in torch.randint(0, h // 2, (1,),
+                                                    generator=host).tolist()
+                      + torch.randint(0, w // 2, (1,),
+                                      generator=host).tolist())
+            cat = (k * 17 + i) % 80 + 1 if k in (0, 1, 2, 5) else 92 + k * 9
+            sid = 1 + k * 70001 + i * 257
+            ids[y0:y0 + h // 3, x0:x0 + w // 3] = sid
+            segs.append({"id": sid, "category_id": cat,
+                         "iscrowd": int(k == 5)})
+        rgb = np.stack([ids % 256, ids // 256 % 256, ids // 65536], -1)
+        Image.fromarray(rgb.astype(np.uint8)).save(
+            os.path.join(seg_dir, name + ".png"))
+        images.append({"id": i + 1, "file_name": name + ".jpg",
+                       "height": h, "width": w})
+        anns.append({"image_id": i + 1, "file_name": name + ".png",
+                     "segments_info": segs})
+    with open(os.path.join(root, "annotations", "panoptic_val2017.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": cats}, f)
+
+
+def panoptic_eval(cfg, model, aug_test):
+    """`run_panoptic_eval` on the val split, as `tools.test --eval PQ`
+    calls it."""
+    from vitadapter_torch.train.det_loop import (build_panoptic_dataset,
+                                                 run_panoptic_eval)
+
+    return run_panoptic_eval(cfg, model,
+                             build_panoptic_dataset(cfg.data, "val"),
+                             log_fn=lambda *_: None)
+
+
+def panoptic_cli():
+    """Phase 24: `run_cli` on the COCO-panoptic config as shipped: 2 steps
+    on synthetic data, a resumed third, then `tools.test --eval PQ` on
+    `PAN_IMAGES` (a COCO-panoptic set it writes), its metrics equal to
+    `run_panoptic_eval` called directly on the same weights. Returns the
+    launches of the first run's train steps and of one test model
+    call."""
+    from vitadapter_torch.models.mask2former_segmentor import \
+        EncoderDecoderMask2Former
+
+    def prepare(tmp):
+        root = os.path.join(tmp, "coco")
+        write_coco_panoptic(root, PAN_IMAGES, 24)
+        return (["--synthetic-data", "--cfg-options", *PAN_OPTIONS],
+                [f"data.data_root={root}"])
+
+    train_counts, test_counts, _, _ = run_cli(
+        "panoptic", EncoderDecoderMask2Former, PAN_CONFIG, PAN_STEPS,
+        CLI_STEP_LAUNCHES, PAN_CALL_LAUNCHES, prepare, panoptic_eval,
+        ["--eval", "PQ"], ("PQ", "SQ", "RQ"), never=PAN_NEVER,
+        inputs_per_call=2)
+    return train_counts, test_counts
+
+
+def atss_cli():
+    """Phase 25: `run_cli` on the ATSS config as shipped (bf16, batch 2,
+    1024 canvas): 4 synthetic steps, a resumed fifth, `tools.test --eval
+    bbox` on the two COCO-layout images (one NMS an input); then one step
+    and one test image of the GFL config (`one_det_steps`). Returns the ATSS
+    and GFL launches of a train step and of a test model call."""
+    from vitadapter_torch.det.single_stage import ATSS
+
+    train_counts, test_counts, _, _ = run_cli(
+        "atss", ATSS, ATSS_CONFIG, ONE_STAGE_STEPS, ATSS_STEP_LAUNCHES,
+        DEIT_S_CALL_LAUNCHES, det_cli_data(DET_OPTIONS), bbox_eval,
+        BBOX_EVAL_ARGS, ("bbox_mAP",), never=DET_NEVER,
+        per_input={"nms": 1})
+    return (train_counts, test_counts) + one_det_steps(GFL_STEP)[GFL_CONFIG]
+
+
+def sparse_cli():
+    """Phase 26: `run_cli` on the Sparse R-CNN config as shipped (fp32,
+    batch 2, 1024 canvas, 100 proposals, 6 stages): 4 synthetic steps, a
+    resumed fifth, `tools.test --eval bbox` on the two COCO-layout images.
+    Returns the launches of the first run's train steps and of one test
+    model call."""
+    from vitadapter_torch.det.sparse_rcnn import SparseRCNN
+
+    train_counts, test_counts, _, _ = run_cli(
+        "sparse", SparseRCNN, SPARSE_CONFIG, ONE_STAGE_STEPS,
+        SPARSE_STEP_LAUNCHES, DEIT_S_CALL_LAUNCHES,
+        det_cli_data(DET_OPTIONS), bbox_eval, BBOX_EVAL_ARGS,
+        ("bbox_mAP",), never=SPARSE_NEVER)
+    return train_counts, test_counts
+
+
+def reduced_pair(config, options, seed, adjust=None):
+    """`config` with `options` built on the CPU from `seed`, given random
+    values where it initializes zeros and ones (`randomize`) and then
+    `adjust(model, gen)` when given, and its copy on the card."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.utils.config import Config
+
+    cfg = Config.fromfile(config)
+    cfg.merge_from_options(options)
+    gen = torch.Generator().manual_seed(seed)
+    cpu = build_model(dict(cfg.model), device="cpu", generator=gen)
+    randomize(cpu, gen)
+    if adjust is not None:
+        adjust(cpu, gen)
+    return cfg, cpu, copy.deepcopy(cpu).cuda(), gen
+
+
+def max_rel(pairs):
+    """The largest error of card outputs against CPU ones, each over its
+    reference's scale."""
+    return max(float((g.float().cpu() - r.float()).abs().max()
+                     / r.float().abs().max().clamp(min=1e-12))
+               for g, r in pairs)
+
+
+def f64_grad_norm(model):
+    return float(sum(p.grad.double().square().sum()
+                     for p in model.parameters()
+                     if p.grad is not None).sqrt())
+
+
+def train_both(card, cpu, batch, make_step, depth, hook,
+               make_kw=lambda side: {}):
+    """One step each of `make_step(model)` on the same batch, the card
+    first, with `make_kw(side)` as keywords: `hook(side)` is a context
+    that lets the CPU replay the card's matches. Returns (card logs, CPU logs, card seconds, CPU seconds, the
+    card's launches), the logs with the float64 gradient norm."""
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState
+
+    out = {}
+    for side, model in (("cuda", card), ("cpu", cpu)):
+        opt, _ = make_optimizer(model, depth=depth, total_steps=1000,
+                                warmup_steps=0)
+        b = {k: v.to(side) for k, v in batch.items()}
+        before = dict(cuda_ext.launches)
+        t0 = time.perf_counter()
+        with hook(side):
+            _, logs = make_step(model)(TrainState.create(model, opt), b,
+                                       torch.Generator(side).manual_seed(27),
+                                       **make_kw(side))
+        logs = {k: float(v) for k, v in logs.items()}
+        logs["grad_norm_f64"] = f64_grad_norm(model)
+        out[side] = (logs, time.perf_counter() - t0,
+                     launch_diff(cuda_ext.launches, before))
+    (got, t_card, used), (ref, t_cpu, _) = out["cuda"], out["cpu"]
+    return got, ref, t_card, t_cpu, used
+
+
+def replay(module, name, card_fn):
+    """A context factory: on the card, `module.name` records what
+    `card_fn` returns; on the CPU it hands those back in order."""
+    import contextlib
+
+    seen = []
+
+    @contextlib.contextmanager
+    def hook(side):
+        orig = getattr(module, name)
+        if side == "cuda":
+            def fn(*a, **kw):
+                out = card_fn(*a, **kw)
+                seen.append(out.cpu())
+                return out
+        else:
+            queue = list(seen)
+
+            def fn(*a, **kw):
+                return queue.pop(0)
+        setattr(module, name, fn)
+        try:
+            yield
+        finally:
+            setattr(module, name, orig)
+    return hook
+
+
+def check_train(label, got, ref, used, want, t_card, t_cpu, keys):
+    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in keys}
+    ok = all(v <= TRAIN_RTOL for v in rel.values())
+    log(f"{label} train step card vs CPU (the CPU on the card's matches): "
+        f"card {got} CPU {ref} rel {rel} (tol {TRAIN_RTOL}) ok={ok}; CPU "
+        f"step {t_cpu:.1f} s, card step {t_card:.2f} s; kernel launches "
+        f"{used} (want {want})")
+    if not ok or used != want:
+        raise SystemExit(f"FAIL: {label} train step card vs CPU")
+
+
+# phase 27: each family at depth 4 (one block per interaction), full
+# width, fp32 (TF32 off since phase 12), drop path 0, card against CPU
+REDUCED_BEIT = {"model.backbone.depth": 4, "model.backbone.img_size": 256,
+                "model.backbone.drop_path_rate": 0.0,
+                "model.backbone.interaction_indexes": [[0, 0], [1, 1],
+                                                       [2, 2], [3, 3]]}
+REDUCED_DEIT_S = {"model.backbone.depth": 4,
+                  "model.backbone.drop_path_rate": 0.0,
+                  "model.backbone.window_attn": [True, True, True, False],
+                  "model.backbone.window_size": [14, 14, 14, None],
+                  "model.backbone.interaction_indexes": [[0, 0], [1, 1],
+                                                         [2, 2], [3, 3]],
+                  "model.dtype": "float32", "model.backbone.dtype": "float32"}
+# a model call of the reduced DeiT-S detectors: 3 windowed blocks and one
+# global launch the attention kernel once each
+REDUCED_DEIT_S_CALL = {"attention_fwd": 4, "msda_fwd": 10}
+
+
+def segmentor_card_vs_cpu(label, config, options, num_classes, call_want,
+                          step_want):
+    """A Mask2Former-family segmentor reduced (`REDUCED_BEIT`, 256 px):
+    the last layer's class and mask logits at input size
+    (`return_queries`) within `E2E_RTOL` of their scale, then one
+    `make_m2f_train_step` each (1024 points, the same draws), the CPU on
+    the card's assignment, by the losses and the float64 gradient norm."""
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.heads import mask2former_loss as loss_mod
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.ops import matching as mt
+    from vitadapter_torch.ops.point_sample import uniform_sampler
+    from vitadapter_torch.train.trainer import make_m2f_train_step
+
+    cfg, cpu, card, gen = reduced_pair(config, {**REDUCED_BEIT, **options},
+                                       27)
+    img = torch.randint(0, 256, (1, 256, 256, 3), dtype=torch.uint8,
+                        generator=gen)
+    before = dict(cuda_ext.launches)
+    with torch.inference_mode():
+        got = card(normalize(img.cuda()), return_queries=True)
+        used = launch_diff(cuda_ext.launches, before)
+        t0 = time.perf_counter()
+        ref = cpu(normalize(img), return_queries=True)
+        t_cpu = time.perf_counter() - t0
+    err = max_rel(zip(got, ref))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    ok = err <= E2E_RTOL and finite and used == call_want
+    log(f"{label} (depth 4, full width, 256 px) fp32 card vs CPU: the last "
+        f"layer's class and mask logits rel {err:.3e} (tol {E2E_RTOL}) "
+        f"ok={ok}; CPU forward {t_cpu:.1f} s; launches {used} (want "
+        f"{call_want})")
+    if not ok:
+        raise SystemExit(f"FAIL: {label} card vs CPU outputs")
+    ids = torch.randint(0, num_classes, (1, 8), generator=gen)
+    cells = torch.randint(0, 8, (1, 16), generator=gen)
+    label_map = ids.gather(1, cells).reshape(1, 4, 4)
+    batch = {"image": torch.randn(1, 256, 256, 3, generator=gen),
+             "label": label_map.repeat_interleave(64, 1)
+             .repeat_interleave(64, 2)}
+    hook = replay(loss_mod, "hungarian_assign", mt.hungarian_assign)
+    got, ref, t_card, t_cpu, used = train_both(
+        card, cpu, batch,
+        lambda m: make_m2f_train_step(m, num_classes=num_classes,
+                                      num_points=1024), 4, hook,
+        lambda side: {"sampler": uniform_sampler(
+            torch.Generator().manual_seed(15))})
+    check_train(label, got, ref, used, step_want, t_card, t_cpu,
+                ("loss", "loss_cls", "loss_mask", "loss_dice",
+                 "grad_norm_f64"))
+
+
+def detector_card_vs_cpu(label, config, options, step_want, outputs,
+                         module, name, matcher, adjust=None):
+    """A DeiT-S adapter detector reduced (`REDUCED_DEIT_S`, fp32, 256 px,
+    batch 2; `adjust` as `reduced_pair`'s): `outputs(model, x)` within
+    `E2E_RTOL` of each one's scale (each one's error logged), then one
+    `make_det_train_step` each on the same batch, the CPU on the card's
+    matches (`module.name`, on the card `matcher`), by the losses and the
+    float64 gradient norm."""
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.train.trainer import make_det_train_step
+
+    cfg, cpu, card, gen = reduced_pair(config, {**REDUCED_DEIT_S,
+                                                **options}, 27, adjust)
+    img = torch.randint(0, 256, (2, 256, 256, 3), dtype=torch.uint8,
+                        generator=gen)
+    before = dict(cuda_ext.launches)
+    with torch.inference_mode():
+        got = outputs(card, normalize(img.cuda()))
+        used = launch_diff(cuda_ext.launches, before)
+        t0 = time.perf_counter()
+        ref = outputs(cpu, normalize(img))
+        t_cpu = time.perf_counter() - t0
+    errs = [max_rel([pair]) for pair in zip(got, ref)]
+    err = max(errs)
+    ok = (err <= E2E_RTOL and used == REDUCED_DEIT_S_CALL
+          and all(bool(torch.isfinite(g).all()) for g in got))
+    log(f"{label} (depth 4, full width, 256 px, batch 2) fp32 card vs CPU: "
+        f"outputs rel {err:.3e} (each: {[f'{e:.2e}' for e in errs]}; tol "
+        f"{E2E_RTOL}) ok={ok}; CPU {t_cpu:.1f} s; launches {used} (want "
+        f"{REDUCED_DEIT_S_CALL})")
+    if not ok:
+        raise SystemExit(f"FAIL: {label} card vs CPU outputs")
+    G = 12
+    xy = torch.rand(2, G, 2, generator=gen) * 200
+    wh = 8 + torch.rand(2, G, 2, generator=gen) * 48
+    batch = {"image": torch.randn(2, 256, 256, 3, generator=gen),
+             "gt_boxes": torch.cat([xy, xy + wh], -1),
+             "gt_labels": torch.randint(0, 80, (2, G), generator=gen),
+             "gt_valid": torch.arange(G).expand(2, G) < G - 2}
+    got, ref, t_card, t_cpu, used = train_both(
+        card, cpu, batch, make_det_train_step, 4,
+        replay(module, name, matcher))
+    check_train(label, got, ref, used, step_want, t_card, t_cpu,
+                [k for k in ref if "loss" in k] + ["grad_norm_f64"])
+
+
+def families_card_vs_cpu():
+    """Phase 27: MaskFormer (the encoder pixel decoder), the panoptic
+    Mask2Former, ATSS, GFL and Sparse R-CNN reduced, card against CPU
+    (`segmentor_card_vs_cpu`, `detector_card_vs_cpu`): ATSS and GFL hold
+    the per-anchor outputs and replay the card's `atss_assign`, Sparse
+    R-CNN holds every stage's class logits and boxes and replays the
+    card's auction, then its shipped init (`sparse_shipped_init`)."""
+    from vitadapter_torch.det import single_stage, sparse_rcnn
+    from vitadapter_torch.ops import matching as mt
+
+    segmentor_card_vs_cpu("MaskFormer", MF_CONFIG,
+                          {"model.decode_head.use_encoder_decoder": True},
+                          150, MF_FORWARD_LAUNCHES, MF_STEP_LAUNCHES)
+    segmentor_card_vs_cpu("panoptic Mask2Former", PAN_CONFIG, {}, 133,
+                          PAN_CALL_LAUNCHES, CLI_STEP_LAUNCHES)
+    for label, config in (("ATSS", ATSS_CONFIG), ("GFL", GFL_CONFIG)):
+        detector_card_vs_cpu(
+            label, config, {}, {"attention_fwd": 4, "attention_bwd": 4,
+                                "msda_fwd": 10, "msda_bwd": 10},
+            lambda m, x: m._outputs(x)[2:], single_stage, "atss_assign",
+            single_stage.atss_assign)
+    detector_card_vs_cpu(
+        "Sparse R-CNN", SPARSE_CONFIG, {}, {
+            "attention_fwd": 4, "attention_bwd": 4, "msda_fwd": 10,
+            "msda_bwd": 10, "auction": 6},
+        lambda m, x: [t for pair in zip(*m._stages(x)) for t in pair],
+        sparse_rcnn, "hungarian_assign", mt.hungarian_assign,
+        adjust=sparse_proposals)
+    sparse_shipped_init()
+
+
+def sparse_proposals(model, gen):
+    """Sparse R-CNN's stages as trained ones give them, for a card-vs-CPU
+    comparison through 6 stages: the box regression scaled by 0.1 (deltas
+    of order 1: random ones move a box by its size, and the next stage's
+    RoIs with it, so float noise grows stage by stage) and the learned
+    proposals spread over the image (the initial whole-image boxes are
+    all one box)."""
+    n = model.num_proposals
+    with torch.no_grad():
+        for head in model.roi_head.bbox_head:
+            head.fc_reg.weight.mul_(0.1)
+            head.fc_reg.bias.mul_(0.1)
+        model.rpn_head.init_proposal_bboxes.weight.copy_(torch.cat(
+            [0.3 + 0.4 * torch.rand(n, 2, generator=gen),
+             0.2 + 0.5 * torch.rand(n, 2, generator=gen)], -1))
+
+
+def sparse_shipped_init():
+    """Sparse R-CNN reduced at its shipped init (whole-image proposals,
+    unscaled regression: what phase 26 trains), without
+    `sparse_proposals`: each stage's class logits and boxes, card against
+    CPU, beside a witness of how far this init carries float noise, the
+    CPU again on the input moved by about one ulp (relative 2^-23 noise).
+    The leading outputs whose witness stays under a tenth of `E2E_RTOL`
+    are held to it, the first stage's always (its RoIs are the whole
+    image, so RoI sampling runs at the image's edges); the later ones are
+    logged beside their witness."""
+    from vitadapter_torch.data.preprocess import normalize
+    from vitadapter_torch.ops import cuda_ext
+
+    def stages(model, x):
+        return [t for pair in zip(*model._stages(x)) for t in pair]
+
+    _, cpu, card, gen = reduced_pair(SPARSE_CONFIG, REDUCED_DEIT_S, 27)
+    x = normalize(torch.randint(0, 256, (2, 256, 256, 3), dtype=torch.uint8,
+                                generator=gen))
+    moved = x * (1 + 2.0 ** -23 * torch.randn(x.shape, generator=gen))
+    before = dict(cuda_ext.launches)
+    with torch.inference_mode():
+        got = stages(card, x.cuda())
+        used = launch_diff(cuda_ext.launches, before)
+        ref = stages(cpu, x)
+        witness = stages(cpu, moved)
+    errs = [max_rel([pair]) for pair in zip(got, ref)]
+    spread = [max_rel([pair]) for pair in zip(witness, ref)]
+    held = next((i for i, w in enumerate(spread) if w > E2E_RTOL / 10),
+                len(spread))
+    ok = (held >= 2 and max(errs[:held]) <= E2E_RTOL
+          and used == REDUCED_DEIT_S_CALL
+          and all(bool(torch.isfinite(g).all()) for g in got))
+    log(f"Sparse R-CNN at the shipped init (depth 4, full width, 256 px, "
+        f"batch 2) fp32 card vs CPU, (class logits, boxes) a stage: "
+        f"{[f'{e:.2e}' for e in errs]}; the witness (the CPU on the input "
+        f"moved by 2^-23): {[f'{w:.2e}' for w in spread]}; the first "
+        f"{held} outputs held to {E2E_RTOL} ok={ok}; launches {used} (want "
+        f"{REDUCED_DEIT_S_CALL})")
+    if not ok:
+        raise SystemExit("FAIL: Sparse R-CNN at the shipped init, card vs "
+                         "CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4394,12 +5028,44 @@ def main():
     log(f"phases 20, 21 and 22 took {t20:.1f}, {t21:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
+    # phase 23: the MaskFormer config's CLIs
+    t0 = time.perf_counter()
+    mf_counts, mf_test_counts = maskformer_cli()
+    t23 = time.perf_counter() - t0
+
+    # phase 24: the COCO-panoptic config's CLIs, --eval PQ
+    t0 = time.perf_counter()
+    pan_counts, pan_test_counts = panoptic_cli()
+    t24 = time.perf_counter() - t0
+
+    # phase 25: the ATSS config's CLIs, one GFL step and test image
+    t0 = time.perf_counter()
+    atss_counts, atss_test_counts, gfl_counts, gfl_test_counts = atss_cli()
+    t25 = time.perf_counter() - t0
+
+    # phase 26: the Sparse R-CNN config's CLIs
+    t0 = time.perf_counter()
+    sparse_counts, sparse_test_counts = sparse_cli()
+    t26 = time.perf_counter() - t0
+
+    # phase 27: the five families reduced, card against CPU
+    t0 = time.perf_counter()
+    families_card_vs_cpu()
+    log(f"phases 23, 24, 25, 26 and 27 took {t23:.1f}, {t24:.1f}, "
+        f"{t25:.1f}, {t26:.1f} and {time.perf_counter() - t0:.1f} s (host "
+        f"clock)")
+
     paths = {"serve": serve_counts, "train": train_counts,
              "eval_whole": eval_counts, "train_overline": overline_counts,
              "cli": cli_counts, "upernet": upernet_counts, "det": det_counts,
              "det_test": det_test_counts, "htc": htc_counts,
              "htc_test": htc_test_counts, "grounding": grounding_counts,
-             "grounding_test": grounding_test_counts}
+             "grounding_test": grounding_test_counts,
+             "maskformer": mf_counts, "maskformer_test": mf_test_counts,
+             "panoptic": pan_counts, "panoptic_test": pan_test_counts,
+             "atss": atss_counts, "atss_test": atss_test_counts,
+             "gfl": gfl_counts, "gfl_test": gfl_test_counts,
+             "sparse": sparse_counts, "sparse_test": sparse_test_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -4441,9 +5107,16 @@ def main():
             per += ("; paths.grounding: per phase 20 train step (the large "
                     "WSDM2023 GroundingDINO, 1024 canvas, batch 2, fp32)")
         if "det_bf16" in r.get("paths", {}):
-            per += ("; paths.det_bf16: per train step of the DeiT-S Mask "
-                    "R-CNN configs (1024 canvas, batch 2, bf16; not run "
-                    "end to end here)")
+            per += ("; paths.det_bf16: per train step of the bf16 DeiT-S "
+                    "configs (1024 canvas, batch 2: phase 25's ATSS and GFL, "
+                    "phase 18's Cascade)")
+        if "panoptic" in r.get("paths", {}):
+            per += ("; paths.panoptic: per phase 24 train step (BEiTv2-"
+                    "Adapter-L panoptic Mask2Former, 1024 px, batch 1, fp32; "
+                    "point sampling in bf16, as the loss samples)")
+        if "sparse" in r.get("paths", {}):
+            per += ("; paths.sparse: per phase 26 train step (DeiT-S "
+                    "Sparse R-CNN, 1024 canvas, batch 2, fp32)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",

@@ -205,19 +205,42 @@ def test_test_cli_reports_run_evals_miou(trained):
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    """What is not ported raises and names its ROADMAP item; the UperNet
-    Uni-Perceiver config (shrunk) trains into the TypeError naming `refer`
-    at its first forward, as the JAX package does; no CUDA and no
-    `--device` raises."""
+    """What the CLIs refuse: `--aug-test` with `--eval PQ` (as the root
+    script); the panoptic config on real data, whose "CocoDataset" is not
+    a segmentation dataset (the KeyError of the JAX loop's dataset lookup;
+    it trains on `--synthetic-data`); the UperNet Uni-Perceiver config
+    (shrunk), which trains into the TypeError naming `refer` at its first
+    forward, as the JAX package does; an unknown metric; no CUDA and no
+    `--device`. The ATSS config, which raised naming its ROADMAP item
+    before it was ported, now builds and reads its checkpoint."""
     cfg = _config(tmp_path)
     detector = os.path.join(ROOT, "configs/atss/atss_deit_adapter_small_"
                             "fpn_3x_coco.py")
-    with pytest.raises(KeyError, match="item 7"):
-        test_cli.main([detector, "x.pth", "--eval", "bbox", "--device",
-                       "cpu"])
-    with pytest.raises(KeyError, match="item 7"):
-        train_cli.main([detector, "--work-dir", str(tmp_path / "d"),
-                        "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        test_cli.main([detector, str(tmp_path / "x.pth"), "--eval", "bbox",
+                       "--device", "cpu"])
+    panoptic = os.path.join(ROOT, "configs/mask2former/mask2former_beitv2_"
+                            "adapter_large_16x1_3x_coco-panoptic.py")
+    with pytest.raises(SystemExit):
+        test_cli.parse_args([panoptic, "x.pth", "--eval", "PQ",
+                             "--aug-test"])
+    with pytest.raises(KeyError, match="CocoDataset"):
+        train_cli.main([panoptic, "--work-dir", str(tmp_path / "p"),
+                        "--device", "cpu", "--max-iters", "1",
+                        "--cfg-options", "model.backbone.depth=2",
+                        "model.backbone.embed_dim=48",
+                        "model.backbone.num_heads=4",
+                        "model.backbone.deform_num_heads=4",
+                        "model.backbone.conv_inplane=16",
+                        "model.backbone.img_size=64",
+                        "model.backbone.interaction_indexes=[[0,0],[1,1]]",
+                        "model.decode_head.feat_channels=32",
+                        "model.decode_head.out_channels=32",
+                        "model.decode_head.num_heads=4",
+                        "model.decode_head.decoder_ffn_dim=64",
+                        "model.decode_head.pixel_encoder_ffn_dim=64",
+                        "model.decode_head.pixel_encoder_heads=4"],
+                       log_fn=lambda *_: None)
     upernet = os.path.join(ROOT, "configs/ade20k/upernet_uniperceiver_"
                            "adapter_large_512_160k_ade20k.py")
     with pytest.raises(TypeError, match="refer"):

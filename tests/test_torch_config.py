@@ -116,16 +116,32 @@ def test_640_config_parameter_count_matches_jax():
 
 
 def test_builder_refuses_what_is_not_ported():
-    with pytest.raises(KeyError, match="item 3"):
-        builder.build({"type": "MaskFormerHead"})
+    # every component type of the JAX registry is ported: the MaskFormer,
+    # panoptic, ATSS, GFL and Sparse R-CNN configs build on the meta
+    # device with JAX's parameter counts (`eval_shape` of the JAX build,
+    # computed in test_torch_{maskformer,panoptic,single_stage,
+    # sparse_rcnn}.py); the shipped MaskFormer config's plain pixel decoder
+    # raises at its first forward as JAX's does, so it is counted with
+    # `use_encoder_decoder=True`
+    for path, opts, n in (
+            ("ade20k/maskformer_beit_adapter_large_640_160k_ade20k_ss",
+             {"model.decode_head.use_encoder_decoder": True}, 350_383_959),
+            ("mask2former/mask2former_beitv2_adapter_large_16x1_3x_"
+             "coco-panoptic", {}, 572_189_254),
+            ("atss/atss_deit_adapter_small_fpn_3x_coco", {}, 35_661_418),
+            ("gfl/gfl_deit_adapter_small_fpn_3x_coco", {}, 35_808_938),
+            ("sparse_rcnn/sparse_rcnn_deit_adapter_small_fpn_3x_coco", {},
+             109_687_704)):
+        cfg = Config.fromfile(os.path.join(ROOT, "configs", path + ".py"))
+        cfg.merge_from_options(opts)
+        model = builder.build(dict(cfg.model))
+        assert sum(p.numel() for p in model.parameters()) == n, path
     # the UperNet Uni-Perceiver config builds and, as in JAX, its first
     # forward calls the backbone without the text
     assert_refer_required_at_first_forward(
         "configs/ade20k/upernet_uniperceiver_adapter_large_512_160k_"
         "ade20k.py", ["model.decode_head.channels=32",
                       "model.auxiliary_head.channels=16"])
-    with pytest.raises(KeyError, match="item 7"):
-        builder.build({"type": "ATSS"})
     with pytest.raises(KeyError, match="unknown component type"):
         builder.build({"type": "NoSuchThing"})
     cfg = Config.fromfile(os.path.join(ROOT, M2F_640))

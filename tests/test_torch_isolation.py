@@ -20,7 +20,9 @@ DET_MODULES = {f"vitadapter_torch.{m}" for m in (
     "det.roi_heads", "det.rpn", "data.coco", "ops.nms", "train.det_loop",
     "det.dino", "det.dino_detector", "det.grounding_dino", "det.losses",
     "data.grounding", "data.tokenization", "models.uniperceiver",
-    "models.uniperceiver_adapter", "tools.generate_results")}
+    "models.uniperceiver_adapter", "tools.generate_results",
+    "det.single_stage", "det.sparse_rcnn", "det.panoptic_eval",
+    "heads.maskformer", "heads.panoptic")}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -19,7 +19,10 @@ from vitadapter_torch.det.cascade import CascadeRCNN
 from vitadapter_torch.det.dino_detector import DINO
 from vitadapter_torch.det.grounding_dino import GroundingDINO
 from vitadapter_torch.det.mask_rcnn import MaskRCNN
+from vitadapter_torch.det.single_stage import ATSS
+from vitadapter_torch.det.sparse_rcnn import SparseRCNN
 from vitadapter_torch.heads.mask2former import Mask2FormerHead
+from vitadapter_torch.heads.maskformer import MaskFormerHead
 from vitadapter_torch.heads.upernet import FCNHead, UPerHead
 from vitadapter_torch.models.baselines import BEiTBaseline, ViTBaseline
 from vitadapter_torch.models.beit import BEiT
@@ -47,20 +50,16 @@ REGISTRY: Dict[str, Any] = {
     "UPerHead": UPerHead,
     "FCNHead": FCNHead,
     "Mask2FormerHead": Mask2FormerHead,
+    "MaskFormerHead": MaskFormerHead,
     "EncoderDecoder": EncoderDecoder,
     "EncoderDecoderMask2Former": EncoderDecoderMask2Former,
     # detection
     "MaskRCNN": MaskRCNN,
     "CascadeRCNN": CascadeRCNN,
+    "ATSS": ATSS,
+    "SparseRCNN": SparseRCNN,
     "DINO": DINO,
     "GroundingDINO": GroundingDINO,
-}
-
-# the JAX package's other component types, by the ROADMAP.md §1 item that
-# will port them
-NOT_PORTED = {
-    "MaskFormerHead": "item 3 (MaskFormerHead and panoptic)",
-    **dict.fromkeys(("ATSS", "SparseRCNN"), "item 7 (detection)"),
 }
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -69,9 +68,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _lookup(name: str):
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in NOT_PORTED:
-        raise KeyError(f"component type {name!r} is not ported yet: "
-                       f"ROADMAP.md §1 {NOT_PORTED[name]}")
     raise KeyError(f"unknown component type {name!r}; known: "
                    f"{sorted(REGISTRY)}")
 

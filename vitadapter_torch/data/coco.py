@@ -6,8 +6,8 @@ COCO compressed RLE for crowd regions. Emits static-shape training targets
 (boxes/labels/masks padded to max_instances) matching `det/mask_rcnn.py`.
 The RLE codec is the numpy/Python one: the JAX package's native codec
 (`native/rle.cpp`) is not ported yet (ROADMAP.md §1 item 6); it gives the
-same masks and strings. The panoptic dataset comes with ROADMAP.md §1
-item 3.
+same masks and strings. `CocoPanopticDataset` reads the COCO panoptic
+format for `--eval PQ`.
 
 Parity targets: mmdet `CocoDataset` + the reference detection pipelines
 (`mask_rcnn_deit_adapter_tiny_fpn_3x_coco.py`: multi-scale resize + flip +
@@ -177,3 +177,69 @@ def pad_targets(targets: Dict, max_instances: int) -> Dict:
         out["masks"] = np.pad(targets["masks"][:k],
                               ((0, pad), (0, 0), (0, 0)))
     return out
+
+
+class CocoPanopticDataset:
+    """COCO panoptic-format dataset (reference: mmdet CocoPanopticDataset as
+    used by `detection/configs/mask2former/..._coco-panoptic.py`).
+
+    `ann_file` is the standard panoptic JSON: images + annotations with
+    `segments_info` and a per-image PNG whose pixel encodes the segment id
+    as R + 256*G + 65536*B (0 = void). `seg_dir` holds the PNGs (defaults to
+    the JSON's path without its extension). Categories with `isthing=1` map
+    to contiguous labels [0, n_things); stuff to [n_things,
+    n_things+n_stuff). `load` returns (img, {"pan": (H, W) int64 `label *
+    INSTANCE_OFFSET + inst_id` map with -1 void: the `heads/panoptic.py`
+    convention}); crowd segments are void.
+    """
+
+    def __init__(self, ann_file: str, img_dir: str, seg_dir: str = None):
+        with open(ann_file) as f:
+            coco = json.load(f)
+        self.img_dir = img_dir
+        if seg_dir is None:
+            seg_dir = os.path.splitext(ann_file)[0]
+        self.seg_dir = seg_dir
+        things = [c for c in coco["categories"] if c.get("isthing", 0)]
+        stuff = [c for c in coco["categories"] if not c.get("isthing", 0)]
+        self.num_things = len(things)
+        self.num_stuff = len(stuff)
+        self.num_classes = self.num_things + self.num_stuff
+        self.cat_to_label = {
+            c["id"]: i for i, c in enumerate(
+                sorted(things, key=lambda c: c["id"]))}
+        self.cat_to_label.update({
+            c["id"]: self.num_things + i for i, c in enumerate(
+                sorted(stuff, key=lambda c: c["id"]))})
+        self.images = {im["id"]: im for im in coco["images"]}
+        self.anns = {a["image_id"]: a for a in coco.get("annotations", [])}
+        self.ids = [i for i in self.images if i in self.anns]
+
+    def __len__(self):
+        return len(self.ids)
+
+    def load(self, i: int):
+        from vitadapter_torch.heads.panoptic import INSTANCE_OFFSET
+
+        im_id = self.ids[i]
+        info = self.images[im_id]
+        img = np.asarray(Image.open(
+            os.path.join(self.img_dir, info["file_name"])).convert("RGB"))
+        ann = self.anns[im_id]
+        rgb = np.asarray(Image.open(
+            os.path.join(self.seg_dir, ann["file_name"])).convert("RGB"),
+            np.int64)
+        seg_id = rgb[..., 0] + 256 * rgb[..., 1] + 65536 * rgb[..., 2]
+        pan = np.full(seg_id.shape, -1, np.int64)
+        inst_counter = {}
+        for s in ann["segments_info"]:
+            if s.get("iscrowd", 0):
+                continue
+            label = self.cat_to_label[s["category_id"]]
+            if label < self.num_things:
+                inst = inst_counter.get(label, 0) + 1
+                inst_counter[label] = inst
+            else:
+                inst = 0
+            pan[seg_id == s["id"]] = label * INSTANCE_OFFSET + inst
+        return img, {"pan": pan}

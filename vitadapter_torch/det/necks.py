@@ -1,5 +1,6 @@
 """Detection necks (counterpart of `vitadapter/det/necks.py`): mmdet `FPN`
-(5 outputs, the extra level a stride-2 subsample of the last), the
+(5 outputs, the extra levels stride-2 subsamples of the last or, for
+ATSS/GFL, learned stride-2 convs chained on it), the
 reference's `ChannelMapperWithPooling` and HTC++'s `ExtraAttention`. They
 take and return NHWC maps; their keys are mmdet's (`lateral_convs.N.conv`,
 `fpn_convs.N.conv`, `convs.N.conv` / `convs.N.gn`, `extra_convs.N.conv`)
@@ -46,28 +47,44 @@ class ConvModule(nn.Module):
 
 
 class FPN(nn.Module):
-    """Top-down FPN: 1x1 laterals, nearest upsampling, 3x3 output convs; the
-    levels past the inputs are kernel-1 stride-2 max pools of the last
-    output (mmdet `add_extra_convs=False`)."""
+    """Top-down FPN: 1x1 laterals, nearest upsampling, 3x3 output convs on
+    the inputs from `start_level` on. The levels past them are kernel-1
+    stride-2 max pools of the last output (`extra="pool"`, mmdet
+    `add_extra_convs=False`) or learned 3x3 stride-2 convs chained on it
+    (`extra="on_output"`, the ATSS/GFL configs with `start_level=1`: strides
+    8-128), kept in `fpn_convs` after the outputs' convs as mmdet keeps
+    them."""
 
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
-                 num_outs: int = 5, dtype: torch.dtype = torch.float32,
+                 num_outs: int = 5, start_level: int = 0,
+                 extra: str = "pool", dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
+        if extra not in ("pool", "on_output"):
+            raise ValueError(f"extra {extra!r}: 'pool' or 'on_output'")
         kw = dict(dtype=dtype, device=device)
+        in_channels = list(in_channels)[start_level:]
         self.num_outs = num_outs
+        self.start_level = start_level
+        self.n_in = len(in_channels)
+        n_extra = max(num_outs - self.n_in, 0) if extra == "on_output" else 0
         self.lateral_convs = nn.ModuleList([
             ConvModule(Conv2d(c, out_channels, 1, **kw)) for c in in_channels])
         self.fpn_convs = nn.ModuleList([
             ConvModule(Conv2d(out_channels, out_channels, 3, padding=1, **kw))
-            for _ in in_channels])
+            for _ in in_channels] + [
+            ConvModule(Conv2d(out_channels, out_channels, 3, stride=2,
+                              padding=1, **kw)) for _ in range(n_extra)])
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        feats = list(feats)[self.start_level:]
         lat = [conv_nhwc(m, f) for m, f in zip(self.lateral_convs, feats)]
         for i in range(len(lat) - 1, 0, -1):
             lat[i - 1] = lat[i - 1] + nearest_resize(lat[i],
                                                      lat[i - 1].shape[1:3])
         outs = [conv_nhwc(m, x) for m, x in zip(self.fpn_convs, lat)]
+        for m in self.fpn_convs[self.n_in:]:
+            outs.append(conv_nhwc(m, outs[-1]))
         while len(outs) < self.num_outs:
             outs.append(outs[-1][:, ::2, ::2])
         return outs

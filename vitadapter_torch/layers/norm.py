@@ -30,7 +30,9 @@ class LayerNorm(nn.LayerNorm):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm over NCHW."""
+    """GroupNorm over NCHW. A group of one value normalizes to 0 (the
+    output is the bias), as flax's does; `F.group_norm` refuses a batch of
+    one such map (one channel a group on a 1x1 map)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  dtype: Optional[torch.dtype] = None, device=None):
@@ -38,8 +40,11 @@ class GroupNorm(nn.GroupNorm):
         self.out_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
-                         self.eps)
+        if x.shape[1] == self.num_groups and x[0, 0].numel() == 1:
+            y = x.float() * 0 + self.bias.view(1, -1, *[1] * (x.dim() - 2))
+        else:
+            y = F.group_norm(x.float(), self.num_groups, self.weight,
+                             self.bias, self.eps)
         return y if self.out_dtype is None else y.to(self.out_dtype)
 
 

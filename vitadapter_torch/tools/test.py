@@ -5,6 +5,7 @@
         [--aug-test] [--max-images N] [--cfg-options k=v ...] [--device cpu]
     python -m vitadapter_torch.tools.test CONFIG CKPT --eval bbox segm ...
     python -m vitadapter_torch.tools.test CONFIG CKPT --eval IoU ...
+    python -m vitadapter_torch.tools.test CONFIG CKPT --eval PQ ...
 
 CKPT is a checkpoint directory of `tools.train` (its latest step), one of
 its step directories, or a `.pth` file holding a `state_dict` with the
@@ -14,7 +15,10 @@ as the config's `test_cfg` says; `--aug-test` adds the multi-scale and
 flip augmentations), `--eval bbox segm` the COCO detection protocol on
 the config's `data.val` (`train/det_loop.py::run_det_eval`), `--eval IoU`
 the single-box grounding protocol (`run_grounding_eval`: mIoU and
-Acc@0.5; `--aug-test` votes over the config's `tta` scales and flips).
+Acc@0.5; `--aug-test` votes over the config's `tta` scales and flips),
+`--eval PQ` the panoptic quality of a Mask2Former segmentor on the
+config's COCO-panoptic `data.val` (`run_panoptic_eval`; no `--aug-test`,
+as in the root script).
 The model runs on CUDA unless `--device cpu` is given.
 """
 
@@ -23,15 +27,15 @@ from typing import List, Optional
 
 from vitadapter_torch.builder import build_model
 from vitadapter_torch.train.det_loop import (build_det_dataset,
-                                            run_det_eval, run_grounding_eval)
+                                            build_panoptic_dataset,
+                                            run_det_eval, run_grounding_eval,
+                                            run_panoptic_eval)
 from vitadapter_torch.train.loop import build_dataset, eval_config, run_eval
 from vitadapter_torch.utils.checkpoint_io import load_model_weights
 from vitadapter_torch.utils.config import Config, parse_cfg_options
 
-# the root script's metrics, by the ROADMAP.md §1 item that will port the
-# ones the port lacks
+# the root script's metrics
 KNOWN_METRICS = ("mIoU", "bbox", "segm", "PQ", "IoU")
-NOT_PORTED = {"PQ": "item 3 (MaskFormerHead and panoptic)"}
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -50,19 +54,17 @@ def parse_args(argv: Optional[List[str]] = None):
     if unknown:
         p.error(f"unknown --eval metric(s) {unknown}; "
                 f"choose from {list(KNOWN_METRICS)}")
+    if args.aug_test and "PQ" in args.eval:
+        p.error("--aug-test is not supported for --eval PQ")
     return args
 
 
 def main(argv: Optional[List[str]] = None, log_fn=print):
     """Run the command line `argv` (sys.argv[1:] when None); returns the
-    metrics: `run_grounding_eval`'s for `IoU`, `run_det_eval`'s for
-    `bbox`/`segm`, else `run_eval`'s (aAcc, mIoU, mAcc and the confusion
-    matrix)."""
+    metrics: `run_grounding_eval`'s for `IoU`, `run_panoptic_eval`'s for
+    `PQ`, `run_det_eval`'s for `bbox`/`segm`, else `run_eval`'s (aAcc,
+    mIoU, mAcc and the confusion matrix)."""
     args = parse_args(argv)
-    for m in args.eval:
-        if m in NOT_PORTED:
-            raise NotImplementedError(f"--eval {m} is not ported yet: "
-                                      f"ROADMAP.md §1 {NOT_PORTED[m]}")
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(parse_cfg_options(args.cfg_options))
     model = build_model(dict(cfg.model), device=args.device)
@@ -72,6 +74,10 @@ def main(argv: Optional[List[str]] = None, log_fn=print):
             cfg, model, build_det_dataset(cfg.data, "val", with_masks=False),
             aug_test=args.aug_test, max_images=args.max_images,
             log_fn=log_fn)
+    if "PQ" in args.eval:
+        return run_panoptic_eval(cfg, model,
+                                 build_panoptic_dataset(cfg.data, "val"),
+                                 max_images=args.max_images, log_fn=log_fn)
     iou_types = tuple(t for t in ("bbox", "segm") if t in args.eval)
     if iou_types:
         return run_det_eval(cfg, model, build_det_dataset(cfg.data, "val"),

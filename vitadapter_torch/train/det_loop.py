@@ -1,6 +1,8 @@
 """Config-driven detection training and evaluation (counterpart of
 `vitadapter/train/det_loop.py`, on one device), for Mask R-CNN, Cascade
-Mask R-CNN / HTC++ and the DINO detectors, GroundingDINO among them.
+Mask R-CNN / HTC++, ATSS/GFL, Sparse R-CNN and the DINO detectors,
+GroundingDINO among them; and the panoptic evaluation of a Mask2Former
+segmentor.
 
 `run_det_training` is the reference's `detection/train.py` on the port's
 step loop (`train/loop.py::train_steps`): the COCO pipeline (flip,
@@ -13,7 +15,9 @@ each `tta` scale, flipped and not), zero pad to one of two canvases
 (and the augs merged), masks pasted from their 28x28 box crops, COCO
 metrics. `run_grounding_eval` is `test.py --eval IoU [--aug-test]`: the
 top box of each image (or the vote over the scales and flips), Acc@0.5
-and mIoU against its one gt box.
+and mIoU against its one gt box. `run_panoptic_eval` is `test.py --eval
+PQ`: per-query predictions fused into a panoptic map on the device,
+panoptic quality on the host.
 The JAX version shards images over a device mesh with one compiled program
 per canvas; the port runs `test_cfg.images_per_device` images of a canvas
 a model call, eagerly. Ground-truth masks travel as bool and are read as
@@ -31,7 +35,8 @@ import torch
 from PIL import Image
 
 from vitadapter_torch.data import transforms as T
-from vitadapter_torch.data.coco import CocoDataset, pad_targets
+from vitadapter_torch.data.coco import (CocoDataset, CocoPanopticDataset,
+                                       pad_targets)
 from vitadapter_torch.data.grounding import (ParaphraseCache, VGDataset,
                                              WSDMCocoDataset,
                                              grounding_metrics)
@@ -41,13 +46,13 @@ from vitadapter_torch.data.preprocess import normalize
 from vitadapter_torch.det.cascade import merge_aug_detections
 from vitadapter_torch.det.coco_eval import COCOEvaluator
 from vitadapter_torch.det.grounding_dino import aug_test_vote
+from vitadapter_torch.det.panoptic_eval import PQEvaluator
+from vitadapter_torch.heads.panoptic import panoptic_fuse
 from vitadapter_torch.train.loop import build_train_state, train_steps
 from vitadapter_torch.train.trainer import TrainState, make_det_train_step
 from vitadapter_torch.zoo import resolve_device
 
-# the root `train.py`'s detector types: `tools.train` sends these here, and
-# `build_model` names the ROADMAP.md item of those not ported yet (ATSS,
-# SparseRCNN)
+# the root `train.py`'s detector types: `tools.train` sends these here
 DETECTORS = ("MaskRCNN", "CascadeRCNN", "ATSS", "SparseRCNN", "DINO",
              "GroundingDINO")
 # the detectors trained on masks
@@ -555,4 +560,93 @@ def run_grounding_eval(cfg, model: torch.nn.Module, dataset,
                          "host_s": total_s - forward_s}
     log_fn(f"eval time: {n} images x {n_aug} augs, model calls "
            f"{forward_s:.3f} s, host {total_s - forward_s:.3f} s")
+    return metrics
+
+
+def build_panoptic_dataset(data_cfg: Dict[str, Any], split: str = "val"
+                           ) -> CocoPanopticDataset:
+    """The config's COCO-panoptic split (`ann_file`, `img_dir` and, when
+    given, `seg_dir` under `data_root`), as the root `test.py --eval PQ`
+    builds it."""
+    sub = data_cfg[split]
+    root = data_cfg.get("data_root", "")
+    return CocoPanopticDataset(
+        os.path.join(root, sub["ann_file"]),
+        os.path.join(root, sub["img_dir"]),
+        seg_dir=(os.path.join(root, sub["seg_dir"]) if "seg_dir" in sub
+                 else None))
+
+
+def run_panoptic_eval(cfg, model: torch.nn.Module, dataset,
+                      max_images: Optional[int] = None, log_fn=print
+                      ) -> Dict[str, Any]:
+    """Panoptic quality of a Mask2Former segmentor on `dataset` (`test.py
+    --eval PQ`; the reference pins the printout at
+    `detection/configs/mask2former/README.md:84`): each image zero padded
+    to multiples of `test_cfg.pad_bucket` (128), `test_cfg.
+    images_per_device` (2) images of a padded size a model call, the last
+    layer's queries (`return_queries=True`) fused on the device by
+    `heads/panoptic.py::panoptic_fuse` with the config's `panoptic`
+    thresholds, the map cropped back and scored on the host
+    (`det/panoptic_eval.py::PQEvaluator`). Returns PQ, SQ, RQ, PQ_th and
+    PQ_st, and under `timing` the seconds in model calls and fusion (to a
+    synchronize) and on the host."""
+    pcfg = dict(cfg.get("panoptic") or {})
+    n_th = pcfg.get("num_things", dataset.num_things)
+    n_st = pcfg.get("num_stuff", dataset.num_stuff)
+    tcfg = dict(cfg.get("test_cfg") or {})
+    bucket = tcfg.get("pad_bucket", 128)
+    per_call = int(tcfg.get("images_per_device", 2))
+    device = next(model.parameters()).device
+    ev = PQEvaluator(num_things=n_th, num_stuff=n_st)
+    n = min(len(dataset), max_images or len(dataset))
+    pending: Dict[tuple, list] = {}
+    forward_s = 0.0
+    done = 0
+
+    def flush(key):
+        nonlocal forward_s, done
+        items = pending.pop(key, [])
+        if not items:
+            return
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.stack([it[0] for it in items])).to(device)
+        cls_q, mask_q = model(normalize(x), return_queries=True)
+        pans = torch.stack([panoptic_fuse(
+            c, m, n_th, n_st,
+            object_mask_thr=pcfg.get("object_mask_thr", 0.8),
+            iou_thr=pcfg.get("iou_thr", 0.8))
+            for c, m in zip(cls_q, mask_q)]).cpu().numpy()
+        forward_s += time.perf_counter() - t0
+        for pan, (_, H, W, gt_pan) in zip(pans, items):
+            ev.add_image(pan[:H, :W], gt_pan)
+            done += 1
+            if done % 100 == 0 or done == n:
+                log_fn(f"eval {done}/{n}")
+
+    t_start = time.perf_counter()
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            for i in range(n):
+                img, t = dataset.load(i)
+                H, W = img.shape[:2]
+                key = (-(-H // bucket) * bucket, -(-W // bucket) * bucket)
+                x = np.zeros((*key, 3), np.float32)
+                x[:H, :W] = img
+                pending.setdefault(key, []).append((x, H, W, t["pan"]))
+                if len(pending[key]) == per_call:
+                    flush(key)
+            for key in list(pending):
+                flush(key)
+    finally:
+        model.train(was_training)
+    metrics: Dict[str, Any] = ev.summarize()
+    log_fn(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+    total_s = time.perf_counter() - t_start
+    metrics["timing"] = {"images": n, "forward_s": forward_s,
+                         "host_s": total_s - forward_s}
+    log_fn(f"eval time: {n} images, model calls {forward_s:.3f} s, "
+           f"host {total_s - forward_s:.3f} s")
     return metrics

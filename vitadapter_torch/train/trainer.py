@@ -122,9 +122,10 @@ def make_seg_train_step(model: nn.Module, aux_weight: float = 0.4,
 def det_losses(model: nn.Module, batch, generator: torch.Generator,
                sampler: Optional[Sampler] = None, **kw):
     """A detector's `forward_train` on a batch: `GroundingDINO` takes the
-    text (`refer`, `r_mask`), `DINO` the boxes alone, Mask R-CNN and Cascade
-    Mask R-CNN the masks and the `sampler`; `kw` go to the DINO detectors
-    (`dn_draws`, `assigner`)."""
+    text (`refer`, `r_mask`); `DINO`, `ATSS` and `SparseRCNN` the boxes
+    alone; Mask R-CNN and Cascade Mask R-CNN the masks and the `sampler`;
+    `kw` go to the DINO detectors (`dn_draws`, `assigner`) and Sparse
+    R-CNN (`assigner`)."""
     if "refer" in batch:
         return model.forward_train(
             batch["image"], batch["refer"], batch["r_mask"],
@@ -142,7 +143,8 @@ def det_losses(model: nn.Module, batch, generator: torch.Generator,
 
 def make_det_train_step(model: nn.Module) -> Callable:
     """Train step for a detector's `forward_train` (`det.mask_rcnn.MaskRCNN`,
-    `det.cascade.CascadeRCNN`, `det.dino_detector.DINO`,
+    `det.cascade.CascadeRCNN`, `det.single_stage.ATSS`,
+    `det.sparse_rcnn.SparseRCNN`, `det.dino_detector.DINO`,
     `det.grounding_dino.GroundingDINO`): the sum of its losses.
 
     train_step(state, batch, generator, sampler=None, **kw) -> (state,
@@ -151,7 +153,8 @@ def make_det_train_step(model: nn.Module) -> Callable:
     G, H, W) bool for the R-CNNs or "refer"/"r_mask" (B, T) for
     GroundingDINO}. DropPath (and DINO's denoising noise) draws from
     `generator`, the RPN and RoI samplers from `sampler` (by default from
-    `generator`); `kw` go to a DINO detector's `forward_train`. A parameter
+    `generator`); `kw` go to a DINO or Sparse R-CNN detector's
+    `forward_train`. A parameter
     that no loss reaches (HTC's semantic logits, which take no loss; a cls
     token the detection BEiT does not use; the adapter's `up` where the
     grounding configs return strides 8-32 only) gets a zero gradient, as

@@ -7,8 +7,9 @@ converters for the ViT-Adapter, BEiT-Adapter and UniPerceiver-Adapter
 backbones (`convert_vit_adapter_backbone`, `convert_beit_backbone`,
 `convert_uniperceiver_backbone`), the Mask2Former head, the UperNet heads
 (`convert_upernet_heads`), Mask R-CNN's neck, RPN and RoI heads
-(`convert_detector_checkpoint`) and the DINO detectors
-(`convert_grounding_dino_checkpoint`). The
+(`convert_detector_checkpoint`), ATSS/GFL and Sparse R-CNN (the same
+converter), the MaskFormer head (`convert_maskformer_head`) and the DINO
+detectors (`convert_grounding_dino_checkpoint`). The
 baselines' pyramid and `PatchMerging`, which no JAX converter reads, keep
 their flax names (`models/baselines.py`). Layout rules (flax -> torch):
 
@@ -364,7 +365,9 @@ def patch_merging_from_flax(p: Tree) -> StateDict:
 
 
 def head_from_flax(p: Tree, s: Tree) -> StateDict:
-    """A decode head: Mask2Former, UPerHead or FCNHead."""
+    """A decode head: Mask2Former, MaskFormer, UPerHead or FCNHead."""
+    if "pixel_decoder" in p and "query_feat" not in p:
+        return maskformer_head_from_flax(p)
     if "pixel_decoder" in p:
         return mask2former_head_from_flax(p)
     if "psp" in p:
@@ -436,6 +439,55 @@ def mask2former_head_from_flax(p: Tree) -> StateDict:
         pre = f"transformer_decoder.layers.{i}"
         sd.update(_prefixed(f"{pre}.attentions.0", _mha(lp["cross_attn"])))
         sd.update(_prefixed(f"{pre}.attentions.1", _mha(lp["self_attn"])))
+        for j in (0, 1, 2):
+            sd.update(_prefixed(f"{pre}.norms.{j}", _norm(lp[f"norm{j + 1}"])))
+        sd.update(_prefixed(f"{pre}.ffns.0", _ffn(lp["ffn_fc1"],
+                                                   lp["ffn_fc2"])))
+        i += 1
+    return sd
+
+
+def maskformer_head_from_flax(p: Tree) -> StateDict:
+    """`MaskFormerHead` with either pixel decoder (the inverse of the JAX
+    `convert_maskformer_head`): flax `last_conv` is `last_feat_conv` of the
+    plain decoder and `encoder_out_proj` of the encoder variant; the
+    decoder layers' `self_attn` is `attentions.0`, `cross_attn`
+    `attentions.1`."""
+    pd = p["pixel_decoder"]
+    dec = {**_prefixed("mask_feature", _conv(pd["mask_feature"]))}
+    i = 0
+    while f"lateral_{i}" in pd:
+        dec.update(_prefixed(f"lateral_convs.{i}", _conv_gn(pd[f"lateral_{i}"])))
+        dec.update(_prefixed(f"output_convs.{i}", _conv_gn(pd[f"output_{i}"])))
+        i += 1
+    if "encoder_in_proj" in pd:
+        dec.update(_prefixed("encoder_in_proj", _conv(pd["encoder_in_proj"])))
+        dec.update(_prefixed("encoder_out_proj", _conv_gn(pd["last_conv"])))
+        i = 0
+        while f"enc_attn_{i}" in pd:
+            pre = f"encoder.layers.{i}"
+            dec.update(_prefixed(f"{pre}.attentions.0",
+                                 _mha(pd[f"enc_attn_{i}"])))
+            dec.update(_prefixed(f"{pre}.norms.0", _norm(pd[f"enc_norm1_{i}"])))
+            dec.update(_prefixed(f"{pre}.norms.1", _norm(pd[f"enc_norm2_{i}"])))
+            dec.update(_prefixed(f"{pre}.ffns.0", _ffn(pd[f"enc_fc1_{i}"],
+                                                        pd[f"enc_fc2_{i}"])))
+            i += 1
+    else:
+        dec.update(_prefixed("last_feat_conv", _conv_gn(pd["last_conv"])))
+    sd = {"query_embed.weight": _t(p["query_embed"]),
+          **_prefixed("cls_embed", _linear(p["cls_embed"])),
+          **_prefixed("transformer_decoder.post_norm", _norm(p["post_norm"])),
+          **_prefixed("pixel_decoder", dec)}
+    for i, t_idx in enumerate((0, 2, 4)):
+        sd.update(_prefixed(f"mask_embed.{t_idx}",
+                            _linear(p[f"mask_embed_{i}"])))
+    i = 0
+    while f"decoder_layer_{i}" in p:
+        lp = p[f"decoder_layer_{i}"]
+        pre = f"transformer_decoder.layers.{i}"
+        sd.update(_prefixed(f"{pre}.attentions.0", _mha(lp["self_attn"])))
+        sd.update(_prefixed(f"{pre}.attentions.1", _mha(lp["cross_attn"])))
         for j in (0, 1, 2):
             sd.update(_prefixed(f"{pre}.norms.{j}", _norm(lp[f"norm{j + 1}"])))
         sd.update(_prefixed(f"{pre}.ffns.0", _ffn(lp["ffn_fc1"],
@@ -560,6 +612,75 @@ def cascade_from_flax(p: Tree, s: Tree) -> StateDict:
     return sd
 
 
+def atss_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`ATSS` / GFL (the inverse of `convert_detector_checkpoint`'s
+    single-stage branch): the FPN with its learned extras, the towers'
+    `conv_N`/`gn_N` -> `{cls,reg}_convs.N.conv`/`.gn`, `atss_cls`/`_reg`
+    -> `atss_*` or, when the regression has bins, `gfl_*`,
+    `atss_centerness`, and `scales` -> `scales.N.scale`."""
+    h = p["head"]
+    fam = "atss" if np.shape(h["atss_reg"]["kernel"])[-1] == 4 else "gfl"
+    head = {**_prefixed(f"{fam}_cls", _conv(h["atss_cls"])),
+            **_prefixed(f"{fam}_reg", _conv(h["atss_reg"])),
+            **_prefixed("atss_centerness", _conv(h["atss_centerness"]))}
+    for tower, name in (("cls_tower", "cls_convs"), ("reg_tower",
+                                                     "reg_convs")):
+        i = 0
+        while f"conv_{i}" in h[tower]:
+            head.update(_prefixed(f"{name}.{i}.conv",
+                                  _conv(h[tower][f"conv_{i}"])))
+            head.update(_prefixed(f"{name}.{i}.gn",
+                                  _norm(h[tower][f"gn_{i}"])))
+            i += 1
+    for i, v in enumerate(np.asarray(h["scales"], np.float32)):
+        head[f"scales.{i}.scale"] = _t(v)
+    return {**_prefixed("backbone", backbone_from_flax(
+                p["backbone"], s.get("backbone", {}))),
+            **_prefixed("neck", neck_from_flax(p["neck"])),
+            **_prefixed("bbox_head", head)}
+
+
+def sparse_rcnn_from_flax(p: Tree, s: Tree) -> StateDict:
+    """`SparseRCNN` (the inverse of `convert_detector_checkpoint`'s Sparse
+    R-CNN branch): the learned proposals under `rpn_head`, each `stage_N`
+    under `roi_head.bbox_head.N`, the flax towers' `{cls,reg}_fc_J` /
+    `_ln_J` -> `{cls,reg}_fcs.{3J}` / `.{3J+1}`."""
+    sd = {**_prefixed("backbone", backbone_from_flax(
+              p["backbone"], s.get("backbone", {}))),
+          **_prefixed("neck", neck_from_flax(p["neck"])),
+          "rpn_head.init_proposal_features.weight":
+              _t(p["init_proposal_features"]),
+          "rpn_head.init_proposal_bboxes.weight":
+              _t(p["init_proposal_boxes"])}
+    i = 0
+    while f"stage_{i}" in p:
+        sp = p[f"stage_{i}"]
+        dyn = sp["dynamic_conv"]
+        st = {**_prefixed("attention", _mha(sp["self_attn"])),
+              **_prefixed("attention_norm", _norm(sp["norm_attn"])),
+              **_prefixed("instance_interactive_conv", {
+                  **_prefixed("dynamic_layer", _linear(dyn["dynamic_layer"])),
+                  **_prefixed("norm_in", _norm(dyn["norm1"])),
+                  **_prefixed("norm_out", _norm(dyn["norm2"])),
+                  **_prefixed("fc_layer", _linear(dyn["fc_out"])),
+                  **_prefixed("fc_norm", _norm(dyn["norm3"]))}),
+              **_prefixed("instance_interactive_conv_norm",
+                          _norm(sp["norm_inter"])),
+              **_prefixed("ffn", _ffn(sp["ffn_fc1"], sp["ffn_fc2"])),
+              **_prefixed("ffn_norm", _norm(sp["norm_ffn"])),
+              **_prefixed("fc_cls", _linear(sp["fc_cls"])),
+              **_prefixed("fc_reg", _linear(sp["fc_reg"]))}
+        for tower, n in (("cls", 1), ("reg", 3)):
+            for j in range(n):
+                st.update(_prefixed(f"{tower}_fcs.{3 * j}",
+                                    _linear(sp[f"{tower}_fc_{j}"])))
+                st.update(_prefixed(f"{tower}_fcs.{3 * j + 1}",
+                                    _norm(sp[f"{tower}_ln_{j}"])))
+        sd.update(_prefixed(f"roi_head.bbox_head.{i}", st))
+        i += 1
+    return sd
+
+
 def channel_mapper_from_flax(p: Tree) -> StateDict:
     """`ChannelMapper`: flax `conv_N`/`gn_N` -> `convs.N.conv`/`.gn`,
     `extra_conv_N`/`extra_gn_N` -> `extra_convs.N.conv`/`.gn`."""
@@ -647,18 +768,23 @@ def state_dict_from_flax(params: Tree,
     """A flax variable tree -> the port's `state_dict`. Takes the tree of a
     whole `MaskRCNN` (`backbone`, `neck`, `rpn_head`, `bbox_head`,
     `mask_head`), `CascadeRCNN` (`bbox_head_0`, ...), `GroundingDINO` or
-    `DINO` (`backbone`, `neck`, `transformer`, `label_embed`),
+    `DINO` (`backbone`, `neck`, `transformer`, `label_embed`), `ATSS`
+    (`backbone`, `neck`, `head`), `SparseRCNN` (`stage_0`, ...),
     `EncoderDecoderMask2Former` or `EncoderDecoder`
     (`backbone`, `decode_head`, `auxiliary_head`), or of one of their
     modules:
     `ViTAdapter`, `BEiTAdapter`, `UniPerceiverAdapter`, `ViTBaseline`,
     `BEiTBaseline`, `DinoTransformer`,
-    `Mask2FormerHead`, `UPerHead`, `FCNHead`, the `SimpleFeaturePyramid`,
+    `Mask2FormerHead`, `MaskFormerHead`, `UPerHead`, `FCNHead`, the `SimpleFeaturePyramid`,
     the pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a
     ViT `Block`, a `BEiTBlock`, an `MSDeformAttn` or a `PatchMerging`."""
     s = batch_stats or {}
     if "backbone" in params and "transformer" in params:
         return grounding_dino_from_flax(params, s)
+    if "backbone" in params and "stage_0" in params:
+        return sparse_rcnn_from_flax(params, s)
+    if "backbone" in params and "head" in params:
+        return atss_from_flax(params, s)
     if "backbone" in params and "bbox_head_0" in params:
         return cascade_from_flax(params, s)
     if "backbone" in params and "rpn_head" in params:
