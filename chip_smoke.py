@@ -187,7 +187,15 @@ queries at 32 heads, `POINT_PANOPTIC`, `AUCTION_PANOPTIC`;
 auction at phase 26's Sparse R-CNN step (DeiT-S's 6 heads, batch 2,
 `AUCTION_SPARSE`; `paths["sparse"]`); and
 the NMS kernel (`nms.cu`, not a TPU kernel) at the proposals' 4768 boxes
-and the detections' 2048 for bitwise-equal kept flags. The fp32
+and the detections' 2048 for bitwise-equal kept flags (and at
+`NMS_EDGE_CASES`: 0, 1, 63, 64, 65 boxes, all or none suppressed,
+non-finite scores, 20000 boxes; the walk's latency floor as reckoned, a
+model and not a measurement, logged beside the bound). point_sample_fwd is held on the point sets as the loss shares
+them and expanded to one a mask (bitwise equal, both timed; the rows'
+`expanded`), and at `POINT_FWD_LAYOUTS` (each launched twice into
+NaN-filled outputs, bitwise equal); where a set is a mask's, the
+calls are also timed on the kernels the plan did not pick (gather,
+whole maps streamed, row bands), bitwise equal. The fp32
 attention (split TF32 on the tensor cores) is launched
 twice at every case and must give bitwise-equal outputs and gradients; its
 bound is the split-TF32 floor (`attention_bound_ms`), with the CUDA-core
@@ -303,13 +311,17 @@ ATTN_PATH_CASES = {
 ATTN_PATH_D = {"htc_extra": 128}
 # point sampling in one flagship train step (batch 2, 200 queries, 60 gt
 # classes, 10 decoder outputs, 12544 points):
-# name: (masks N, H, W, points per mask, points sorted by y, calls)
+# name: (masks N, H, W, points per mask, points sorted by y, calls, masks a
+# point set S). The loss passes each point set once for the S masks that
+# share it (the assignment: an image's 200 queries at a layer, its 60 gt
+# maps at all layers' points); the kernel's first form took the sets
+# expanded to one a mask, which phase 3 times too.
 POINT_GEOMETRIES = {
-    "assign_pred": (4000, 128, 128, 12544, True, 1),
-    "assign_gt": (120, 512, 512, 125440, True, 1),
-    "uncertainty": (400, 128, 128, 37632, False, 10),
-    "loss_pred": (400, 128, 128, 12544, True, 10),
-    "loss_gt": (400, 512, 512, 12544, True, 10),
+    "assign_pred": (4000, 128, 128, 12544, True, 1, 200),
+    "assign_gt": (120, 512, 512, 125440, True, 1, 60),
+    "uncertainty": (400, 128, 128, 37632, False, 10, 1),
+    "loss_pred": (400, 128, 128, 12544, True, 10, 1),
+    "loss_gt": (400, 512, 512, 12544, True, 10, 1),
 }
 POINT_BWD = "loss_pred"          # the one sampling call with a gradient
 # point_sample_bwd beside the flagship's call (phase 3), fp32 and bf16
@@ -339,21 +351,52 @@ POINT_BWD_LAYOUTS = {
 # gt classes, 10 decoder outputs, 160x160 mask logits at 640x640), as
 # `POINT_GEOMETRIES`' entries
 POINT_CLI = {
-    "assign_pred": (1000, 160, 160, 12544, True, 1),
-    "assign_gt": (60, 640, 640, 125440, True, 1),
-    "uncertainty": (100, 160, 160, 37632, False, 10),
-    "loss_pred": (100, 160, 160, 12544, True, 10),
-    "loss_gt": (100, 640, 640, 12544, True, 10),
+    "assign_pred": (1000, 160, 160, 12544, True, 1, 100),
+    "assign_gt": (60, 640, 640, 125440, True, 1, 60),
+    "uncertainty": (100, 160, 160, 37632, False, 10, 1),
+    "loss_pred": (100, 160, 160, 12544, True, 10, 1),
+    "loss_gt": (100, 640, 640, 12544, True, 10, 1),
 }
 # point sampling in one train step of phase 24 (batch 1, 200 queries, 60
 # gt classes, 10 decoder outputs, 256x256 mask logits at 1024x1024), as
 # `POINT_GEOMETRIES`' entries
 POINT_PANOPTIC = {
-    "assign_pred": (2000, 256, 256, 12544, True, 1),
-    "assign_gt": (60, 1024, 1024, 125440, True, 1),
-    "uncertainty": (200, 256, 256, 37632, False, 10),
-    "loss_pred": (200, 256, 256, 12544, True, 10),
-    "loss_gt": (200, 1024, 1024, 12544, True, 10),
+    "assign_pred": (2000, 256, 256, 12544, True, 1, 200),
+    "assign_gt": (60, 1024, 1024, 125440, True, 1, 60),
+    "uncertainty": (200, 256, 256, 37632, False, 10, 1),
+    "loss_pred": (200, 256, 256, 12544, True, 10, 1),
+    "loss_gt": (200, 1024, 1024, 12544, True, 10, 1),
+}
+# point_sample_fwd beside the paths' calls (phase 3), fp32 and bf16 masks,
+# each case launched twice into NaN-filled outputs (bitwise equal): name:
+# (masks N, H, W, points per set, points (`point_bwd_points`' kinds; the
+# plan is told which are sorted), masks a point set S, masks' storage
+# offset in elements). They cover the kernels' paths: whole maps streamed
+# (unsorted on 128x128; 256x256 in bf16; shared sets two masks a set), the
+# tile kernel's whole maps (shared sets on 128x128), bands of rows (shared
+# sorted sets on 1024x1024 and 256x256) and tiles whose band does not fit
+# (unsorted on 448x448), the gather kernel (sorted points, 448x448, fp32
+# 256x256; shared sets in a call too small to group); bands that do not
+# start or end on 16 bytes (W 127 and 130, a storage offset); one mask, no
+# points, one row or column, a 1x1 map.
+POINT_FWD_LAYOUTS = {
+    "unsorted": (400, 128, 128, 12544, "unsorted", 1, 0),
+    "edges": (400, 128, 128, 12544, "edges", 1, 0),
+    "edges_shared": (400, 128, 128, 12544, "edges", 200, 0),
+    "n1": (1, 128, 128, 12544, "sorted", 1, 0),
+    "p0": (16, 128, 128, 0, "sorted", 4, 0),
+    "h1": (64, 1, 300, 2000, "edges", 1, 0),
+    "w1": (64, 300, 1, 2000, "edges", 1, 0),
+    "h1w1": (8, 1, 1, 500, "edges", 2, 0),
+    "w127": (64, 127, 127, 4000, "sorted", 8, 1),
+    "w130": (64, 96, 130, 4000, "edges", 4, 0),
+    "overline_unsorted": (200, 448, 448, 37632, "unsorted", 1, 0),
+    "overline_sorted": (200, 448, 448, 12544, "sorted", 1, 0),
+    "rows1024": (8, 1024, 1024, 125440, "sorted", 4, 0),
+    "map256": (200, 256, 256, 37632, "unsorted", 1, 0),
+    "map256_sorted": (200, 256, 256, 12544, "sorted", 50, 0),
+    "gather_shared": (8, 600, 600, 2000, "sorted", 2, 0),
+    "unsorted_shared": (400, 448, 448, 12544, "unsorted", 200, 0),
 }
 # the assignment of one flagship train step: 10 decoder outputs x batch 2
 # cost matrices of 200 queries x 60 gts, solved in one launch; phase 11's:
@@ -655,6 +698,24 @@ NMS_CASES = {
     "detections": (2048, 80, 0.5, (("det_test", 1),)),
     "htc_proposals": (5000, 0, 0.7, (("htc", 1),)),
 }
+# nms.cu beside them, kept flags bitwise the plain version's, launched
+# twice: name: (boxes, IoU threshold, kind (`nms_edge_inputs`)); 20000
+# boxes stage each tile's rows in several chunks of words
+NMS_EDGE_CASES = {
+    "n0": (0, 0.5, "clustered"), "n1": (1, 0.5, "clustered"),
+    "n63": (63, 0.5, "clustered"), "n64": (64, 0.5, "clustered"),
+    "n65": (65, 0.5, "clustered"),
+    "all_suppressed": (300, 0.5, "same"),
+    "none_suppressed": (300, 0.5, "disjoint"),
+    "non_finite": (300, 0.5, "non_finite"),
+    "chunks": (20000, 0.7, "clustered"),
+}
+# the walk's latency floor as reckoned (not measured): a tile's decision is
+# a chain of 64 steps of two dependent instructions (a bit test, a
+# predicated OR) of about 4 cycles each, after one shared-memory round trip
+# for its diagonal words and around two CTA barriers: about 600 cycles a
+# tile at the SM's top clock
+NMS_TILE_CYCLES = 600
 REPLACES = {
     "msda_fwd": "vitadapter/ops/msda_pallas.py:316",
     "msda_bwd": "vitadapter/ops/msda_pallas.py:1179",
@@ -724,7 +785,7 @@ def close(got, ref, dtype):
     atol, rtol = TOL[dtype]
     err = (got.detach().float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
-    return ok, float(err.max())
+    return ok, float(err.max()) if err.numel() else 0.0
 
 
 def close_grad(got, ref):
@@ -2100,13 +2161,118 @@ def check_point_bwd_layouts(rows, flush, gen):
     return ok
 
 
+def point_fwd_launches(masks, pts, sorted_by_y, plan=None):
+    """point_sample_fwd launched twice into NaN-filled outputs through
+    `_launch_forward` (on `plan`, or the wrapper's): (the first output,
+    both equal bitwise)."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    outs = []
+    for _ in range(2):
+        out = torch.full((masks.shape[0], pts.shape[1]), float("nan"),
+                         device="cuda")
+        ps._launch_forward(masks, pts, out, sorted_by_y, plan)
+        outs.append(out)
+    torch.cuda.synchronize()
+    return outs[0], torch.equal(outs[0], outs[1])
+
+
+FWD_KERNELS = ("gather", "stream", "tiles")
+
+
+def fwd_plan_of(masks, pts, sorted_by_y):
+    from vitadapter_torch.ops import point_sample as ps
+
+    N, H, W = masks.shape
+    return ps.fwd_plan(N, ps.masks_per_set(masks, pts), H, W, pts.shape[1],
+                       masks.element_size(), torch.cuda.get_device_properties(
+                           0).multi_processor_count, sorted_by_y)
+
+
+def fwd_plan_words(plan):
+    if plan.kernel == 0:
+        return f"plan: gather, {plan.tiles} CTA(s) of {plan.tile} points"
+    return (f"plan: {FWD_KERNELS[plan.kernel]}, {plan.tiles} tile(s) of "
+            f"{plan.tile} points x {plan.groups} group(s) of {plan.group} "
+            f"masks a set, {plan.stages} buffer(s) of {plan.buf_bytes} bytes")
+
+
+def other_fwd_plans(masks, P, chosen):
+    """The plans of the kernels `fwd_plan` did not pick (`chosen`) for
+    masks (N, H, W) at a point set of P points a mask: {kernel name:
+    plan}, the streaming kernel only where a whole map fits a CTA, the tile
+    kernel (a band of rows a tile, one buffer) only where a band fits its
+    buffer."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    N, H, W = masks.shape
+    es = masks.element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [ps.gather_plan(N, P), ps.tile_plan(N, 1, H, W, P, es, sms)]
+    if ps.whole_map_bytes(H, W, es) <= ps.FWD_MAX_SMEM:
+        plans.append(ps.stream_plan(N, H, W, P, es, sms))
+    return {FWD_KERNELS[p.kernel]: p for p in plans
+            if p.kernel != chosen.kernel
+            and (p.kernel != ps.FWD_TILES or p.buf_bytes)}
+
+
+def time_point_fwd(masks, sets, pts, sort, flush):
+    """ms of the kernel on the shared sets (N / S, P, 2) and on the same
+    points expanded (N, P, 2), of the plain version (shared) and of
+    `F.grid_sample` on fp32 copies of the masks (expanded), and the bounds
+    of both forms: the mask values the points touch, the points as given
+    and the output, each moved once."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    N, H, W = masks.shape
+    P = pts.shape[1]
+    m4 = masks.float()[:, None]
+    grid = (pts * 2 - 1)[:, None]
+    with torch.no_grad():
+        k_ms = time_ms(lambda: ps.point_sample(masks, sets, sort), flush)
+        kx_ms = k_ms if sets is pts else time_ms(
+            lambda: ps.point_sample(masks, pts, sort), flush)
+        p_ms = time_ms(lambda: ps.point_sample_plain(masks, sets), flush,
+                       iters=3)
+        lib_ms = time_ms(lambda: F.grid_sample(
+            m4, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=False), flush)
+    corners = corners_in_map(pts[..., 0], pts[..., 1], H, W)
+    touched = touched_mask_bytes(masks, pts) + N * P * 4
+    return (k_ms, kx_ms, p_ms, lib_ms,
+            bound_ms(touched + nbytes(sets), 2 * corners, torch.float32),
+            bound_ms(touched + nbytes(pts), 2 * corners, torch.float32))
+
+
+def time_other_fwd_plans(masks, pts, chosen, out, flush):
+    """The kernels the plan did not pick, at a set a mask: each launched
+    into a NaN-filled output (bitwise `out`, the chosen kernel's) and
+    timed. Returns (all equal, words for the log)."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    same, words = True, []
+    for name, plan in other_fwd_plans(masks, pts.shape[1], chosen).items():
+        got, again = point_fwd_launches(masks, pts, False, plan)
+        same &= again and torch.equal(got, out)
+        o = torch.empty_like(got)
+        ms = time_ms(lambda: ps._launch_forward(masks, pts, o, False, plan),
+                     flush)
+        words.append(f"{name} {ms:.4f}")
+        del got, o
+    return same, ", ".join(words)
+
+
 def check_point_sample(rows, flush, gen, geometries=POINT_GEOMETRIES,
                        path=None):
     """point_sample_fwd and point_sample_bwd (through
-    `PointSampleFunction`) at `geometries`, fp32 and bf16 masks; the bf16
-    numbers (the loss samples bf16 mask logits) go to the rows, or to
-    their `paths[path]`. The yardstick is `F.grid_sample` on fp32 copies
-    of the masks, the points mapped to [-1, 1]."""
+    `PointSampleFunction`) at `geometries`, fp32 and bf16 masks: the
+    forward on the point sets as the loss shares them (against the plain
+    version; launched twice into NaN-filled outputs, bitwise equal) and
+    expanded to one a mask (bitwise the shared form's), both timed; the
+    bf16 numbers (the loss samples bf16 mask logits) of the shared form go
+    to the rows, or to their `paths[path]`, the expanded form's to their
+    `expanded`. The yardstick is `F.grid_sample` on fp32 copies of the
+    masks, the points mapped to [-1, 1]."""
     from vitadapter_torch.ops import point_sample as ps
 
     def row(name):
@@ -2117,17 +2283,31 @@ def check_point_sample(rows, flush, gen, geometries=POINT_GEOMETRIES,
     ok = True
     head = "" if path is None else f"{path} "
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (N, H, W, P, sort, calls) in geometries.items():
+        for name, (N, H, W, P, sort, calls, S) in geometries.items():
             masks = torch.randn(N, H, W, generator=gen, device="cuda") \
                 .to(dtype)
-            pts = torch.rand(N, P, 2, generator=gen, device="cuda")
+            sets = torch.rand(N // S, P, 2, generator=gen, device="cuda")
             if sort:
-                pts = ps.sort_points_by_y(pts)
+                sets = ps.sort_points_by_y(sets)
+            pts = sets.repeat_interleave(S, 0) if S > 1 else sets
             has_grad = name == POINT_BWD
             m_in = masks.detach().clone().requires_grad_(has_grad)
-            got = ps.point_sample(m_in, pts)
-            ref = ps.point_sample_plain(masks, pts)
+            got = ps.point_sample(m_in, sets, sort)
+            ref = ps.point_sample_plain(masks, sets)
             good, err = close(got, ref, torch.float32)
+            nan_out, same = point_fwd_launches(masks, sets, sort)
+            forms = same and torch.equal(nan_out, got.detach())
+            plan = fwd_plan_of(masks, sets, sort)
+            others = ""
+            if S > 1:
+                forms &= torch.equal(ps.point_sample(masks, pts, sort),
+                                     nan_out)
+            else:
+                same_o, words = time_other_fwd_plans(masks, pts, plan,
+                                                     nan_out, flush)
+                forms &= same_o
+                others = f" (the other kernels: {words or 'none'})"
+            good &= forms
             checks = []
             if has_grad:
                 g = torch.randn(N, P, generator=gen, device="cuda")
@@ -2137,26 +2317,22 @@ def check_point_sample(rows, flush, gen, geometries=POINT_GEOMETRIES,
             torch.cuda.synchronize()
             good_b = all(c[0] for c in checks)
             ok &= good and good_b
-            corners = corners_in_map(pts[..., 0], pts[..., 1], H, W)
-            m4 = masks.float()[:, None]
-            grid = (pts * 2 - 1)[:, None]
-            with torch.no_grad():
-                k_ms = time_ms(lambda: ps.point_sample(masks, pts), flush)
-                p_ms = time_ms(lambda: ps.point_sample_plain(masks, pts),
-                               flush, iters=3)
-                lib_ms = time_ms(lambda: F.grid_sample(
-                    m4, grid, mode="bilinear", padding_mode="zeros",
-                    align_corners=False), flush)
-            fb = bound_ms(touched_mask_bytes(masks, pts) + nbytes(pts)
-                          + N * P * 4, 2 * corners, torch.float32)
+            k_ms, kx_ms, p_ms, lib_ms, fb, fbx = time_point_fwd(
+                masks, sets, pts, sort, flush)
             log(f"point_sample_fwd {head}{name:12s} {str(dtype):14s} "
                 f"({N}, {H}, {W}) x {P} {'sorted' if sort else 'unsorted'} "
-                f"points max_abs_err={err:.3e} ok={good} kernel_ms="
-                f"{k_ms:.4f} plain_ms={p_ms:.4f} grid_sample_ms={lib_ms:.4f} "
-                f"bound_ms={fb[0]:.4f} ({fb[1]}), {calls} calls a step")
+                f"points, {S} masks a set, {fwd_plan_words(plan)}: "
+                f"max_abs_err={err:.3e}, NaN-filled relaunch, expanded "
+                f"form and other kernels bitwise equal={forms} ok={good} "
+                f"kernel_ms={k_ms:.4f}{others} "
+                f"(expanded {kx_ms:.4f}) plain_ms={p_ms:.4f} grid_sample_ms="
+                f"{lib_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]}; expanded "
+                f"{fbx[0]:.4f}), {calls} calls a step")
             if dtype == torch.bfloat16:
-                add_to_row(row("point_sample_fwd"), calls, err, k_ms, p_ms,
-                           fb, lib_ms)
+                r = row("point_sample_fwd")
+                add_to_row(r, calls, err, k_ms, p_ms, fb, lib_ms)
+                add_to_row(r.setdefault("expanded", new_row(plain=False)),
+                           calls, err, kx_ms, None, fbx, lib_ms)
             if not has_grad:
                 continue
             kb_ms, pb_ms, libb_ms, bb = time_point_bwd(masks, pts, g, flush)
@@ -2171,6 +2347,51 @@ def check_point_sample(rows, flush, gen, geometries=POINT_GEOMETRIES,
             if dtype == torch.bfloat16:
                 add_to_row(row("point_sample_bwd"), calls, err_b, kb_ms,
                            pb_ms, bb, libb_ms)
+            del masks, sets, pts, m_in, got, ref, nan_out
+        torch.cuda.empty_cache()
+    return ok
+
+
+def check_point_fwd_layouts(gen):
+    """point_sample_fwd at `POINT_FWD_LAYOUTS`, fp32 and bf16, each
+    launched twice into NaN-filled outputs: against the plain version, the
+    two launches bitwise equal. Where a set is shared (S > 1), d masks
+    through `PointSampleFunction` (the backward kernel on the sets
+    repeated to one a mask) against `point_sample_plain_backward`."""
+    from vitadapter_torch.ops import point_sample as ps
+
+    ok = True
+    for name, (N, H, W, P, kind, S, offset) in POINT_FWD_LAYOUTS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            store = torch.randn(N * H * W + offset, generator=gen,
+                                device="cuda").to(dtype)
+            masks = store[offset:].view(N, H, W)
+            sets = point_bwd_points(N // S, P, kind, H, W, gen)
+            out, same = point_fwd_launches(masks, sets, kind == "sorted")
+            good, err = close(out, ps.point_sample_plain(masks, sets),
+                              torch.float32)
+            good &= same
+            text = ""
+            if S > 1:
+                g = torch.randn(N, P, generator=gen, device="cuda")
+                m_in = masks.detach().clone().requires_grad_()
+                ps.point_sample(m_in, sets).backward(g)
+                good_b, err_b = close_grad(m_in.grad,
+                                           ps.point_sample_plain_backward(
+                                               masks, sets, g))
+                good &= good_b
+                text = f", shared-set d masks max_abs_err={err_b:.3e}"
+                del g, m_in
+            ok &= good
+            log(f"point_sample_fwd layout {name:17s} {str(dtype):14s} ({N}, "
+                f"{H}, {W}) x {P} {kind} points, {S} masks a set, storage "
+                f"offset {offset}, "
+                f"{fwd_plan_words(fwd_plan_of(masks, sets, kind == 'sorted'))}"
+                f": NaN-filled "
+                f"output max_abs_err={err:.3e}, relaunch bitwise equal={same}"
+                f"{text} ok={good}")
+            del store, masks, sets, out
+        torch.cuda.empty_cache()
     return ok
 
 
@@ -2198,6 +2419,7 @@ def check_kernels(flush):
     ok &= check_point_sample(rows, flush, gen)
     ok &= check_point_sample(rows, flush, gen, POINT_CLI, "cli")
     ok &= check_point_sample(rows, flush, gen, POINT_PANOPTIC, "panoptic")
+    ok &= check_point_fwd_layouts(gen)
     ok &= check_point_bwd_layouts(rows, flush, gen)
     ok &= check_auction(rows, flush, gen)
     ok &= check_nms(rows, flush, gen)
@@ -2208,10 +2430,15 @@ def check_kernels(flush):
         "band-matmul levels (msda_pallas._bandmm_mode), so with "
         "VITADAPTER_MSDA_BANDMM=1 its injector and pixel-decoder forwards "
         "take that kernel; msda_fwd's numbers above are at those inputs")
+    def finish(row):
+        row["bound_by"] = "/".join(sorted(row["bound_by"]))
+        for key in ("model_shaped", "expanded"):
+            if key in row:
+                finish(row[key])
+
     for r in rows.values():
-        for row in (r, *r.get("paths", {}).values(),
-                    *([r["model_shaped"]] if "model_shaped" in r else [])):
-            row["bound_by"] = "/".join(sorted(row["bound_by"]))
+        for row in (r, *r.get("paths", {}).values()):
+            finish(row)
     return rows
 
 
@@ -3115,22 +3342,59 @@ def nms_inputs(n, classes, gen):
     return boxes[order].contiguous(), torch.isfinite(scores[order])
 
 
+def nms_edge_inputs(n, kind, gen):
+    """`n` boxes of a `NMS_EDGE_CASES` kind on the card, as (boxes, finite
+    flags): "clustered" as `nms_inputs`; "same" one box n times (each
+    suppresses every later one); "disjoint" boxes on a grid that never
+    overlap; "non_finite" clustered boxes, every third score -inf."""
+    if kind in ("clustered", "non_finite"):
+        boxes, finite = nms_inputs(n, 0, gen)
+        if kind == "non_finite":
+            finite[::3] = False
+        return boxes, finite
+    if kind == "same":
+        boxes = torch.tensor([[10.0, 20.0, 110.0, 90.0]],
+                             device="cuda").repeat(n, 1)
+    else:
+        i = torch.arange(n, device="cuda", dtype=torch.float32)
+        x, y = (i % 20) * 50.0, torch.div(i, 20, rounding_mode="floor") * 50
+        boxes = torch.stack([x, y, x + 40.0, y + 40.0], 1)
+    return boxes.contiguous(), torch.ones(n, dtype=torch.bool, device="cuda")
+
+
+def nms_floor_ms(n):
+    """The walk's latency floor as reckoned (`NMS_TILE_CYCLES` a tile at
+    the card's top SM clock), ms: a model for the log, not a measurement."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0])
+    return -(-n // 64) * NMS_TILE_CYCLES / (mhz * 1e3)
+
+
 def check_nms(rows, flush, gen):
     """nms.cu (not a TPU kernel: it replaces the `lax.scan` of
     `vitadapter/det/boxes.py::nms`) against `nms_keep_plain` at the Mask
-    R-CNN and HTC++ paths' sizes (`NMS_CASES`): the kept flags bitwise
-    equal, the kernel launched twice (bitwise equal), the pairs whose IoU
-    lies within 1e-6 of the threshold counted; timed beside the plain version
-    (the IoU on the card, the walk on the host). The bound counts 24
-    fp32 operations a pair of the upper triangle and the boxes, flags
-    and kept flags moved once. No single PyTorch call computes it
-    (`library_ms` null)."""
+    R-CNN and HTC++ paths' sizes (`NMS_CASES`) and at `NMS_EDGE_CASES`: the
+    kept flags bitwise equal, the kernel launched twice (bitwise equal),
+    the pairs whose IoU lies within 1e-6 of the threshold counted; the
+    paths' cases timed beside the plain version (the IoU on the card, the
+    walk on the host). The bound counts 24 fp32 operations a pair of the
+    upper triangle and the boxes, flags and kept flags moved once; the log
+    line gives beside it the time a tile and the walk's latency floor as
+    reckoned (`nms_floor_ms`, a model: not in the kernels line). No single
+    PyTorch call computes it (`library_ms` null)."""
     from vitadapter_torch.ops import nms
 
     ok = True
     row = rows["nms"]
-    for name, (n, classes, thr, paths) in NMS_CASES.items():
-        boxes, finite = nms_inputs(n, classes, gen)
+    cases = {**{k: (n, thr, None, classes, paths)
+                for k, (n, classes, thr, paths) in NMS_CASES.items()},
+             **{k: (n, thr, kind, 0, ())
+                for k, (n, thr, kind) in NMS_EDGE_CASES.items()}}
+    for name, (n, thr, kind, classes, paths) in cases.items():
+        boxes, finite = (nms_inputs(n, classes, gen) if kind is None
+                         else nms_edge_inputs(n, kind, gen))
         got = nms._kernel_keep(boxes, finite, thr)
         again = nms._kernel_keep(boxes, finite, thr)
         ref = nms.nms_keep_plain(boxes, finite, thr)
@@ -3142,20 +3406,32 @@ def check_nms(rows, flush, gen):
         del iou
         good = same and equal
         ok &= good
-        k_ms = time_ms(lambda: nms._kernel_keep(boxes, finite, thr), flush)
-        p_ms = time_ms(lambda: nms.nms_keep_plain(boxes, finite, thr), flush,
-                       iters=3)
-        b = bound_ms(nbytes(boxes, finite) + n, 24 * n * (n - 1) / 2, F32)
-        log(f"nms {name}: {n} boxes{f', {classes} classes' if classes else ''}"
-            f" IoU > {thr}: kept {int(got.sum())}; kept flags equal to the "
-            f"plain version's={equal}, relaunch bitwise equal={same}, pairs "
-            f"within 1e-6 of the threshold {near}; ok={good} kernel_ms="
-            f"{k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b[0]:.4f} ({b[1]})")
-        err = 0.0 if equal else 1.0
-        for path, calls in paths:
-            target = row if path == "det" else row.setdefault(
-                "paths", {}).setdefault(path, new_row(library=False))
-            add_to_row(target, calls, err, k_ms, p_ms, b)
+        text = (f"nms {name}: {n} boxes"
+                f"{f', {classes} classes' if classes else ''}"
+                f"{f' ({kind})' if kind else ''} IoU > {thr}: kept "
+                f"{int(got.sum())}; kept flags equal to the plain version's="
+                f"{equal}, relaunch bitwise equal={same}, pairs within 1e-6 "
+                f"of the threshold {near}; ok={good}")
+        if paths:
+            k_ms = time_ms(lambda: nms._kernel_keep(boxes, finite, thr),
+                           flush)
+            p_ms = time_ms(lambda: nms.nms_keep_plain(boxes, finite, thr),
+                           flush, iters=3)
+            b = bound_ms(nbytes(boxes, finite) + n, 24 * n * (n - 1) / 2,
+                         F32)
+            floor = nms_floor_ms(n)
+            text += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms="
+                     f"{b[0]:.4f} ({b[1]}); {k_ms * 1e3 / -(-n // 64):.3f} "
+                     f"us a tile (measured: kernel_ms over {-(-n // 64)} "
+                     f"tiles, the IoU kernel included); the walk's latency "
+                     f"floor as reckoned, a model and not measured: "
+                     f"{floor:.4f} ms ({NMS_TILE_CYCLES} cycles a tile)")
+            err = 0.0 if equal else 1.0
+            for path, calls in paths:
+                target = row if path == "det" else row.setdefault(
+                    "paths", {}).setdefault(path, new_row(library=False))
+                add_to_row(target, calls, err, k_ms, p_ms, b)
+        log(text)
     return ok
 
 
@@ -5130,7 +5406,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{key: r[key] for key in ("paths", "small_level", "model_shaped",
-                                       "us_per_round")
+                                       "us_per_round", "expanded")
                if key in r},
             "per": per + f"; launches over the {path} phase"})
     # the card again near the end, where a tail of the output shows it

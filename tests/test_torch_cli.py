@@ -204,6 +204,39 @@ def test_test_cli_reports_run_evals_miou(trained):
     np.testing.assert_array_equal(again["confusion"], flip["confusion"])
 
 
+def _wrapped(sd, form):
+    """A reference checkpoint as a DDP run saves it: under `model`, or with
+    every key prefixed `module.` (and one key the model does not have)."""
+    if form == "model":
+        return {"model": sd, "meta": {"iter": 2}}
+    return {"state_dict": {**{f"module.{k}": v for k, v in sd.items()},
+                           "module.auxiliary_head.conv_seg.weight":
+                           torch.zeros(4, 8, 1, 1)}}
+
+
+@pytest.mark.parametrize("form", ["model", "module."])
+def test_test_cli_loads_wrapped_and_ddp_prefixed_checkpoints(trained, form):
+    """A state dict under `model`, or with `module.` prefixes, loads through
+    the test CLI as the JAX package's `unwrap_state_dict` reads it, and
+    gives the bare file's outputs; keys the model does not have are
+    ignored, a key it needs and does not find still raises."""
+    cfg, tmp = trained["cfg"], str(trained["tmp"])
+    sd = trained["state"].model.state_dict()
+    bare = os.path.join(tmp, "bare.pth")
+    torch.save(sd, bare)
+    wrapped = os.path.join(tmp, f"wrapped_{form}.pth")
+    torch.save(_wrapped(sd, form), wrapped)
+    args = ["--device", "cpu", "--max-images", "2"]
+    want = test_cli.main([cfg, bare, *args], log_fn=lambda *_: None)
+    got = test_cli.main([cfg, wrapped, *args], log_fn=lambda *_: None)
+    np.testing.assert_array_equal(got["confusion"], want["confusion"])
+    assert got["mIoU"] == want["mIoU"]
+    short = {k: v for k, v in sd.items() if not k.startswith("decode_head.")}
+    torch.save(_wrapped(short, form), wrapped)
+    with pytest.raises(KeyError, match="missing"):
+        test_cli.main([cfg, wrapped, *args], log_fn=lambda *_: None)
+
+
 def test_cli_refusals(tmp_path, monkeypatch):
     """What the CLIs refuse: `--aug-test` with `--eval PQ` (as the root
     script); the panoptic config on real data, whose "CocoDataset" is not

@@ -199,6 +199,95 @@ def test_nms_keep_plain_is_the_greedy_walk():
     assert torch.nonzero(keep)[:, 0].tolist() == want
 
 
+def _walk_emulation(boxes, finite, thr, chunk=None):
+    """`csrc/nms.cu` in Python ints: `nms_mask`'s bit matrix (row i holds
+    the words from its own tile on, rows `pitch` words apart, a bit for
+    each later box it overlaps), the removed bits of non-finite boxes set
+    first, then chunk by chunk of a tile's rows (`walk_plan`'s chunks, or
+    `chunk` words), each staged from its even word on with zeros past the
+    last box and the pitch: on the tile's first chunk the 64-step chain on
+    its diagonal words, then the kept rows ORed into the chunk's later
+    words."""
+    n = len(boxes)
+    words, pitch, plan_chunk, _ = tnms.walk_plan(n)
+    chunk = chunk or plan_chunk
+    full = (1 << 64) - 1
+    over = (tnms.bbox_overlaps(boxes, boxes) > thr).numpy()
+    mask = [[0] * pitch for _ in range(n)]
+    for i in range(n):
+        for c in range(i // 64, words):
+            mask[i][c] = sum(1 << (j - 64 * c)
+                             for j in range(64 * c, min(64 * c + 64, n))
+                             if j > i and over[i, j])
+    live = finite.numpy()
+    removed = [full & ~sum(1 << k for k in range(64)
+                           if 64 * w + k < n and live[64 * w + k])
+               for w in range(words)]
+    keep = np.zeros(n, bool)
+    stride = (chunk + 3) & ~1
+    g, w0, kb = 0, 0, 0
+    while words:
+        nw = min(chunk, words - w0)
+        i0, a = 64 * g, w0 & ~1
+        rows = [[(mask[i0 + r][a + q] if i0 + r < n and a + q < pitch else 0)
+                 for q in range(w0 & 1, stride)] for r in range(64)]
+        first = w0 == g
+        if first:
+            rem = removed[g]
+            for k in range(64):
+                if not (rem >> k) & 1:
+                    rem |= rows[k][0]
+            kb = ~rem & ((1 << min(64, n - i0)) - 1)
+            keep[i0:i0 + 64] = [(kb >> t) & 1 for t in range(min(64, n - i0))]
+        for w in range(1 if first else 0, nw):
+            for r in range(64):
+                if (kb >> r) & 1:
+                    removed[w0 + w] |= rows[r][w]
+        if w0 + chunk < words:
+            w0 += chunk
+        elif g + 1 < words:
+            g, w0 = g + 1, g + 1
+        else:
+            break
+    return keep
+
+
+def _walk_boxes(kind, n, seed):
+    rs = np.random.RandomState(seed)
+    if kind == "same":
+        boxes = np.tile(np.float32([[10, 20, 110, 90]]), (n, 1))
+    elif kind == "disjoint":
+        i = np.arange(n, dtype=np.float32)
+        x, y = (i % 20) * 50, (i // 20) * 50
+        boxes = np.stack([x, y, x + 40, y + 40], 1).astype(np.float32)
+    else:
+        boxes = clustered_boxes(rs, n)
+    finite = rs.rand(n) > (0.3 if kind == "non_finite" else 0.0)
+    return t(boxes), t(finite)
+
+
+@pytest.mark.parametrize("kind,n,chunk", [
+    ("clustered", 0, None), ("clustered", 1, None), ("clustered", 63, None),
+    ("clustered", 64, None), ("clustered", 65, None),
+    ("same", 130, None), ("disjoint", 130, None), ("non_finite", 150, None),
+    ("clustered", 200, 1), ("clustered", 260, 2)])
+def test_nms_tile_walk_emulation_keeps_the_plain_walks_boxes(kind, n, chunk):
+    """The kernel's walk (`_walk_emulation`) keeps exactly the boxes of
+    `nms_keep_plain`: at 0, 1, 63, 64 and 65 boxes, with every box after
+    the first suppressed, none suppressed, non-finite scores, and with a
+    tile's rows staged in several chunks."""
+    boxes, finite = _walk_boxes(kind, n, 9 + n)
+    got = _walk_emulation(boxes, finite, 0.5, chunk)
+    want = tnms.nms_keep_plain(boxes, finite, 0.5).numpy()
+    np.testing.assert_array_equal(got, want)
+    if kind == "same":
+        assert want.sum() == 1
+    if kind == "disjoint":
+        assert want.all()
+    if kind == "non_finite":
+        assert not want[~finite.numpy()].any() and want.any()
+
+
 def test_nms_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     b = torch.zeros(5, 4, dtype=torch.float64)
     with pytest.raises(ValueError, match="fp32"):

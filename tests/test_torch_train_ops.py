@@ -528,11 +528,13 @@ def test_present_classes_and_gt_points_match_jax():
 def test_sample_gt_points_hands_the_kernel_contiguous_points(monkeypatch, B):
     """At batch 1 the expanded points stayed a zero-stride view, which the
     point-sampling kernel's input checks refuse (a batch-1 train step failed
-    on the card); the wrapper must get contiguous points at any batch."""
+    on the card); the wrapper must get contiguous points at any batch. It
+    now gets each image's point set once, shared by the image's G maps."""
     seen = []
 
     def spy(masks, points):
-        seen.append(points.is_contiguous())
+        seen.append((points.is_contiguous(), tuple(points.shape),
+                     tps.masks_per_set(masks, points)))
         return tps.point_sample_plain(masks, points)
 
     monkeypatch.setattr(tloss, "point_sample", spy)
@@ -540,7 +542,7 @@ def test_sample_gt_points_hands_the_kernel_contiguous_points(monkeypatch, B):
     got_l, _ = tloss.present_classes(_t(label), 4, 3)
     pts = np.random.RandomState(38).rand(B, 20, 2).astype(np.float32)
     out = tloss.sample_gt_points(_t(label), _t(pts), got_l)
-    assert tuple(out.shape) == (B, 3, 20) and seen == [True]
+    assert tuple(out.shape) == (B, 3, 20) and seen == [(True, (B, 20, 2), 3)]
 
 
 @pytest.fixture
@@ -765,7 +767,8 @@ def _plain_kernels(monkeypatch):
     monkeypatch.setattr(tattn, "_kernel_backward", rec(
         "attention_bwd", tattn.attention_plain_backward_lse))
     monkeypatch.setattr(tps, "_kernel_forward", rec(
-        "point_sample_fwd", tps.point_sample_plain))
+        "point_sample_fwd", lambda masks, points, sorted_by_y:
+        tps.point_sample_plain(masks, points)))
     monkeypatch.setattr(tps, "_kernel_backward", rec(
         "point_sample_bwd", tps.point_sample_plain_backward))
     return calls

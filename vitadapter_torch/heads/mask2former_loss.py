@@ -56,13 +56,10 @@ def sample_gt_points(label_map: torch.Tensor, points: torch.Tensor,
                      gt_labels: torch.Tensor) -> torch.Tensor:
     """Bilinear gt-indicator values of each gt class at the points of its
     image: label_map (B, H, W), points (B, P, 2), gt_labels (B, G) ->
-    (B, G, P) fp32."""
+    (B, G, P) fp32. The G maps of an image share its point set."""
     B, G = gt_labels.shape
     P = points.shape[1]
-    # at B = 1 the reshape stays a view with a zero stride, which the kernel
-    # does not take
-    pts = points[:, None].expand(B, G, P, 2).reshape(B * G, P, 2).contiguous()
-    out = point_sample(_indicator(label_map, gt_labels), pts)
+    out = point_sample(_indicator(label_map, gt_labels), points.contiguous())
     return out.reshape(B, G, P)
 
 
@@ -74,8 +71,8 @@ def _assign_all_layers(sampler: Sampler, cls_all: torch.Tensor,
     """Hungarian assignments of all decoder layers in one pass: cls_all
     (L, B, Q, K+1), mask_all (L, B, Q, h, w) -> (L, B, Q) gt index or -1.
     Every query's mask is sampled at its image's points, one point set per
-    (layer, image); the gt maps are built once and sampled at all layers'
-    points in one call."""
+    (layer, image) shared by its Q masks; the gt maps are built once and
+    sampled at all layers' points in one call."""
     L, B, Q = cls_all.shape[:3]
     G = gt_labels.shape[1]
     h, w = mask_all.shape[3:]
@@ -83,11 +80,10 @@ def _assign_all_layers(sampler: Sampler, cls_all: torch.Tensor,
     dev = mask_all.device
     with torch.no_grad():
         coords = sort_points_by_y(sampler((L, B, P, 2)).to(dev))
-        c_bq = coords[:, :, None].expand(L, B, Q, P, 2).reshape(L * B * Q,
-                                                                P, 2)
         pred_pts = point_sample(
             mask_all.to(torch.bfloat16).reshape(L * B * Q, h, w),
-            c_bq).reshape(L * B, Q, P)
+            coords.reshape(L * B, P, 2), sorted_by_y=True).reshape(
+                L * B, Q, P)
         c_lp = coords.transpose(0, 1).reshape(B, L * P, 2)
         gt_pts = sample_gt_points(label_map, c_lp, gt_labels)
         gt_pts = gt_pts.reshape(B, G, L, P).permute(2, 0, 1, 3)
@@ -147,11 +143,13 @@ def loss_single_layer(
         coords = sort_points_by_y(coords.reshape(B, Q, num_points, 2))
     pred_pts = point_sample(
         mask_pred.to(torch.bfloat16).reshape(B * Q, h, w),
-        coords.reshape(B * Q, num_points, 2)).reshape(B, Q, num_points)
+        coords.reshape(B * Q, num_points, 2), sorted_by_y=True).reshape(
+            B, Q, num_points)
     # gt indicator of each query's class at its own points
     q_labels = torch.where(pos, labels, num_classes + 1)  # never matches
     gt_pts = point_sample(_indicator(label_map, q_labels),
-                          coords.reshape(B * Q, num_points, 2))
+                          coords.reshape(B * Q, num_points, 2),
+                          sorted_by_y=True)
     gt_f = gt_pts.reshape(B, Q, num_points)
 
     pred_f = pred_pts.float()

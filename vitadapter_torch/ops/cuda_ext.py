@@ -44,12 +44,15 @@ SIGNATURES = {
     "msda_level_dgrid": [_P] * 6 + [_I] * 12 + [_P],
     "attention_fwd": [_P] * 6 + [_I, _I, _I, ctypes.c_float, _I, _P],
     "attention_bwd": [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _P],
-    "point_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # masks, points, out, N, H, W, P, S, kernel, tile, tiles, group,
+    # groups, buf_bytes, stages, is_bf16, stream
+    "point_sample_fwd": [_P] * 3 + [_I] * 13 + [_P],
     # points, g, dmask, N, H, W, P, is_bf16, cluster, rows, stream
     "point_sample_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "auction": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
-    # boxes, finite, mask scratch, keep, N, iou threshold, stream
-    "nms": [_P, _P, _P, _P, _I, ctypes.c_float, _P],
+    # boxes, finite, mask scratch, keep, N, iou threshold, chunk, stages,
+    # stream
+    "nms": [_P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _P],
 }
 
 launches: Counter = Counter()

@@ -4,8 +4,10 @@ version, with the IoU both compute.
 Counterpart of the `lax.scan` in `vitadapter/det/boxes.py::nms`, which is
 not a Pallas kernel: in PyTorch a loop over the boxes would launch kernels
 per box. The kernel is `csrc/nms.cu` (an IoU > thr bitmask in 64-box tiles,
-then one block's walk over the tiles). `nms_keep(boxes, finite, iou_thr)`
-takes boxes already in score order and returns which are kept: box i when
+then one block's walk over the tiles, their rows of bits staged in shared
+memory ahead of the walk in chunks that `walk_plan` sizes).
+`nms_keep(boxes, finite, iou_thr)` takes boxes already in score order and
+returns which are kept: box i when
 `finite[i]` and no earlier kept box overlaps it by IoU > `iou_thr`. The
 kernel and the plain version compute the IoU with the same roundings, so
 their kept sets are equal, bit for bit.
@@ -19,6 +21,26 @@ import torch
 from vitadapter_torch.ops import cuda_ext
 
 MAX_BOXES = 64 * 1024      # the walk keeps 1024 words of bits in shared memory
+TILE = 64                  # boxes a word of bits covers
+WALK_MAX_CHUNK = 128       # words of a tile's rows staged at once
+WALK_MAX_STAGES = 4        # chunks in the walk's ring
+# the ring's shared memory: a CTA's 227 KB less the removed bits (8 KB),
+# the 8 warps' partials of a chunk and 1 KB
+WALK_SMEM = 232448 - 8 * 1024 - 8 * WALK_MAX_CHUNK * 8 - 1024
+
+
+def walk_plan(n: int):
+    """(words, pitch, chunk, stages) of the kernel over n boxes: words of
+    64 boxes; the bit matrix's rows `pitch` words apart (words rounded up
+    to even, so each row starts on 16 bytes); each tile's rows staged from
+    its diagonal word on in chunks of `chunk` words (a staged row holds
+    `chunk` plus 2 rounded up to even: its copy starts on an even word),
+    `stages` chunks in the ring (as many as fit, at most 4)."""
+    words = -(-n // TILE)
+    chunk = max(min(words, WALK_MAX_CHUNK), 1)
+    stride = (chunk + 3) & ~1
+    stages = min(WALK_MAX_STAGES, WALK_SMEM // (TILE * stride * 8))
+    return words, words + words % 2, chunk, stages
 
 
 def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -66,11 +88,12 @@ def _kernel_keep(boxes: torch.Tensor, finite: torch.Tensor,
         raise ValueError("finite must be (N,) on the boxes' device")
     boxes = boxes.contiguous()
     flags = finite.to(torch.uint8).contiguous()
-    words = -(-N // 64)
-    mask = torch.empty(N * words, dtype=torch.int64, device=boxes.device)
+    _, pitch, chunk, stages = walk_plan(N)
+    mask = torch.empty(N * pitch, dtype=torch.int64, device=boxes.device)
     keep = torch.empty(N, dtype=torch.uint8, device=boxes.device)
     cuda_ext.launch("nms", boxes.device, boxes.data_ptr(), flags.data_ptr(),
-                    mask.data_ptr(), keep.data_ptr(), N, float(iou_thr))
+                    mask.data_ptr(), keep.data_ptr(), N, float(iou_thr),
+                    chunk, stages)
     return keep.bool()
 
 

@@ -6,7 +6,14 @@ Counterpart of `vitadapter/ops/point_sample.py` and
 `vitadapter/ops/point_sample_pallas.py`. The kernels are
 `csrc/point_sample_fwd.cu` (it replaces `point_sample_pallas._fwd_kernel`)
 and `csrc/point_sample_bwd.cu` (it replaces `point_sample_pallas._bwd_kernel`).
-The backward kernel sums each mask's gradient in the shared memory of a
+Points come as (N / S, P, 2) for masks (N, H, W): the S consecutive masks of
+a group share one point set (S = 1 is the JAX function's form), so a caller
+that samples many masks at one set passes the set once. The forward computes
+each point's corners once for the masks that share it and gathers them from
+the masks' maps or rows staged in shared memory, or from device memory
+(`fwd_plan` picks the kernel, tiles and buffers from the shapes and from
+whether the caller sorted the points by y). The backward kernel sums each mask's gradient in the
+shared memory of a
 thread-block cluster, each CTA owning a band of rows (`bwd_plan` picks the
 cluster size and the rows from H x W), and writes every cell once in the
 mask dtype: no fp32 scratch, no global atomics. Semantics are
@@ -34,6 +41,21 @@ BWD_MAX_CTA_BYTES = 232448     # shared memory a CTA may take (227 KB)
 # the band a CTA is given when a cluster of at most BWD_MAX_CLUSTER can
 # cut the map that fine: small enough that several CTAs share an SM
 BWD_CTA_BYTES = 32 * 1024
+
+# the forward kernels' launch plan (`fwd_plan`)
+FWD_GATHER, FWD_STREAM, FWD_TILES = 0, 1, 2   # its kernel
+FWD_THREADS = 256
+FWD_CHUNK = 4 * FWD_THREADS          # points a staging CTA holds at a time
+# dynamic shared memory of a CTA: the 227 KB a CTA may take less 1 KB for
+# the static part (CUDA refuses a launch beyond what a CTA may take)
+FWD_MAX_SMEM = 232448 - 1024
+FWD_SM_SMEM = 233472                 # shared memory of an SM (228 KB)
+FWD_BAND_ROWS = 24     # rows a tile of sorted points should span
+FWD_STAGE_CTAS_PER_SM = 4            # the staging kernels' register budget
+# CTAs of the streaming kernel an SM must hold for points sorted by y to be
+# staged rather than gathered
+FWD_SORTED_STREAM_CTAS = 3
+FWD_MAX_CELLS = 2 ** 26              # H * W: corner offsets times 16 in int32
 
 
 class BwdPlan(NamedTuple):
@@ -72,6 +94,126 @@ def bwd_plan(H: int, W: int) -> BwdPlan:
                    rows * row_bytes)
 
 
+class FwdPlan(NamedTuple):
+    """How `point_sample_fwd.cu` covers masks (N, H, W) at points (N / S,
+    P, 2). `kernel` FWD_GATHER (CTAs of FWD_THREADS of the call's N * P
+    points, one a thread) or FWD_STREAM (`tiles` CTAs, each taking `tile`
+    of the call's points, mask by mask, `stages` buffers of `buf_bytes`
+    each holding a whole map): `group` and `groups` are 1. FWD_TILES: per
+    point set, `tiles` CTAs of `tile` points times `groups` of `group`
+    masks, each with `stages` buffers of `buf_bytes` for a mask's band of
+    rows (none, 0: every tile gathers from device memory)."""
+    kernel: int
+    tile: int
+    tiles: int
+    group: int
+    groups: int
+    buf_bytes: int
+    stages: int
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def whole_map_bytes(H: int, W: int, elem_bytes: int) -> int:
+    """A buffer for a whole map: its bytes plus 15 for an unaligned start,
+    in 16-byte units."""
+    return _ceil16(H * W * elem_bytes + 15)
+
+
+def gather_plan(N: int, P: int) -> FwdPlan:
+    """The gather kernel: a thread per (mask, point)."""
+    return FwdPlan(FWD_GATHER, FWD_THREADS,
+                   max(-(-N * P // FWD_THREADS), 1), 1, 1, 0, 1)
+
+
+def _stream_buffers(buf: int):
+    """(buffers, CTAs an SM) of the streaming kernel with whole-map buffers
+    of `buf` bytes: two (the next mask's copy in flight) where they fit a
+    CTA, as many CTAs as their shared memory leaves an SM room for, at
+    most FWD_STAGE_CTAS_PER_SM."""
+    stages = 2 if 2 * buf <= FWD_MAX_SMEM else 1
+    return stages, max(1, min(FWD_STAGE_CTAS_PER_SM,
+                              FWD_SM_SMEM // (stages * buf + 1024)))
+
+
+def stream_plan(N: int, H: int, W: int, P: int, elem_bytes: int,
+                sms: int) -> FwdPlan:
+    """The streaming kernel, for maps that fit a CTA (`_stream_buffers`),
+    the call's points split evenly over the CTAs that run at once on `sms`
+    SMs."""
+    buf = whole_map_bytes(H, W, elem_bytes)
+    stages, per_sm = _stream_buffers(buf)
+    total = max(N * P, 1)
+    tile = max(-(-total // (sms * per_sm)), FWD_THREADS)
+    return FwdPlan(FWD_STREAM, tile, -(-total // tile), 1, 1, buf, stages)
+
+
+def tile_plan(N: int, S: int, H: int, W: int, P: int, elem_bytes: int,
+              sms: int) -> FwdPlan:
+    """The tile kernel: a CTA holds one tile of a set's points and walks a
+    group of its masks, two buffers where a group has more than one mask:
+    the whole map where two fit a CTA; else the band of rows a tile
+    spans, in buffers of at most a quarter of a CTA's shared memory, a
+    tile of as many points as uniform points sorted by y put in
+    FWD_BAND_ROWS rows (or in a quarter of a buffer), each buffer twice
+    the rows such a tile is expected to span; no buffer where three rows
+    do not fit one (the tiles gather). Masks are grouped so that the call
+    makes about FWD_STAGE_CTAS_PER_SM CTAs on each of `sms` SMs."""
+    n_sets = N // S if S else 0
+    row = W * elem_bytes
+    whole = whole_map_bytes(H, W, elem_bytes)
+    cap = FWD_MAX_SMEM // 4 // 16 * 16
+    band_rows = min(FWD_BAND_ROWS, (cap - 15) // row // 2)
+    if 2 * whole <= FWD_MAX_SMEM or P == 0:
+        tile, buf = FWD_CHUNK, whole
+    elif band_rows < 3:
+        tile, buf = FWD_CHUNK, 0
+    else:
+        tile, buf = min(max((band_rows - 2) * P // H, FWD_THREADS),
+                        FWD_CHUNK), None
+    tiles = max(-(-P // tile), 1)
+    tile = max(-(-P // tiles), 1)
+    if buf is None:          # the band of rows a tile is expected to span
+        rows = min(2 * (-(-H * tile // P) + 2), H)
+        buf = min(_ceil16(rows * row + 15), cap)
+    target = FWD_STAGE_CTAS_PER_SM * sms
+    groups = min(max(-(-target // max(n_sets * tiles, 1)), 1), S)
+    group = -(-S // groups)
+    groups = -(-S // group)
+    return FwdPlan(FWD_TILES, tile, tiles, group, groups, buf,
+                   2 if buf and group > 1 else 1)
+
+
+def fwd_plan(N: int, S: int, H: int, W: int, P: int, elem_bytes: int,
+             sms: int, sorted_by_y: bool = False) -> FwdPlan:
+    """The forward kernels' plan from the shapes, the card's SM count and
+    whether each set's points are sorted by y (the band a tile spans is
+    found on the card):
+    - Shared sets (S > 1) take the tile kernel (`tile_plan`), each tile's
+      geometry kept for the masks of a group, unless the grouping leaves a
+      mask a group; then the rule for a set a mask holds.
+    - A set a mask, on maps that fit a CTA: the streaming kernel
+      (`stream_plan`) for unsorted points, where a gather of scattered
+      corners is bound by L1 wavefronts. Sorted points share sectors
+      between neighbouring threads, so a gather reads little more than a
+      copy would: they are staged only where an SM holds
+      FWD_SORTED_STREAM_CTAS streaming CTAs, enough to hide a mask's copy
+      behind the others' gathers.
+    - Else the gather kernel, whose occupancy no buffer limits."""
+    if S > 1:
+        plan = tile_plan(N, S, H, W, P, elem_bytes, sms)
+        if plan.group > 1:
+            return plan
+    buf = whole_map_bytes(H, W, elem_bytes)
+    if buf <= FWD_MAX_SMEM and (
+            not sorted_by_y
+            or _stream_buffers(buf)[1] >= FWD_SORTED_STREAM_CTAS):
+        return stream_plan(N, H, W, P, elem_bytes, sms)
+    return gather_plan(N, P)
+
+
 def uniform_sampler(generator: torch.Generator) -> Sampler:
     """A sampler drawing from `generator`, on the generator's device."""
     return lambda shape: torch.rand(tuple(shape), generator=generator,
@@ -100,18 +242,30 @@ def _corners(points: torch.Tensor, H: int, W: int):
     return out
 
 
+def masks_per_set(masks: torch.Tensor, points: torch.Tensor) -> int:
+    """S of masks (N, H, W) at points (N / S, P, 2); raises ValueError when
+    the sets do not divide the masks."""
+    N, sets = masks.shape[0], points.shape[0]
+    if (sets == 0 and N) or (sets and N % sets):
+        raise ValueError(f"{sets} point sets for {N} masks: the masks must "
+                         "be a whole number of masks a set")
+    return N // sets if sets else 1
+
+
 def point_sample_plain(masks: torch.Tensor,
                        points: torch.Tensor) -> torch.Tensor:
-    """masks (N, H, W) fp32 or bf16, points (N, P, 2) -> (N, P) fp32: a
-    gather of the four corners, fp32 weights and sums."""
+    """masks (N, H, W) fp32 or bf16, points (N / S, P, 2) -> (N, P) fp32: a
+    gather of the four corners of each set's points in its S masks, fp32
+    weights and sums."""
     N, H, W = masks.shape
-    flat = masks.reshape(N, H * W)
-    out = torch.zeros(points.shape[:-1], dtype=torch.float32,
-                      device=masks.device)
+    S = masks_per_set(masks, points)
+    sets, P = points.shape[:2]
+    flat = masks.reshape(sets, S, H * W)
+    out = torch.zeros((sets, S, P), dtype=torch.float32, device=masks.device)
     for idx, valid, w in _corners(points, H, W):
-        g = flat.gather(1, idx.reshape(N, -1)).reshape(idx.shape)
-        out = out + torch.where(valid, w * g.float(), 0.0)
-    return out
+        g = flat.gather(2, idx[:, None].expand(sets, S, P))
+        out = out + torch.where(valid[:, None], w[:, None] * g.float(), 0.0)
+    return out.reshape(N, P)
 
 
 def point_sample_plain_backward(masks: torch.Tensor, points: torch.Tensor,
@@ -120,11 +274,14 @@ def point_sample_plain_backward(masks: torch.Tensor, points: torch.Tensor,
     (N, P): the weighted scatter of every point into its corners, summed in
     fp32 and rounded to the mask dtype."""
     N, H, W = masks.shape
-    dm = torch.zeros((N, H * W), dtype=torch.float32, device=masks.device)
-    g = grad_out.float()
+    S = masks_per_set(masks, points)
+    sets, P = points.shape[:2]
+    dm = torch.zeros((sets, S, H * W), dtype=torch.float32,
+                     device=masks.device)
+    g = grad_out.float().reshape(sets, S, P)
     for idx, valid, w in _corners(points, H, W):
-        dm.scatter_add_(1, idx.reshape(N, -1),
-                        torch.where(valid, w * g, 0.0).reshape(N, -1))
+        dm.scatter_add_(2, idx[:, None].expand(sets, S, P),
+                        torch.where(valid[:, None], w[:, None] * g, 0.0))
     return dm.reshape(N, H, W).to(masks.dtype)
 
 
@@ -135,11 +292,15 @@ def check_kernel_inputs(masks: torch.Tensor, points: torch.Tensor) -> None:
                                                torch.bfloat16):
         raise ValueError(f"masks {tuple(masks.shape)} {masks.dtype}: the "
                          "kernel takes (N, H, W) fp32 or bf16")
-    N = masks.shape[0]
-    if points.dim() != 3 or points.shape[0] != N or points.shape[2] != 2 \
+    N, H, W = masks.shape
+    if points.dim() != 3 or points.shape[2] != 2 \
             or points.dtype != torch.float32:
         raise ValueError(f"points {tuple(points.shape)} {points.dtype} must "
-                         f"be ({N}, P, 2) fp32")
+                         f"be ({N} / S, P, 2) fp32")
+    masks_per_set(masks, points)
+    if H * W >= FWD_MAX_CELLS:
+        raise ValueError(f"masks of {H}x{W}: the kernels take fewer than "
+                         f"{FWD_MAX_CELLS} cells a mask")
     for name, t in (("masks", masks), ("points", points)):
         if t.device.type != "cuda" or t.device != masks.device:
             raise ValueError(f"{name} must be on the masks' CUDA device, "
@@ -151,13 +312,28 @@ def check_kernel_inputs(masks: torch.Tensor, points: torch.Tensor) -> None:
                          "each (x, y) as one float2")
 
 
-def _kernel_forward(masks, points) -> torch.Tensor:
+def _launch_forward(masks, points, out, sorted_by_y: bool = False,
+                    plan: FwdPlan | None = None) -> None:
+    """One launch of `point_sample_fwd.cu` on `plan` (by default
+    `fwd_plan`'s): out (N, P) fp32, every value written, from masks (N, H,
+    W) and points (N / S, P, 2), all contiguous on one device."""
     N, H, W = masks.shape
+    S = masks_per_set(masks, points)
     P = points.shape[1]
-    out = torch.empty((N, P), dtype=torch.float32, device=masks.device)
+    if plan is None:
+        plan = fwd_plan(N, S, H, W, P, masks.element_size(),
+                        torch.cuda.get_device_properties(
+                            masks.device).multi_processor_count,
+                        sorted_by_y)
     cuda_ext.launch("point_sample_fwd", masks.device, masks.data_ptr(),
-                    points.data_ptr(), out.data_ptr(), N, H, W, P,
-                    int(masks.dtype == torch.bfloat16))
+                    points.data_ptr(), out.data_ptr(), N, H, W, P, S,
+                    *plan, int(masks.dtype == torch.bfloat16))
+
+
+def _kernel_forward(masks, points, sorted_by_y: bool = False) -> torch.Tensor:
+    out = torch.empty((masks.shape[0], points.shape[1]), dtype=torch.float32,
+                      device=masks.device)
+    _launch_forward(masks, points, out, sorted_by_y)
     return out
 
 
@@ -175,6 +351,11 @@ def _launch_backward(points, g, dmask) -> None:
 
 
 def _kernel_backward(masks, points, grad_out) -> torch.Tensor:
+    """d masks by `point_sample_bwd.cu`, which takes a point set a mask:
+    shared sets are repeated for it."""
+    S = masks_per_set(masks, points)
+    if S > 1:
+        points = points.repeat_interleave(S, dim=0)
     dmask = torch.empty_like(masks)
     _launch_backward(points, grad_out.float().contiguous(), dmask)
     return dmask
@@ -185,19 +366,23 @@ class PointSampleFunction(torch.autograd.Function):
     `jax.custom_vjp` of `point_sample_pallas`)."""
 
     @staticmethod
-    def forward(ctx, masks, points):
+    def forward(ctx, masks, points, sorted_by_y=False):
         ctx.save_for_backward(masks, points)
-        return _kernel_forward(masks, points)
+        return _kernel_forward(masks, points, sorted_by_y)
 
     @staticmethod
     def backward(ctx, grad_out):
         masks, points = ctx.saved_tensors
-        return _kernel_backward(masks, points, grad_out), None
+        return _kernel_backward(masks, points, grad_out), None, None
 
 
-def point_sample(masks: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Bilinearly sample masks (N, H, W) at points (N, P, 2) in [0, 1] ->
-    (N, P) fp32, differentiable in the masks; the points get no gradient.
+def point_sample(masks: torch.Tensor, points: torch.Tensor,
+                 sorted_by_y: bool = False) -> torch.Tensor:
+    """Bilinearly sample masks (N, H, W) at points (N / S, P, 2) in [0, 1],
+    the S consecutive masks of a group at one point set, -> (N, P) fp32,
+    differentiable in the masks; the points get no gradient. `sorted_by_y`
+    says that each set is sorted by y (`sort_points_by_y`): only the
+    forward kernel's plan reads it, the result does not depend on it.
     CPU tensors take the plain version (autograd differentiates it); CUDA
     tensors take the kernels through `PointSampleFunction`, or raise if
     they cannot take them."""
@@ -205,7 +390,7 @@ def point_sample(masks: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     if masks.device.type == "cpu":
         return point_sample_plain(masks, points)
     check_kernel_inputs(masks, points)
-    return PointSampleFunction.apply(masks, points)
+    return PointSampleFunction.apply(masks, points, sorted_by_y)
 
 
 def uncertainty(logits: torch.Tensor) -> torch.Tensor:

@@ -652,7 +652,7 @@ def time_point_sample_bwd(smoke, ps, libs, flush, gen, sums):
     result (an ablation's is wrong on purpose)."""
     stream = torch.cuda.current_stream().cuda_stream
     bwd = {key: fn for key, fn in libs.items() if key[1] == "point_sample_bwd"}
-    N, H, W, P, _, calls = smoke.POINT_GEOMETRIES["loss_pred"]
+    N, H, W, P, _, calls, _ = smoke.POINT_GEOMETRIES["loss_pred"]
     N2, H2, W2, P2, _, _ = smoke.POINT_BWD_LAYOUTS["overline"]
     for shape, sort in (((N, H, W, P), True), ((N, H, W, P), False),
                         ((N2, H2, W2, P2), True)):

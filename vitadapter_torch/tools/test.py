@@ -9,7 +9,10 @@
 
 CKPT is a checkpoint directory of `tools.train` (its latest step), one of
 its step directories, or a `.pth` file holding a `state_dict` with the
-reference's keys (those of the port). Only the model's weights are read.
+reference's keys (those of the port), bare or as a reference run saves it
+(`utils/checkpoint_io.py::unwrap_state_dict`: under `state_dict`, `model`
+or `module`, keys prefixed `module.` or `encoder.`). Only the model's
+weights are read.
 `--eval mIoU` runs the segmentation protocol (slide or whole inference
 as the config's `test_cfg` says; `--aug-test` adds the multi-scale and
 flip augmentations), `--eval bbox segm` the COCO detection protocol on

@@ -84,13 +84,33 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
     return state
 
 
+def unwrap_state_dict(ckpt) -> Dict:
+    """The state dict inside a reference checkpoint, as the JAX package's
+    `unwrap_state_dict` finds it: the dict under `state_dict`, then under
+    `model`, then under `module` (each where present), with a `module.`
+    (DDP) and then an `encoder.` prefix stripped from every key."""
+    sd = ckpt
+    for key in ("state_dict", "model", "module"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            sd = sd[key]
+    out = {}
+    for k, v in sd.items():
+        for pre in ("module.", "encoder."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        out[k] = v
+    return out
+
+
 def load_model_weights(path: str, model: nn.Module) -> nn.Module:
     """Load a model's weights for evaluation from `path`: a checkpoint
     directory (its latest step), a step directory, or a `.pth` file holding
-    a `state_dict` with the port's keys (the reference's), bare or under
-    `state_dict`. The recomputed relative-position indices of a reference
-    file are skipped; every other key must match, except BatchNorm's
-    `num_batches_tracked`."""
+    a `state_dict` with the port's keys (the reference's), unwrapped as
+    `unwrap_state_dict` does. Every key of the model must be there, but
+    BatchNorm's `num_batches_tracked`; keys the model does not have (the
+    reference's relative-position indices, which the model recomputes,
+    auxiliary heads it does not build) are ignored, as the JAX package's
+    converters read only the keys they need."""
     device = next(model.parameters()).device
     if os.path.isdir(path):
         if not os.path.isfile(os.path.join(path, MODEL_FILE)):
@@ -100,13 +120,10 @@ def load_model_weights(path: str, model: nn.Module) -> nn.Module:
             path = step_dir(path, step)
         sd = _load(os.path.join(path, MODEL_FILE), device)["model"]
     else:
-        sd = _load(path, device)
-        sd = sd.get("state_dict", sd)
-    sd = {k: v for k, v in sd.items()
-          if not k.endswith("relative_position_index")}
-    missing, unexpected = model.load_state_dict(sd, strict=False)
+        sd = unwrap_state_dict(_load(path, device))
+    missing, _ = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing or unexpected:
+    if missing:
         raise KeyError(f"checkpoint {path} does not match the model: "
-                       f"missing {missing[:5]}, unexpected {unexpected[:5]}")
+                       f"missing {missing[:5]}")
     return model
