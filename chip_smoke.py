@@ -149,7 +149,34 @@ Phases (each failure exits non-zero; nothing is caught):
      card and on the CPU: outputs within `E2E_RTOL` of their scale, one
      train step's losses and float64 gradient norm within `TRAIN_RTOL`
      with the CPU on the card's matches, the launches of the card's
-     model call and step exact.
+     model call and step exact;
+ 28. data parallelism (`vitadapter_torch/parallel/`): two ranks in
+     spawned processes share the one card through gloo (joined with a
+     timeout; a rank that fails or hangs fails the phase). (a) The
+     reduced Mask2Former, UperNet and Mask R-CNN (depth 4, full width,
+     fp32, TF32 off) take two steps at their configs' learning rates,
+     2 ranks x 1 image against one process x 2 images on the card (the
+     ranks replaying their share of the one process's draws, matches,
+     selected points and proposals): the first step's logs and running
+     statistics within `TRAIN_RTOL`, each averaged gradient leaf within
+     `DDP_GRAD_TOL` and each parameter change, where the gradient is
+     resolved, within `DDP_CHANGE_TOL`; the second step's logs and
+     statistics within `DDP_LATER_RTOL`; the ranks' parameters bitwise
+     equal after each step (`chip_smoke.ddp_controls()` runs these
+     gates alone, on the sound ranks, on one process again, on one
+     process with its input moved by one ulp, and on ranks with a fault
+     put in: the gradients not averaged, or BatchNorm on local
+     statistics). (b) The flagship (bf16, phase 6's optimizer) takes
+     four steps on 2 ranks x 1 image: finite
+     losses, the ranks' parameters bitwise equal after each step (a
+     checksum gathered), each rank's launches a step phase 6's (the
+     kernels line's `launches_ddp`), s/step and peak memory logged as
+     gloo on a shared card. (c) `run_eval` on 2 ranks against one
+     process within `EVAL_CM_SHARE`. (d) `tools.train --multi-host` under
+     torchrun on NCCL at world size 1 (and 2 with two cards) on
+     phase 13's config cut to depth 4, two synthetic steps; on a host
+     with several cards, then the train and test CLIs on NCCL over every
+     card, the test's metrics against one rank's (`ddp_nccl`).
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -5173,6 +5200,770 @@ def sparse_shipped_init():
                          "CPU")
 
 
+# phase 28: data parallelism. Two ranks share the one card through gloo
+# (NCCL refuses two ranks on one device; gloo reduces and broadcasts CUDA
+# tensors, and gathers only objects here), each in a spawned process;
+# what they compute is held against one process on the same card. Times
+# and memory there are of two processes sharing a card over gloo, not a
+# data-parallel training rate.
+DDP_WORLD = 2
+DDP_TIMEOUT = 420           # seconds the ranks may take in all
+DDP_STEPS = 2               # steps of each reduced model (a)
+DDP_FLAGSHIP_STEPS = 4      # flagship steps on each rank (b)
+# the largest number of elements of a tensor that (a) compares: larger
+# tensors are compared at evenly spaced elements
+DDP_SAMPLE = 16384
+# (a)'s gates. The first step starts from equal weights: its logs and the
+# running statistics after it within TRAIN_RTOL; each averaged gradient
+# leaf within DDP_GRAD_TOL of its largest element, that floored at 1e-4 of
+# the step's largest gradient (a bias in front of a BatchNorm on batch
+# statistics has a zero gradient in exact arithmetic, so float noise sets
+# its sign and size); each parameter's change within DDP_CHANGE_TOL of
+# its leaf's largest change, at the elements whose gradient is at least
+# DDP_SURE of the leaf's largest. Adam moves an element by about lr *
+# sign(g) whatever g's size, so where g is float noise the noise picks
+# the move, and after the first step no two runs hold the same weights:
+# the second step's logs and running statistics are held to DDP_LATER_RTOL.
+# On an H100 (`ddp_controls`) one process on its input moved by one ulp
+# read first-step gradient leaves up to 2.5e-2 of their largest and
+# second-step logs up to 9.7e-4, and ranks without the gradient
+# all-reduce or with local BatchNorm statistics read first-step gradient
+# leaves from 1.05 and second-step logs from 2.5e-2. Parameters over all
+# their elements are logged
+DDP_GRAD_TOL = 0.1
+DDP_CHANGE_TOL = 1e-2
+DDP_SURE = 0.05
+DDP_LATER_RTOL = 1e-2
+# (a): the reduced models at depth 4, full width, fp32, TF32 off, drop
+# path and dropout 0, 256 px, 2 images: name: (config, options, kind),
+# as phases 12, 14 and 16 reduce them
+DDP_MODELS = {
+    "mask2former": (CLI_CONFIG, REDUCED_BEIT, "m2f"),
+    "upernet": (UPERNET_CONFIG, {
+        "model.backbone.depth": 4, "model.backbone.img_size": 256,
+        "model.backbone.drop_path_rate": 0.0,
+        "model.backbone.interaction_indexes": [[0, 0], [1, 1], [2, 2],
+                                               [3, 3]],
+        "model.decode_head.dtype": "float32",
+        "model.decode_head.dropout_ratio": 0.0,
+        "model.auxiliary_head.dtype": "float32",
+        "model.auxiliary_head.dropout_ratio": 0.0}, "seg"),
+    "mask_rcnn": (DET_CONFIG, {
+        "model.backbone.depth": 4, "model.backbone.drop_path_rate": 0.0,
+        "model.backbone.window_attn": [True, True, True, False],
+        "model.backbone.window_size": [14, 14, 14, None],
+        "model.backbone.interaction_indexes": [[0, 0], [1, 1], [2, 2],
+                                               [3, 3]]}, "det"),
+}
+# (d): phase 13's UperNet config under torchrun, cut to depth 4
+DDP_CLI_OPTIONS = ["model.backbone.depth=4",
+                   "model.backbone.interaction_indexes=[[0,0],[1,1],[2,2],"
+                   "[3,3]]", "log_config.interval=1", "evaluation.interval=0"]
+DDP_CLI_TIMEOUT = 300
+
+
+def ddp_batch(kind, gen):
+    """Phase 28 (a)'s batch of 2 at 256 px on the CPU: block labels of 8
+    classes an image (Mask2Former), block labels with ignored pixels in
+    the second image only (UperNet), or phase 16's boxes and masks."""
+    hw = (256, 256)
+    if kind == "m2f":
+        ids = torch.randint(0, 150, (2, 8), generator=gen)
+        cells = torch.randint(0, 8, (2, 16), generator=gen)
+        label = ids.gather(1, cells).reshape(2, 4, 4)
+        return {"image": torch.randn(2, *hw, 3, generator=gen),
+                "label": label.repeat_interleave(64, 1)
+                .repeat_interleave(64, 2)}
+    if kind == "seg":
+        label = torch.stack([torch.from_numpy(block_labels(gen, *hw, 150,
+                                                           32))
+                             for _ in range(2)]).long()
+        label[1, :16] = 255
+        return {"image": torch.randn(2, *hw, 3, generator=gen),
+                "label": label}
+    G = 20
+    xy = torch.rand(2, G, 2, generator=gen) * 200
+    wh = 8 + torch.rand(2, G, 2, generator=gen) * 48
+    boxes = torch.cat([xy, xy + wh], -1)
+    masks = torch.zeros(2, G, *hw, dtype=torch.bool)
+    for b in range(2):
+        for i in range(G):
+            x1, y1, x2, y2 = boxes[b, i].long().tolist()
+            masks[b, i, y1:y2, x1:x2] = True
+    return {"image": torch.randn(2, *hw, 3, generator=gen),
+            "gt_boxes": boxes,
+            "gt_labels": torch.randint(0, 80, (2, G), generator=gen),
+            "gt_masks": masks,
+            "gt_valid": torch.arange(G).expand(2, G) < G - 3}
+
+
+def ddp_sample(t):
+    """A tensor's elements as phase 28 (a) compares them: all, or
+    `DDP_SAMPLE` evenly spaced, in fp32 on the CPU."""
+    flat = t.detach().float().reshape(-1)
+    if flat.numel() > DDP_SAMPLE:
+        flat = flat[::-(-flat.numel() // DDP_SAMPLE)]
+    return flat.cpu()
+
+
+def ddp_reduced(name, rank=None, recorded=None, nudge=False):
+    """`DDP_STEPS` train steps of phase 28 (a)'s model `name` on the card:
+    in one process on the batch of 2 (`rank` None), recording its sampler
+    draws, the Mask2Former assignments and uncertainty-selected points and
+    the Mask R-CNN proposals, or replaying a `recorded` one; or as rank
+    `rank` of a group on its image, replaying its share of those (float
+    rounding that differs between a batch of 1 and 2 could change a
+    near-tied match, proposal or bf16-rounded uncertainty, and the
+    comparison would then see another step). With `nudge`, every input
+    pixel is moved by one ulp (a witness of float noise). Returns (the
+    logs of each step; the parameters before the steps and after each,
+    the running statistics and the clipped gradients of each step, as
+    `ddp_sample` takes them; the recording)."""
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.det import rpn
+    from vitadapter_torch.heads import mask2former_loss as loss_mod
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import (TrainState,
+                                                make_det_train_step,
+                                                make_m2f_train_step,
+                                                make_seg_train_step)
+    from vitadapter_torch.utils.config import Config
+
+    config, options, kind = DDP_MODELS[name]
+    cfg = Config.fromfile(config)
+    cfg.merge_from_options(options)
+    model = build_model(dict(cfg.model), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(28))
+    gen = torch.Generator().manual_seed(28)
+    randomize(model, gen)
+    batch = ddp_batch(kind, gen)
+    if rank is not None:
+        batch = {k: v[rank:rank + 1] for k, v in batch.items()}
+    if nudge:
+        batch["image"] = torch.nextafter(batch["image"],
+                                         torch.tensor(float("inf")))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    opt, _ = make_optimizer(
+        model, base_lr=cfg.optimizer["lr"],
+        weight_decay=cfg.optimizer["weight_decay"],
+        layer_decay_rate=cfg.optimizer["layer_decay_rate"], depth=4,
+        total_steps=1000, warmup_steps=0)
+    state = TrainState.create(model, opt)
+    if kind == "m2f":
+        step = make_m2f_train_step(model, num_classes=150, num_points=1024)
+    elif kind == "seg":
+        step = make_seg_train_step(model, cfg.get("aux_loss_weight", 0.4))
+    else:
+        step = make_det_train_step(model)
+    draw_gen = torch.Generator().manual_seed(29)
+    rec = {"draws": [], "assign": [], "props": [], "points": []}
+    assign, get_proposals = loss_mod.hungarian_assign, rpn.get_proposals
+    uncertain = loss_mod.get_uncertain_point_coords
+
+    def share(t, axis):
+        if rank is None:
+            return t
+        return t.narrow(axis, rank * t.shape[axis] // 2, t.shape[axis] // 2)
+
+    if recorded is None:
+        def sampler(shape):
+            u = torch.rand(tuple(shape), generator=draw_gen)
+            rec["draws"].append(u)
+            return u
+
+        def hungarian(cost, n_valid):
+            out = assign(cost, n_valid)
+            rec["assign"].append(out.cpu())
+            return out
+
+        def proposals(*a, **kw):
+            out = get_proposals(*a, **kw)
+            rec["props"].append(tuple(t.cpu() for t in out))
+            return out
+
+        def points(*a, **kw):
+            out = uncertain(*a, **kw)
+            rec["points"].append(out.cpu())
+            return out
+    else:
+        draws = list(recorded["draws"])
+        # a step's draws: Mask2Former's (L, B, P, 2) assignment points,
+        # then (B * Q, n, 2) per layer, which the replayed points take the
+        # place of; Mask R-CNN's B RPN draws, then B RoI sampler draws
+        if kind == "det" and rank is not None:
+            per = len(draws) // DDP_STEPS
+            draws = [d for s in range(DDP_STEPS) for d in
+                     (draws[s * per + rank], draws[s * per + per // 2 + rank])]
+        elif kind != "det":
+            draws = [share(d, 1) for d in draws if d.dim() == 4]
+        coords = [share(c, 0) for c in recorded["points"]]
+        assigns = [share(a.reshape(-1, 2, a.shape[-1]), 1).reshape(
+            -1, a.shape[-1]) for a in recorded["assign"]]
+        props = [tuple(share(t, 0) for t in p) for p in recorded["props"]]
+
+        def sampler(shape):
+            u = draws.pop(0)
+            assert tuple(u.shape) == tuple(shape), (u.shape, shape)
+            return u
+
+        def hungarian(cost, n_valid):
+            return assigns.pop(0).to(cost.device)
+
+        def proposals(*a, **kw):
+            return tuple(t.cuda() for t in props.pop(0))
+
+        def points(sampler, mask_logits, *a, **kw):
+            return coords.pop(0).to(mask_logits.device)
+
+    logs, grads, stats = [], [], []
+    params = [{n: ddp_sample(p) for n, p in model.named_parameters()}]
+    loss_mod.hungarian_assign, rpn.get_proposals = hungarian, proposals
+    loss_mod.get_uncertain_point_coords = points
+    try:
+        for _ in range(DDP_STEPS):
+            extra = () if kind == "seg" else (sampler,)
+            state, out = step(state, batch, torch.Generator(
+                "cuda").manual_seed(30), *extra)
+            logs.append({k: float(v) for k, v in out.items()})
+            grads.append({n: ddp_sample(p.grad)
+                          for n, p in model.named_parameters()
+                          if p.grad is not None})
+            params.append({n: ddp_sample(p)
+                           for n, p in model.named_parameters()})
+            stats.append({n: b.detach().cpu().clone()
+                          for n, b in model.named_buffers()
+                          if n.endswith(("running_mean", "running_var"))})
+    finally:
+        loss_mod.hungarian_assign, rpn.get_proposals = assign, get_proposals
+        loss_mod.get_uncertain_point_coords = uncertain
+    if recorded is not None:
+        assert not draws and not assigns and not props and not coords
+    del model, state, opt
+    torch.cuda.empty_cache()
+    return logs, params, stats, grads, rec
+
+
+def param_checksum(model):
+    """Two sums of each parameter: of its bit patterns as integers and of
+    its values in float64 (a rank that differs in one bit differs in the
+    first)."""
+    rows = []
+    for p in model.parameters():
+        v = p.detach().reshape(-1)
+        bits = v.view(torch.int32 if v.element_size() == 4 else torch.int16)
+        rows.append(torch.stack([bits.sum(dtype=torch.int64),
+                                 v.double().sum().view(torch.int64)]))
+    return torch.stack(rows).cpu()
+
+
+def ddp_flagship(rank):
+    """Phase 28 (b) on rank `rank`: the flagship as phase 6 trains it
+    (bf16 compute, fp32 parameters, DropPath 0.4, 12544 points, the
+    auction, phase 6's optimizer), rank `rank`'s image of phase 6's batch
+    of 2, `DDP_FLAGSHIP_STEPS` steps. Returns the losses and gradient
+    norms, whether the ranks' parameters were bitwise equal after each
+    step (checksums gathered), the kernel launches, seconds a step and
+    peak memory."""
+    from vitadapter_torch import zoo
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.parallel import (process_allgather, rank_generator,
+                                           replicate)
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_m2f_train_step
+
+    model = replicate(zoo.mask2former_vit_adapter(
+        "large", dtype=torch.bfloat16,
+        generator=torch.Generator("cuda").manual_seed(0)))
+    opt, _ = make_optimizer(model, depth=24, total_steps=1000,
+                            warmup_steps=10, grad_clip=0.01)
+    state = TrainState.create(model, opt)
+    step = make_m2f_train_step(model, num_classes=150, max_instances=60,
+                               num_points=12544)
+    gen = torch.Generator("cuda").manual_seed(3)
+    batch = {"image": torch.randn(2, 512, 512, 3, generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+             "label": torch.randint(0, 150, (2, 512, 512), generator=gen,
+                                    device="cuda")}
+    batch = {k: v[rank:rank + 1] for k, v in batch.items()}
+    drop = rank_generator("cuda", 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.launches.clear()
+    times, losses, norms, equal = [], [], [], []
+    for _ in range(DDP_FLAGSHIP_STEPS):
+        t0 = time.perf_counter()
+        state, logs = step(state, batch, drop)
+        losses.append(float(logs["loss"]))
+        norms.append(float(logs["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        sums = process_allgather(param_checksum(model))
+        equal.append(all(torch.equal(s, sums[0]) for s in sums))
+    out = {"losses": losses, "grad_norms": norms, "equal": equal,
+           "launches": dict(cuda_ext.launches), "times": times,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "step": state.step}
+    del model, state, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_eval_items():
+    """Phase 28 (c)'s two odd-sized images with block labels."""
+    gen = torch.Generator().manual_seed(32)
+    items = []
+    for h, w in ((97, 151), (131, 83)):
+        img = torch.randint(0, 256, (h, w, 3), dtype=torch.uint8,
+                            generator=gen).numpy()
+        items.append((img, block_labels(gen, h, w, 150, 24)))
+    return Items(items)
+
+
+DDP_EVAL_CFG = {"num_classes": 150,
+                "test_cfg": {"mode": "whole", "img_scale": (192, 128)},
+                "aug_test": {"img_ratios": [0.75, 1.0], "flip": True}}
+
+
+def ddp_eval():
+    """Phase 28 (c): `run_eval` of phase 10's reduced model (built on the
+    card) on `ddp_eval_items`, fp32, whole mode, ratios 0.75 and 1.0 with
+    flip; returns the confusion matrix."""
+    from vitadapter_torch import zoo
+    from vitadapter_torch.train.loop import run_eval
+
+    model = zoo.mask2former_vit_adapter(
+        "large", generator=torch.Generator("cuda").manual_seed(31), depth=4,
+        interaction_indexes=((0, 0), (1, 1), (2, 2), (3, 3)))
+    randomize(model, torch.Generator().manual_seed(31))
+    cm = run_eval(DDP_EVAL_CFG, model, ddp_eval_items(), aug_test=True,
+                  log_fn=lambda *_: None)["confusion"]
+    del model
+    torch.cuda.empty_cache()
+    return torch.from_numpy(cm)
+
+
+# the faults `ddp_controls` puts into the ranks to show that phase 28
+# (a)'s gates see them: the gradients left unaveraged, or each rank's
+# BatchNorm on its own image's statistics
+DDP_FAULTS = ("no_allreduce", "local_bn")
+
+
+def ddp_fault(fault):
+    """Put `fault` (one of `DDP_FAULTS`) into this process's port."""
+    if fault == "no_allreduce":
+        from vitadapter_torch.train import optim
+
+        optim.allreduce_grads = lambda params: None
+    elif fault == "local_bn":
+        from vitadapter_torch.layers import norm
+
+        norm.world_size = lambda: 1
+
+
+def ddp_rank(tmp, rank, fault=None):
+    """A rank of phase 28 (a spawned process): joins the gloo group of
+    `DDP_WORLD` ranks through a file in `tmp`, on card 0 (LOCAL_RANK 0 on
+    every rank: they share it), runs (a), (b) and (c), or (a) alone with
+    `fault` put in (`ddp_controls`), and saves what it computed to
+    `tmp/rank<r>.pt`. Any error is written beside it and ends the process
+    with exit code 1."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        os.environ["LOCAL_RANK"] = "0"
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                                rank=rank, world_size=DDP_WORLD)
+        from vitadapter_torch.parallel import init_distributed
+
+        init_distributed("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ddp_fault(fault)
+        recorded = torch.load(os.path.join(tmp, "recorded.pt"))
+        out = {"reduced": {name: ddp_reduced(name, rank, recorded[name])[:4]
+                           for name in DDP_MODELS}}
+        if fault is None:
+            out["flagship"] = ddp_flagship(rank)
+            out["eval"] = ddp_eval()
+        dist.destroy_process_group()
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def rel_to_scale(got, ref):
+    """The largest error of `got` over the scale of `ref` (its largest
+    magnitude)."""
+    if got.numel() == 0:
+        return 0.0
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
+
+
+def ddp_readings(ref, got):
+    """Phase 28 (a)'s readings of one run `got` (a rank's, or one
+    process's again) against one process's `ref`, for each step: the logs
+    relative; the averaged gradient leaves (`DDP_GRAD_TOL`'s measure) and
+    the parameter changes where the gradients were resolved
+    (`DDP_CHANGE_TOL`'s, with the share of the sampled elements held);
+    the parameters after the step (logged) and the running statistics,
+    each over its tensor's scale. Each reading is (error, where).
+    `ok`: every step held to its gates (`ddp_gates`)."""
+    ref_logs, ref_params, ref_stats, ref_grads = ref
+    logs, params, stats, grads = got
+    keys = [k for k in ref_logs[0] if k == "grad_norm" or "loss" in k]
+    sure = {n: torch.ones_like(p, dtype=torch.bool)
+            for n, p in ref_params[0].items()}
+    total = sum(p.numel() for p in ref_params[0].values())
+    steps = []
+    for s in range(DDP_STEPS):
+        want = {n: ref_grads[s].get(n, torch.zeros_like(p))
+                for n, p in ref_params[0].items()}
+        floor = 1e-4 * max(float(g.abs().max()) for g in want.values())
+        worst_g, worst_d, held = (0.0, ""), (0.0, ""), 0
+        for n, w in want.items():
+            scale = max(float(w.abs().max()), floor)
+            g = grads[s].get(n)
+            err = (float("inf") if g is None
+                   else float((g - w).abs().max()) / scale)
+            worst_g = max(worst_g, (err, n))
+            sure[n] &= w.abs() >= DDP_SURE * scale
+            if sure[n].any():
+                held += int(sure[n].sum())
+                d = params[s + 1][n] - params[s][n]
+                d_ref = ref_params[s + 1][n] - ref_params[s][n]
+                err = float((d - d_ref)[sure[n]].abs().max()
+                            / d_ref.abs().max().clamp(min=1e-30))
+                worst_d = max(worst_d, (err, n))
+        steps.append({
+            "logs": max((abs(logs[s][k] - ref_logs[s][k])
+                         / max(abs(ref_logs[s][k]), 1e-12), k)
+                        for k in keys),
+            "grads": worst_g, "changes": (*worst_d, held / total),
+            "params": max((rel_to_scale(params[s + 1][n], p), n)
+                          for n, p in ref_params[s + 1].items()),
+            "stats": max([(rel_to_scale(stats[s][n], t), n)
+                          for n, t in ref_stats[s].items()] or [(0.0, "")])})
+    return {"steps": steps, "ok": set(params[-1]) == set(ref_params[-1])
+            and all(ddp_gates(r, s) for s, r in enumerate(steps))}
+
+
+def ddp_gates(r, step):
+    """Phase 28 (a)'s gates on the readings of step `step` (0 first)."""
+    if step:
+        return (r["logs"][0] <= DDP_LATER_RTOL
+                and r["stats"][0] <= DDP_LATER_RTOL)
+    return (r["logs"][0] <= TRAIN_RTOL and r["grads"][0] <= DDP_GRAD_TOL
+            and r["changes"][0] <= DDP_CHANGE_TOL
+            and r["stats"][0] <= TRAIN_RTOL)
+
+
+def format_readings(r):
+    return "; ".join(
+        f"step {s + 1}: logs {x['logs'][0]:.3e} ({x['logs'][1]}), gradient "
+        f"leaves {x['grads'][0]:.3e} ({x['grads'][1]}), changes "
+        f"{x['changes'][0]:.3e} ({x['changes'][1]}; "
+        f"{100 * x['changes'][2]:.1f}% held), parameters "
+        f"{x['params'][0]:.3e} ({x['params'][1]}), running statistics "
+        f"{x['stats'][0]:.3e} ({x['stats'][1]})"
+        for s, x in enumerate(r["steps"])) + (
+        f" (gates: step 1 logs and statistics {TRAIN_RTOL}, gradient "
+        f"leaves {DDP_GRAD_TOL}, changes {DDP_CHANGE_TOL}; step 2 logs and "
+        f"statistics {DDP_LATER_RTOL}; parameters logged) ok={r['ok']}")
+
+
+def ranks_equal(ranks):
+    """Whether the ranks' sampled parameters are bitwise equal before and
+    after each step of phase 28 (a)."""
+    return all(torch.equal(p, r[1][s][n]) for r in ranks[1:]
+               for s, params in enumerate(ranks[0][1])
+               for n, p in params.items())
+
+
+def check_ddp_reduced(name, ref, ranks):
+    """Phase 28 (a): each rank's steps of the reduced model `name` against
+    one process's (`ddp_readings`; the worse rank is logged), and the
+    ranks' parameters bitwise equal after each step."""
+    readings = [ddp_readings(ref, r) for r in ranks]
+    worst = max(readings, key=lambda r: (not r["ok"], r["steps"][0]["grads"]))
+    equal = ranks_equal(ranks)
+    log(f"phase 28 (a) {name} (depth 4, full width, 256 px, fp32, the "
+        f"config's lr): 2 ranks x 1 image against one process x 2 images "
+        f"on the card, the worse rank: {format_readings(worst)}; the ranks' "
+        f"parameters bitwise equal after each step {equal}; one process's "
+        f"losses {[round(x['loss'], 6) for x in ref[0]]}, rank 0's "
+        f"{[round(x['loss'], 6) for x in ranks[0][0]]}")
+    return equal and all(r["ok"] for r in readings)
+
+
+def torchrun(n, args, timeout):
+    """`python -m torch.distributed.run --standalone --nproc_per_node n
+    -m <args>` from the checkout's root; returns (exit code, output, host
+    seconds). Every process is killed if the run outlasts `timeout`."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), "-m", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        text = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"FAIL: torchrun {args[:2]} with {n} ranks "
+                         f"outlasted {timeout} s")
+    return proc.returncode, text, time.perf_counter() - t0
+
+
+def torchrun_train(n, config, options, work):
+    """Two synthetic steps of `tools.train --multi-host` under torchrun
+    with `n` ranks on NCCL; fails unless both steps ran on `n` ranks.
+    Returns the seconds it took (host clock)."""
+    code, text, secs = torchrun(n, [
+        "vitadapter_torch.tools.train", config, "--multi-host",
+        "--synthetic-data", "--max-iters", "2", "--work-dir", work,
+        "--cfg-options", *options], DDP_CLI_TIMEOUT)
+    lines = [line for line in text.splitlines()
+             if re.search(r"iter \d+/2 |data parallel|checkpoint", line)]
+    ok = (code == 0 and any("iter 2/2 " in line for line in lines)
+          and (n == 1 or any(f"data parallel over {n} ranks" in line
+                             for line in lines)))
+    log(f"phase 28 (d) torchrun --nproc_per_node {n} tools.train "
+        f"--multi-host (NCCL) on {config} {options}: exit {code} in "
+        f"{secs:.1f} s (host clock); {lines}")
+    if not ok:
+        log(text[-4000:])
+        raise SystemExit(f"FAIL: phase 28 (d) tools.train with {n} ranks")
+    return secs
+
+
+def torchrun_cli():
+    """Phase 28 (d): `tools.train --multi-host` under torchrun on NCCL, one
+    rank, on `UPERNET_CONFIG` cut by `DDP_CLI_OPTIONS`, synthetic data, 2
+    steps; then, where the host has several cards, `ddp_nccl`."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        torchrun_train(1, UPERNET_CONFIG, DDP_CLI_OPTIONS, tmp)
+    if torch.cuda.device_count() >= 2:
+        ddp_nccl()
+
+
+def cfg_options(options):
+    """A dict of config overrides as `--cfg-options` arguments."""
+    return [f"{k}={v!r}".replace(" ", "") for k, v in options.items()]
+
+
+def ddp_nccl():
+    """Phase 28 (d) on a host with several cards: the CLIs under torchrun
+    on NCCL over every card (run alone, `python3 -c "import chip_smoke;
+    chip_smoke.ddp_nccl()"`, nothing is built before: rank 0 builds the
+    kernels while the others wait at the barrier).
+    Phase 13's UperNet config and phase 15's Mask R-CNN config, each cut
+    to depth 4: two synthetic train steps on every card, then `tools.test
+    --multi-host` of that checkpoint on two images (`--eval mIoU`, `--eval
+    bbox segm`; ranks past the second hold no image) on every card and on
+    one; the metrics line rank 0 logs must be the same."""
+    import tempfile
+
+    n = torch.cuda.device_count()
+    runs = (("upernet", UPERNET_CONFIG, DDP_CLI_OPTIONS, ["--eval", "mIoU"],
+             lambda root: write_ade_images(root, CLI_IMAGES, 13),
+             r"^aAcc "),
+            ("mask_rcnn", DET_CONFIG,
+             cfg_options(DDP_MODELS["mask_rcnn"][1]) + [
+                 "log_config.interval=1", "evaluation.interval=0"],
+             ["--eval", "bbox", "segm"],
+             lambda root: write_coco(root, DET_IMAGES, 15), r"^bbox_mAP="))
+    ok = n >= 2
+    for name, config, options, metric, write, line in runs:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+            torchrun_train(n, config, options, os.path.join(tmp, "work"))
+            root = os.path.join(tmp, "data")
+            write(root)
+            seen = {}
+            for ranks in (n, 1):
+                code, text, secs = torchrun(ranks, [
+                    "vitadapter_torch.tools.test", config,
+                    os.path.join(tmp, "work", "ckpt"), *metric,
+                    "--multi-host", "--cfg-options",
+                    f"data.data_root={root}", *options], DDP_CLI_TIMEOUT)
+                seen[ranks] = [x for x in text.splitlines()
+                               if re.search(line, x)]
+                log(f"phase 28 (d) torchrun --nproc_per_node {ranks} "
+                    f"tools.test {metric} --multi-host (NCCL) on {name}: "
+                    f"exit {code} in {secs:.1f} s (host clock); "
+                    f"{seen[ranks]}")
+                if code:
+                    log(text[-4000:])
+                    ok = False
+            same = len(seen[n]) == 1 and seen[n] == seen[1]
+            log(f"phase 28 (d) {name}: the metrics of {n} ranks and of one "
+                f"are the same: {same}")
+            ok &= same
+    log(f"phase 28 (d) on NCCL over {n} cards ok={ok}")
+    if not ok:
+        raise SystemExit(f"FAIL: phase 28 (d) on NCCL over {n} cards")
+
+
+def spawn_ddp_ranks(recorded, fault=None):
+    """`DDP_WORLD` spawned processes running `ddp_rank`, joined within
+    `DDP_TIMEOUT`; returns what each rank saved and the seconds they took.
+    A rank that fails or hangs fails the phase."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        torch.save(recorded, os.path.join(tmp, "recorded.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=ddp_rank, args=(tmp, r, fault))
+                 for r in range(DDP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DDP_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        secs = time.perf_counter() - t0
+        errors = [open(os.path.join(tmp, f"rank{r}.err")).read()
+                  for r in range(DDP_WORLD)
+                  if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
+        if hung or errors or any(p.exitcode for p in procs):
+            for e in errors:
+                log(e)
+            raise SystemExit(f"FAIL: phase 28 ranks (hung {hung}, exit codes "
+                             f"{[p.exitcode for p in procs]})")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(DDP_WORLD)], secs
+
+
+def ddp_references():
+    """One process's two steps of each reduced model (and their
+    recordings) on the card, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    refs, recorded = {}, {}
+    for name in DDP_MODELS:
+        *refs[name], recorded[name] = ddp_reduced(name)
+    return refs, recorded
+
+
+def data_parallel():
+    """Phase 28: one process's steps (a) and evaluation (c) on the card,
+    then two gloo ranks sharing the card (spawned, joined with a timeout)
+    run (a), (b) and (c); the comparisons; then (d). Returns rank 0's
+    kernel launches a flagship step (b)."""
+    t0 = time.perf_counter()
+    refs, recorded = ddp_references()
+    ref_cm = ddp_eval()
+    t_ref = time.perf_counter() - t0
+    ranks, t_ranks = spawn_ddp_ranks(recorded)
+    log(f"phase 28: one process's (a) and (c) {t_ref:.1f} s, the 2 ranks' "
+        f"(a), (b) and (c) {t_ranks:.1f} s (host clock, gloo, one card "
+        f"shared)")
+    per_step = check_ddp(refs, ref_cm, ranks)
+    torchrun_cli()
+    return per_step
+
+
+def ddp_controls():
+    """`python3 -c "import chip_smoke; chip_smoke.ddp_controls()"`: phase
+    28 (a)'s gates on the sound ranks, on one process's steps taken again
+    and on a witness (one process on the input moved by one ulp), both
+    replaying the first process's recording, and on ranks with each of
+    `DDP_FAULTS` put in.
+    Fails unless the sound ranks, the second process and the witness
+    pass every gate and each fault fails some gate of every model."""
+    from vitadapter_torch.ops import cuda_ext
+
+    cuda_ext.build()
+    refs, recorded = ddp_references()
+    runs = {label: [[ddp_reduced(name, None, recorded[name], nudge)[:4]
+                     for name in DDP_MODELS]]
+            for label, nudge in (("one process again", False),
+                                 ("witness", True))}
+    for fault in (None, *DDP_FAULTS):
+        ranks, _ = spawn_ddp_ranks(recorded, fault)
+        runs[fault or "sound ranks"] = [[r["reduced"][name]
+                                         for name in DDP_MODELS]
+                                        for r in ranks]
+    sound = True
+    for label, ranks in runs.items():
+        for i, name in enumerate(DDP_MODELS):
+            readings = [ddp_readings(refs[name], r[i]) for r in ranks]
+            worst = max(readings,
+                        key=lambda r: (not r["ok"], r["steps"][0]["grads"]))
+            equal = len(ranks) == 1 or ranks_equal([r[i] for r in ranks])
+            ok = equal and all(r["ok"] for r in readings)
+            sound &= ok == (label in ("sound ranks", "one process again",
+                                      "witness"))
+            log(f"phase 28 (a) control, {label}, {name}: "
+                f"{format_readings(worst)}; the ranks bitwise equal after "
+                f"each step {equal}")
+    log(f"phase 28 (a) controls: the gates pass the sound runs and fail "
+        f"each fault: {sound}")
+    if not sound:
+        raise SystemExit("FAIL: phase 28 (a) controls")
+
+
+def check_ddp(refs, ref_cm, ranks):
+    """Phase 28's comparisons (a), (b) and (c); returns rank 0's launches
+    a flagship step."""
+    failed = [f"(a) {name}" for name in DDP_MODELS
+              if not check_ddp_reduced(name, refs[name],
+                                       [r["reduced"][name] for r in ranks])]
+
+    fl = [r["flagship"] for r in ranks]
+    steps = DDP_FLAGSHIP_STEPS
+    per_step = [{k: v // steps for k, v in f["launches"].items()}
+                for f in fl]
+    finite = all(x == x and abs(x) != float("inf")
+                 for f in fl for x in f["losses"] + f["grad_norms"])
+    ok = (finite and all(all(f["equal"]) for f in fl)
+          and all(f["step"] == steps for f in fl)
+          and all(f["launches"] == {k: v * steps
+                                    for k, v in TRAIN_LAUNCHES.items()}
+                  for f in fl))
+    for r, f in enumerate(fl):
+        log(f"phase 28 (b) rank {r}: flagship bf16, 1 image of phase 6's "
+            f"batch, {steps} steps: losses {f['losses']} grad norms "
+            f"{f['grad_norms']}; parameters bitwise equal across the ranks "
+            f"after each step {f['equal']}; launches a step {per_step[r]} "
+            f"(want {TRAIN_LAUNCHES}); gloo on one shared card, not a "
+            f"data-parallel training rate: "
+            f"{sum(f['times'][1:]) / (steps - 1):.3f} s/step over steps "
+            f"2..{steps} (host clock to a synchronize; first "
+            f"{f['times'][0]:.3f} s), peak memory {f['peak_gib']:.2f} GiB")
+    if not ok:
+        failed.append("(b) the flagship on 2 ranks")
+
+    labelled = sum(int(lab.size) for _, lab in ddp_eval_items().items)
+    moved = [int(abs(r["eval"] - ref_cm).sum()) // 2 for r in ranks]
+    ok = (all(m <= EVAL_CM_SHARE * labelled for m in moved)
+          and all(int(r["eval"].sum()) == labelled for r in ranks))
+    log(f"phase 28 (c) run_eval on 2 ranks (one image each) against one "
+        f"process on the card: {moved} of {labelled} labelled pixels "
+        f"predicted differently on each rank (tol {EVAL_CM_SHARE} of them) "
+        f"ok={ok}")
+    if not ok:
+        failed.append("(c) run_eval on 2 ranks")
+    if failed:
+        raise SystemExit(f"FAIL: phase 28 {failed}")
+    return per_step[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5331,6 +6122,11 @@ def main():
         f"{t25:.1f}, {t26:.1f} and {time.perf_counter() - t0:.1f} s (host "
         f"clock)")
 
+    # phase 28: data parallelism, two gloo ranks on the shared card
+    t0 = time.perf_counter()
+    ddp_counts = data_parallel()
+    log(f"phase 28 took {time.perf_counter() - t0:.1f} s (host clock)")
+
     paths = {"serve": serve_counts, "train": train_counts,
              "eval_whole": eval_counts, "train_overline": overline_counts,
              "cli": cli_counts, "upernet": upernet_counts, "det": det_counts,
@@ -5341,7 +6137,8 @@ def main():
              "panoptic": pan_counts, "panoptic_test": pan_test_counts,
              "atss": atss_counts, "atss_test": atss_test_counts,
              "gfl": gfl_counts, "gfl_test": gfl_test_counts,
-             "sparse": sparse_counts, "sparse_test": sparse_test_counts}
+             "sparse": sparse_counts, "sparse_test": sparse_test_counts,
+             "ddp": ddp_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -5393,6 +6190,9 @@ def main():
         if "sparse" in r.get("paths", {}):
             per += ("; paths.sparse: per phase 26 train step (DeiT-S "
                     "Sparse R-CNN, 1024 canvas, batch 2, fp32)")
+        if name in ddp_counts:
+            per += ("; launches_ddp: per flagship train step on each of "
+                    "phase 28's 2 ranks (1 image a rank)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",

@@ -1,106 +1,87 @@
-"""Threaded batch prefetching (a copy of `vitadapter/data/loader.py`).
+"""Epoch sampling and threaded batch prefetching (the JAX package's
+`vitadapter/data/loader.py`, keyed by step).
 
-The reference trains with a multi-worker torch DataLoader; the port's loop is a
-single python process, so without overlap the host-side decode/augment time
-(`data_time`) adds directly to every step. `prefetch` runs the batch
-iterator in worker threads and keeps a bounded queue of ready batches —
-PIL/numpy release the GIL for the heavy ops, so threads are enough to hide
-the pipeline behind device compute (no process pool / pickling needed).
+The reference trains with a multi-worker torch DataLoader; the port's loop
+is one python process per rank, so without overlap the host-side
+decode/augment time (`data_time`) adds directly to every step. `prefetch`
+makes the batches of the coming steps in worker threads and hands them out
+in step order: PIL/numpy release the GIL for the heavy ops, so threads are
+enough to hide the pipeline behind device compute.
+
+Step k's global batch takes positions [k*B, (k+1)*B) of the sampler's
+stream (`EpochSampler.indices`), and each image's augmentation draws come
+from a generator keyed by (seed, step, position) (`image_rng`), so the
+batch does not depend on which thread made it, and each rank of a
+data-parallel run makes its own rows of the same global batch.
 """
 
-import queue
+import collections
+import concurrent.futures
 import threading
-from typing import Iterator, List
+from typing import Callable, Iterator, List
 
 import numpy as np
 
 
-# bound at import: at interpreter shutdown the `queue` module globals may
-# already be torn down when a prefetch generator finalizes
-_EMPTY = queue.Empty
-
-
-class _EndOfData:
-    pass
-
-
 class EpochSampler:
-    """One global shuffle per epoch, consumed without replacement across all
-    prefetch threads (torch DistributedSampler semantics: every sample
-    appears exactly once per epoch, reshuffled with `seed + epoch`). Threads
-    pull index blocks under a lock, so batch composition interleaves across
-    threads but global per-epoch coverage is exact."""
+    """One global shuffle per epoch, consumed without replacement
+    (DistributedSampler semantics: every sample appears exactly once per
+    epoch, reshuffled with `seed + epoch`). `indices` reads any stretch of
+    the stream without moving, so that a step's batch is the same whichever
+    thread or rank asks for it; `take` walks it from position 0 as the JAX
+    package's sampler does."""
 
     def __init__(self, n: int, seed: int = 0):
         self.n = n
         self.seed = seed
-        self.epoch = 0
-        self.pos = 0
-        self.perm = np.random.RandomState(seed).permutation(n)
         self.lock = threading.Lock()
+        self._perms = {}
+        self._next = 0
 
     def take(self, k: int) -> List[int]:
-        out: List[int] = []
         with self.lock:
-            while len(out) < k:
-                if self.pos >= self.n:
-                    self.epoch += 1
-                    self.perm = np.random.RandomState(
-                        self.seed + self.epoch).permutation(self.n)
-                    self.pos = 0
-                out.append(int(self.perm[self.pos]))
-                self.pos += 1
-        return out
+            start = self._next
+            self._next += k
+        return self.indices(start, k)
+
+    def _epoch_perm(self, epoch: int) -> np.ndarray:
+        with self.lock:
+            perm = self._perms.get(epoch)
+            if perm is None:
+                if len(self._perms) > 4:
+                    self._perms.pop(min(self._perms))
+                perm = np.random.RandomState(
+                    self.seed + epoch).permutation(self.n)
+                self._perms[epoch] = perm
+        return perm
+
+    def indices(self, start: int, k: int) -> List[int]:
+        """Positions [start, start + k) of the stream: position p is entry
+        p % n of epoch p // n's permutation."""
+        return [int(self._epoch_perm(p // self.n)[p % self.n])
+                for p in range(start, start + k)]
 
 
-def prefetch(make_iter, num_threads: int = 4, buffer: int = 8,
-             seed: int = 0) -> Iterator:
-    """Pull batches from `num_threads` independent iterators into a bounded
-    queue. `make_iter(seed)` must return an infinite batch iterator; each
-    thread gets a distinct seed so the streams don't duplicate batches.
+def image_rng(seed: int, step: int, position: int) -> np.random.RandomState:
+    """The augmentation draws of the image at `position` of step `step`'s
+    global batch."""
+    return np.random.RandomState([seed, step, position])
 
-    For finite iterators use `num_threads=1` (order within a thread is
-    preserved; across threads it is interleaved).
-    """
-    q: "queue.Queue" = queue.Queue(maxsize=buffer)
-    stop = threading.Event()
-    # LOCAL binding, made before the first yield: when this generator is
-    # finalized at interpreter shutdown, module globals (incl. `queue` and
-    # `_EMPTY`) may already be cleared — locals survive
-    empty_exc = _EMPTY
 
-    def work(tid: int):
-        try:
-            for item in make_iter(seed + tid):
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
-                if stop.is_set():
-                    return
-        finally:
-            q.put(_EndOfData())
-
-    threads = [threading.Thread(target=work, args=(t,), daemon=True)
-               for t in range(num_threads)]
-    for t in threads:
-        t.start()
-
-    ended = 0
+def prefetch(make_batch: Callable[[int], dict], num_threads: int = 4,
+             buffer: int = 8) -> Iterator[dict]:
+    """`make_batch(step)` for steps 0, 1, ... (without end), made by
+    `num_threads` worker threads up to `buffer` steps ahead and yielded in
+    step order. Closing the iterator cancels the batches not started."""
+    pool = concurrent.futures.ThreadPoolExecutor(num_threads)
     try:
-        while ended < num_threads:
-            item = q.get()
-            if isinstance(item, _EndOfData):
-                ended += 1
-                continue
-            yield item
+        ahead = collections.deque(pool.submit(make_batch, k)
+                                  for k in range(buffer))
+        k = buffer
+        while True:
+            batch = ahead.popleft().result()
+            ahead.append(pool.submit(make_batch, k))
+            k += 1
+            yield batch
     finally:
-        stop.set()
-        # drain so producer threads blocked on put() can observe stop
-        try:
-            while True:
-                q.get_nowait()
-        except empty_exc:
-            pass
+        pool.shutdown(wait=False, cancel_futures=True)

@@ -113,6 +113,18 @@ class COCOEvaluator:
         self._per_cat: Dict[int, List] = defaultdict(list)
 
     def add_image(self, dets: Dict, gts: Dict) -> None:
+        self.add_records(self.image_records(dets, gts))
+
+    def add_records(self, records: Dict[int, Dict]) -> None:
+        """One image's `image_records`, in the order of the images."""
+        for c, rec in records.items():
+            self._per_cat[c].append(rec)
+
+    def image_records(self, dets: Dict, gts: Dict) -> Dict[int, Dict]:
+        """One image's matching inputs by category (its scores, IoUs and
+        areas): what `add_image` stores, picklable, so that the ranks of a
+        sharded evaluation can gather them into image order."""
+        records: Dict[int, Dict] = {}
         d_boxes = np.asarray(dets["boxes"], np.float64)
         d_scores = np.asarray(dets["scores"], np.float64)
         d_labels = np.asarray(dets["labels"])
@@ -159,9 +171,10 @@ class COCOEvaluator:
                                          0, None), -1)
             if g_ann_area is not None:
                 g_area = g_ann_area[gc]
-            self._per_cat[c].append(dict(
-                scores=d_scores[dc], iou=iou, crowd=g_crowd[gc],
-                g_area=g_area, d_area=d_area))
+            records[c] = dict(scores=d_scores[dc], iou=iou,
+                              crowd=g_crowd[gc], g_area=g_area,
+                              d_area=d_area)
+        return records
 
     def _evaluate_cat(self, records, area_rng, max_dets: int):
         """Returns (tp, ignore, n_gt) pooled over images, per threshold."""

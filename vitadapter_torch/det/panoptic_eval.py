@@ -9,7 +9,7 @@ reports PQ = SQ * RQ overall and per things/stuff.
 """
 
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -33,6 +33,26 @@ class PQEvaluator:
         return {int(i): int(c) for i, c in zip(ids, counts) if i != VOID}
 
     def add_image(self, pred_pan: np.ndarray, gt_pan: np.ndarray) -> None:
+        self.add_stats(self.image_stats(pred_pan, gt_pan))
+
+    def add_stats(self, stats: Tuple[list, list, list]) -> None:
+        """One image's `image_stats`, in the order of the images."""
+        tp, fn, fp = stats
+        for k, iou in tp:
+            self.tp[k] += 1
+            self.iou[k] += iou
+        for k in fn:
+            self.fn[k] += 1
+        for k in fp:
+            self.fp[k] += 1
+
+    def image_stats(self, pred_pan: np.ndarray, gt_pan: np.ndarray
+                    ) -> Tuple[list, list, list]:
+        """One image's matches (class, IoU), unmatched gt classes and
+        false-positive classes, in the order `add_image` counts them:
+        picklable, so that the ranks of a sharded evaluation can gather
+        them into image order."""
+        tp, fn, fp = [], [], []
         pred_segs = self._segments(pred_pan)
         gt_segs = self._segments(gt_pan)
         # joint histogram of (gt_id, pred_id) pairs
@@ -56,14 +76,12 @@ class PQEvaluator:
                 - inter.get((VOID, p), 0)
             iou = c / max(union, 1)
             if iou > 0.5:
-                k = g // INSTANCE_OFFSET
-                self.tp[k] += 1
-                self.iou[k] += iou
+                tp.append((g // INSTANCE_OFFSET, iou))
                 matched_gt.add(g)
                 matched_pred.add(p)
         for g in gt_segs:
             if g not in matched_gt:
-                self.fn[g // INSTANCE_OFFSET] += 1
+                fn.append(g // INSTANCE_OFFSET)
         for p, area in pred_segs.items():
             if p in matched_pred:
                 continue
@@ -71,7 +89,8 @@ class PQEvaluator:
             void_area = int(((pred_pan == p) & ~valid).sum())
             if void_area / max(area, 1) > 0.5:
                 continue
-            self.fp[p // INSTANCE_OFFSET] += 1
+            fp.append(p // INSTANCE_OFFSET)
+        return tp, fn, fp
 
     def summarize(self) -> Dict[str, float]:
         denom = self.tp + self.fp / 2 + self.fn / 2

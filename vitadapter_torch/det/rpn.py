@@ -17,6 +17,7 @@ from vitadapter_torch.det.assign import max_iou_assign, random_sample
 from vitadapter_torch.det.boxes import (RPN_STDS, bbox2delta, delta2bbox,
                                         nms, stable_top_k)
 from vitadapter_torch.layers.linear import Conv2d, conv_nhwc
+from vitadapter_torch.parallel.collectives import global_normalizer
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
 
@@ -53,7 +54,8 @@ def rpn_loss(cls_out, reg_out, anchors: torch.Tensor, gt_boxes, gt_valid,
              sampler, img_hw: Tuple[int, int],
              num_samples: int = 256) -> Dict[str, torch.Tensor]:
     """Cross entropy and L1 over the sampled anchors of every image, each
-    summed over the batch and divided by the number of samples. `sampler`
+    summed over the batch and divided by the number of samples (counted
+    over the global batch: `parallel.global_normalizer`). `sampler`
     gives one uniform a anchor, an image at a time."""
     scores, deltas = flatten_levels(cls_out, reg_out)
     H, W = img_hw
@@ -76,7 +78,7 @@ def rpn_loss(cls_out, reg_out, anchors: torch.Tensor, gt_boxes, gt_valid,
         cls_sum = cls_sum + (ce * w).sum()
         reg_sum = reg_sum + torch.where(s.is_pos, l1, 0.0).sum()
         count = count + w.sum()
-    denom = torch.as_tensor(count).clamp(min=1.0)
+    denom = global_normalizer(torch.as_tensor(count))
     return {"loss_rpn_cls": cls_sum / denom, "loss_rpn_bbox": reg_sum / denom}
 
 

@@ -24,6 +24,7 @@ from vitadapter_torch.ops.matching import (bce_mask_cost, classification_cost,
 from vitadapter_torch.ops.point_sample import (Sampler,
                                                get_uncertain_point_coords,
                                                point_sample, sort_points_by_y)
+from vitadapter_torch.parallel.collectives import global_normalizer
 
 
 def present_classes(label_map: torch.Tensor, num_classes: int,
@@ -117,7 +118,8 @@ def loss_single_layer(
 ) -> Dict[str, torch.Tensor]:
     """One decoder layer's losses for the layer's assignment `assign`: CE
     with background weight 0.1, point BCE and naive dice over the matched
-    queries, normalized by the number of matched masks."""
+    queries, normalized by the number of matched masks. Both normalizers
+    count over the global batch (`parallel.global_normalizer`)."""
     B, Q = cls_pred.shape[:2]
     h, w = mask_pred.shape[2:]
     pos = assign >= 0
@@ -130,11 +132,11 @@ def loss_single_layer(
     logp = F.log_softmax(cls_pred.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None])[..., 0]
     wgt = class_weight[labels]
-    avg_factor = wgt.sum().clamp(min=1.0)
+    avg_factor = global_normalizer(wgt.sum())
     loss_cls = (nll * wgt).sum() / avg_factor * loss_cls_weight
 
     # mask losses on the matched queries, at uncertainty-sampled points
-    num_total_masks = pos.sum().float().clamp(min=1.0)
+    num_total_masks = global_normalizer(pos.sum().float())
     with torch.no_grad():
         coords = get_uncertain_point_coords(
             sampler, mask_pred.detach().to(torch.bfloat16).reshape(

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vitadapter_torch.parallel.collectives import all_reduce_sum, world_size
+
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis."""
@@ -53,18 +55,33 @@ class BatchNorm(nn.BatchNorm2d):
     training mode it normalizes with the batch statistics, the biased
     variance taken as E[x^2] - E[x]^2 in fp32 as the JAX package does, and
     moves the running statistics by `momentum` (0.1) towards the batch mean
-    and the unbiased batch variance. Single device: SyncBN over several
-    cards is not ported yet."""
+    and the unbiased batch variance.
+
+    Under a process group of several ranks it is SyncBN: each rank's sums
+    of x and x^2 go through one differentiable fp32 all-reduce, and the
+    count is the world size times the rank's (the ranks' shards are equal,
+    as JAX's sharding requires), so the statistics are those of the global
+    batch (JAX's plain mean under `jit` over a sharded batch,
+    `vitadapter/layers/norm.py:1-9`) and the backward sums the statistics'
+    gradients over the ranks. (`torch.nn.SyncBatchNorm` refuses CPU
+    tensors, and its all-gather does not take CUDA tensors on gloo.)"""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = (slice(None),) + (None,) * (x.dim() - 2)
         xf = x.float()
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(axes)
-            var = xf.square().mean(axes) - mean.square()
+            n = x.numel() // x.shape[1]
+            if world_size() > 1:
+                n *= world_size()
+                s1, s2 = all_reduce_sum(torch.cat([
+                    xf.sum(axes), xf.square().sum(axes)])).chunk(2)
+                mean = s1 / n
+                var = s2 / n - mean.square()
+            else:
+                mean = xf.mean(axes)
+                var = xf.square().mean(axes) - mean.square()
             with torch.no_grad():
-                n = x.numel() // x.shape[1]
                 unbiased = var * (n / max(n - 1, 1))
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean

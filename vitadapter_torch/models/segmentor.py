@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from vitadapter_torch.models.seg_protocol import slide_grid, variant_plan
+from vitadapter_torch.parallel.collectives import global_normalizer
 from vitadapter_torch.utils.resize import resize_2d
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
@@ -144,7 +145,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ) -> torch.Tensor:
     """Mean softmax cross entropy of (B, H, W, K) logits against (B, H, W)
     labels over the pixels that are not `ignore_index` (mmseg's
-    CrossEntropyLoss, reduction 'mean' over the valid pixels), in fp32."""
+    CrossEntropyLoss, reduction 'mean' over the valid pixels), in fp32.
+    The valid pixels are counted over the global batch
+    (`parallel.global_normalizer`)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -152,7 +155,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if class_weight is not None:
         nll = nll * class_weight[safe]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / global_normalizer(valid.sum())
 
 
 def segmentation_loss(logits: torch.Tensor, aux_logits: torch.Tensor,

@@ -1,8 +1,8 @@
-"""Evaluate a checkpoint on one GPU (the port's twin of the root
-`test.py`):
+"""Evaluate a checkpoint (the port's twin of the root `test.py`):
 
     python -m vitadapter_torch.tools.test CONFIG CKPT --eval mIoU
         [--aug-test] [--max-images N] [--cfg-options k=v ...] [--device cpu]
+        [--multi-host]
     python -m vitadapter_torch.tools.test CONFIG CKPT --eval bbox segm ...
     python -m vitadapter_torch.tools.test CONFIG CKPT --eval IoU ...
     python -m vitadapter_torch.tools.test CONFIG CKPT --eval PQ ...
@@ -22,7 +22,11 @@ Acc@0.5; `--aug-test` votes over the config's `tta` scales and flips),
 `--eval PQ` the panoptic quality of a Mask2Former segmentor on the
 config's COCO-panoptic `data.val` (`run_panoptic_eval`; no `--aug-test`,
 as in the root script).
-The model runs on CUDA unless `--device cpu` is given.
+The model runs on CUDA unless `--device cpu` is given. Under torchrun
+with `--multi-host` (`python -m torch.distributed.run --nproc_per_node 8
+-m vitadapter_torch.tools.test CONFIG CKPT --eval ... --multi-host`) each
+rank evaluates every W-th image on its card and every rank returns the
+metrics of the whole set; rank 0 alone logs.
 """
 
 import argparse
@@ -33,7 +37,9 @@ from vitadapter_torch.train.det_loop import (build_det_dataset,
                                             build_panoptic_dataset,
                                             run_det_eval, run_grounding_eval,
                                             run_panoptic_eval)
-from vitadapter_torch.train.loop import build_dataset, eval_config, run_eval
+from vitadapter_torch.parallel.mesh import device_type, distributed
+from vitadapter_torch.train.loop import (build_dataset, eval_config,
+                                         run_eval, silent)
 from vitadapter_torch.utils.checkpoint_io import load_model_weights
 from vitadapter_torch.utils.config import Config, parse_cfg_options
 
@@ -52,6 +58,8 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--cfg-options", nargs="+", default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--multi-host", action="store_true",
+                   help="data parallel over the ranks torchrun launched")
     args = p.parse_args(argv)
     unknown = [m for m in args.eval if m not in KNOWN_METRICS]
     if unknown:
@@ -70,6 +78,11 @@ def main(argv: Optional[List[str]] = None, log_fn=print):
     args = parse_args(argv)
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(parse_cfg_options(args.cfg_options))
+    with distributed(args.multi_host, device_type(args.device)) as (rank, *_):
+        return _evaluate(args, cfg, log_fn if rank == 0 else silent)
+
+
+def _evaluate(args, cfg, log_fn):
     model = build_model(dict(cfg.model), device=args.device)
     load_model_weights(args.checkpoint, model)
     if "IoU" in args.eval:

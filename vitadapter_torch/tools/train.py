@@ -1,20 +1,28 @@
-"""Train a segmentor or a detector from a config file on one GPU (the
-port's twin of the root `train.py`, which sends the detector types to the
-detection loop):
+"""Train a segmentor or a detector from a config file (the port's twin
+of the root `train.py`, which sends the detector types to the detection
+loop):
 
     python -m vitadapter_torch.tools.train CONFIG [--work-dir D] [--resume]
         [--max-iters N] [--synthetic-data] [--cfg-options k=v ...]
-        [--device cpu]
+        [--device cpu] [--multi-host]
 
 The model runs on CUDA unless `--device cpu` is given (the kernels' plain
-versions then run on the CPU). Training on several cards (`--multi-host`
-of the root script, DDP) is not ported yet: ROADMAP.md §1 item 5.
+versions then run on the CPU). On several cards (ROADMAP.md §1 item 5)
+launch one process a card with torchrun and pass `--multi-host`:
+
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m vitadapter_torch.tools.train CONFIG --multi-host
+
+Each rank then takes `samples_per_chip` images a step on its card
+(`cuda:LOCAL_RANK`; NCCL, or gloo with `--device cpu`), the global batch
+of JAX's step over an 8-device mesh.
 """
 
 import argparse
 import os
 from typing import List, Optional
 
+from vitadapter_torch.parallel.mesh import device_type, distributed
 from vitadapter_torch.train.det_loop import DETECTORS, run_det_training
 from vitadapter_torch.train.loop import run_training
 from vitadapter_torch.utils.config import Config, parse_cfg_options
@@ -33,6 +41,8 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="override config entries: key.subkey=value")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--multi-host", action="store_true",
+                   help="data parallel over the ranks torchrun launched")
     return p.parse_args(argv)
 
 
@@ -47,9 +57,10 @@ def main(argv: Optional[List[str]] = None, log_fn=print):
     os.makedirs(work_dir, exist_ok=True)
     run = (run_det_training if cfg.model["type"] in DETECTORS
            else run_training)
-    return run(cfg, work_dir, resume=args.resume, max_iters=args.max_iters,
-               synthetic=args.synthetic_data, device=args.device,
-               log_fn=log_fn)
+    with distributed(args.multi_host, device_type(args.device)):
+        return run(cfg, work_dir, resume=args.resume,
+                   max_iters=args.max_iters, synthetic=args.synthetic_data,
+                   device=args.device, log_fn=log_fn)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Config-driven detection training and evaluation (counterpart of
-`vitadapter/train/det_loop.py`, on one device), for Mask R-CNN, Cascade
+`vitadapter/train/det_loop.py`), on one card or data-parallel over the
+ranks of a process group (`parallel/`), for Mask R-CNN, Cascade
 Mask R-CNN / HTC++, ATSS/GFL, Sparse R-CNN and the DINO detectors,
 GroundingDINO among them; and the panoptic evaluation of a Mask2Former
 segmentor.
@@ -20,7 +21,9 @@ PQ`: per-query predictions fused into a panoptic map on the device,
 panoptic quality on the host.
 The JAX version shards images over a device mesh with one compiled program
 per canvas; the port runs `test_cfg.images_per_device` images of a canvas
-a model call, eagerly. Ground-truth masks travel as bool and are read as
+a model call, eagerly, each rank taking every W-th image, and gathers the
+per-image results into image order (`gather_by_image`) to score them
+once. Ground-truth masks travel as bool and are read as
 they are on the device. As the JAX loop does, training takes the config's
 optimizer with 500 warmup steps and the poly schedule, whatever its
 `lr_config` says, and reads `checkpoint_config.interval` in steps.
@@ -28,7 +31,7 @@ optimizer with 500 warmup steps and the poly schedule, whatever its
 
 import os
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -41,14 +44,17 @@ from vitadapter_torch.data.grounding import (ParaphraseCache, VGDataset,
                                              WSDMCocoDataset,
                                              grounding_metrics)
 from vitadapter_torch.data.tokenization import ClipTokenizer, random_flip_refer
-from vitadapter_torch.data.loader import EpochSampler, prefetch
+from vitadapter_torch.data.loader import EpochSampler, image_rng, prefetch
 from vitadapter_torch.data.preprocess import normalize
 from vitadapter_torch.det.cascade import merge_aug_detections
 from vitadapter_torch.det.coco_eval import COCOEvaluator
 from vitadapter_torch.det.grounding_dino import aug_test_vote
 from vitadapter_torch.det.panoptic_eval import PQEvaluator
 from vitadapter_torch.heads.panoptic import panoptic_fuse
-from vitadapter_torch.train.loop import build_train_state, train_steps
+from vitadapter_torch.parallel.collectives import (broadcast_object,
+                                                  process_allgather)
+from vitadapter_torch.parallel.mesh import rank_rows, shard_batch, world
+from vitadapter_torch.train.loop import build_train_state, silent, train_steps
 from vitadapter_torch.train.trainer import TrainState, make_det_train_step
 from vitadapter_torch.zoo import resolve_device
 
@@ -71,25 +77,13 @@ def build_det_dataset(data_cfg: Dict[str, Any], split: str,
                os.path.join(root, sub["img_dir"]), **kwargs)
 
 
-def det_train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
-                      tokenizer=None,
-                      sampler=None) -> Iterator[Dict[str, np.ndarray]]:
-    """The reference det pipeline into static-shape batches, as the JAX
-    package's `det_train_batches` (same draws from `seed`): RandomFlip ->
-    AutoAugment (11-scale short-edge resize | resize -> absolute-range crop
-    -> resize) -> crop and pad to the static canvas, photometric distortion
-    where the config asks; targets padded to `max_instances`. Images ship
-    as uint8 and masks as bool. With a `tokenizer` (grounding) each image's
-    question rides along: a paraphrase from `data.paraphrase_cache` where
-    it holds one, the left/right words swapped with the flip, then
-    `refer`/`r_mask` ids and mask padded to `max_sent_len`."""
-    rng = np.random.RandomState(seed)
-    max_sent = data_cfg.get("max_sent_len", 128)
+def _det_setup(data_cfg, tokenizer) -> dict:
+    """What each image of `det_train_batches` / `det_step_batches` needs
+    besides its draws."""
+    ch, cw = data_cfg["crop_size"]
     para = None
     if tokenizer is not None and data_cfg.get("paraphrase_cache"):
         para = ParaphraseCache(data_cfg["paraphrase_cache"])
-    ch, cw = data_cfg["crop_size"]
-    max_inst = data_cfg.get("max_instances", 100)
     kw = dict(autoaug=data_cfg.get("autoaug", True),
               photometric=data_cfg.get("photometric", False),
               max_long=data_cfg.get("max_long_edge", 1333),
@@ -97,51 +91,99 @@ def det_train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
               scales_small=tuple(data_cfg.get("det_scales_small",
                                               T.DET_SCALES_SMALL)),
               crop_range=tuple(data_cfg.get("det_crop_range", (384, 600))))
+    return dict(crop=(ch, cw), kw=kw, para=para, tokenizer=tokenizer,
+                max_inst=data_cfg.get("max_instances", 100),
+                max_sent=data_cfg.get("max_sent_len", 128))
+
+
+def _det_sample(dataset, idx: int, rng, setup: dict) -> tuple:
+    """One image of the train pipeline: (image, padded target, the
+    tokenized question or None)."""
+    img, t = dataset.load(idx)
+    flip = bool(rng.rand() < 0.5)
+    img2, boxes, masks, keep = T.det_train_transform(
+        rng, img, t["boxes"].astype(np.float32), t.get("masks"),
+        setup["crop"], flip=flip, **setup["kw"])
+    t2 = {k: (v[keep] if isinstance(v, np.ndarray)
+              and len(v) == len(keep) else v) for k, v in t.items()}
+    t2["boxes"] = boxes[keep]
+    t2["masks"] = masks[keep] if masks is not None else None
+    ref = None
+    if setup["tokenizer"] is not None:
+        q = t.get("question", "")
+        if setup["para"] is not None:
+            q = setup["para"].maybe_paraphrase(rng, q)
+        if flip:
+            q = random_flip_refer(q)
+        ref = setup["tokenizer"].tokenize_refer(q, setup["max_sent"])
+    return img2, pad_targets(t2, setup["max_inst"]), ref
+
+
+def _det_batch(samples) -> Dict[str, np.ndarray]:
+    imgs, targets, refs = zip(*samples)
+    batch = {"image": np.stack(imgs).astype(np.uint8),
+             "gt_boxes": np.stack([t["boxes"] for t in targets]),
+             "gt_labels": np.stack([t["labels"] for t in targets]),
+             "gt_valid": np.stack([t["valid"] for t in targets])}
+    if targets[0].get("masks") is not None:
+        batch["gt_masks"] = np.stack(
+            [t["masks"] for t in targets]).astype(bool)
+    if refs[0] is not None:
+        batch["refer"] = np.asarray([r[0] for r in refs], np.int32)
+        batch["r_mask"] = np.asarray([r[1] for r in refs], np.int32)
+    return batch
+
+
+def det_train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
+                      tokenizer=None) -> Iterator[Dict[str, np.ndarray]]:
+    """The reference det pipeline into static-shape batches, as the JAX
+    package's `det_train_batches` of one process (same draws from `seed`):
+    RandomFlip -> AutoAugment (11-scale short-edge resize | resize ->
+    absolute-range crop -> resize) -> crop and pad to the static canvas,
+    photometric distortion where the config asks; targets padded to
+    `max_instances`. Images ship as uint8 and masks as bool. With a
+    `tokenizer` (grounding) each image's question rides along: a
+    paraphrase from `data.paraphrase_cache` where it holds one, the
+    left/right words swapped with the flip, then `refer`/`r_mask` ids and
+    mask padded to `max_sent_len`. No loop runs it: the training loops
+    run `det_step_batches`, and this sequential twin stays only so that
+    the tests can hold `_det_sample` to the JAX package's draws."""
+    rng = np.random.RandomState(seed)
+    setup = _det_setup(data_cfg, tokenizer)
     n = len(dataset)
     order = rng.permutation(n)
     pos = 0
     while True:
-        if sampler is not None:
-            idxs = sampler.take(batch_size)
-        else:
-            idxs = []
-            for _ in range(batch_size):
-                if pos >= n:
-                    order = rng.permutation(n)
-                    pos = 0
-                idxs.append(int(order[pos]))
-                pos += 1
-        imgs, targets, refs = [], [], []
-        for idx in idxs:
-            img, t = dataset.load(idx)
-            flip = bool(rng.rand() < 0.5)
-            img2, boxes, masks, keep = T.det_train_transform(
-                rng, img, t["boxes"].astype(np.float32), t.get("masks"),
-                (ch, cw), flip=flip, **kw)
-            t2 = {k: (v[keep] if isinstance(v, np.ndarray)
-                      and len(v) == len(keep) else v) for k, v in t.items()}
-            t2["boxes"] = boxes[keep]
-            t2["masks"] = masks[keep] if masks is not None else None
-            targets.append(pad_targets(t2, max_inst))
-            imgs.append(img2)
-            if tokenizer is not None:
-                q = t.get("question", "")
-                if para is not None:
-                    q = para.maybe_paraphrase(rng, q)
-                if flip:
-                    q = random_flip_refer(q)
-                refs.append(tokenizer.tokenize_refer(q, max_sent))
-        batch = {"image": np.stack(imgs).astype(np.uint8),
-                 "gt_boxes": np.stack([t["boxes"] for t in targets]),
-                 "gt_labels": np.stack([t["labels"] for t in targets]),
-                 "gt_valid": np.stack([t["valid"] for t in targets])}
-        if targets[0].get("masks") is not None:
-            batch["gt_masks"] = np.stack(
-                [t["masks"] for t in targets]).astype(bool)
-        if tokenizer is not None:
-            batch["refer"] = np.asarray([r[0] for r in refs], np.int32)
-            batch["r_mask"] = np.asarray([r[1] for r in refs], np.int32)
-        yield batch
+        idxs = []
+        for _ in range(batch_size):
+            if pos >= n:
+                order = rng.permutation(n)
+                pos = 0
+            idxs.append(int(order[pos]))
+            pos += 1
+        yield _det_batch([_det_sample(dataset, i, rng, setup)
+                          for i in idxs])
+
+
+def det_step_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
+                     tokenizer=None, num_threads: int = 4
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """`det_train_batches`' pipeline keyed by step, as
+    `train/loop.py::step_batches`: this rank's rows of step k's global
+    batch, positions [k * batch_size, (k + 1) * batch_size) of an
+    `EpochSampler` stream, each image drawing from `image_rng(seed, k,
+    position)`; prefetched in step order."""
+    sampler = EpochSampler(len(dataset), seed)
+    rows = rank_rows(batch_size)
+    setup = _det_setup(data_cfg, tokenizer)
+
+    def make(step):
+        idxs = sampler.indices(step * batch_size + rows.start, len(rows))
+        return _det_batch([_det_sample(dataset, i, image_rng(seed, step, j),
+                                       setup)
+                           for j, i in zip(rows, idxs)])
+
+    return prefetch(make, num_threads=num_threads)
 
 
 def synthetic_det_batches(batch: int, crop, max_inst: int,
@@ -198,8 +240,9 @@ def _iou_types(metric) -> tuple:
 def run_det_training(cfg, work_dir: str, resume: bool = False,
                      max_iters: Optional[int] = None, synthetic: bool = False,
                      device=None, log_fn=print) -> TrainState:
-    """Train the config's detector on `device` (CUDA when None; raises
-    where there is none): `samples_per_chip` images a step, resume from
+    """Train the config's detector on `device` (CUDA when None, this
+    rank's card under a process group; raises where there is none):
+    `samples_per_chip` images a step on each rank, resume from
     the latest checkpoint in `work_dir/ckpt`, logs, checkpoints and, with
     real data, the `evaluation.interval` hook (`bbox`/`segm` metrics, the
     best step's state in `work_dir/best_<key>` with `save_best`). As in
@@ -208,10 +251,15 @@ def run_det_training(cfg, work_dir: str, resume: bool = False,
     resumed run starts the data stream and the DropPath generator anew,
     and `pretrained` weights are not loaded. Returns the final state."""
     device = resolve_device(device)
+    rank, size, _ = world()
+    if rank:
+        log_fn = silent
     total = max_iters or cfg.get("runner", {}).get("max_iters", 90000)
     model, state, schedule, start = build_train_state(
         cfg, device, total, 500, "poly", work_dir, resume, log_fn)
-    batch = cfg.data.get("samples_per_chip", 2)
+    batch = cfg.data.get("samples_per_chip", 2) * size
+    if size > 1:
+        log_fn(f"data parallel over {size} ranks: {batch} images a step")
     crop = tuple(cfg.data["crop_size"])
     max_inst = cfg.data.get("max_instances", 100)
     needs_masks = cfg.model["type"] in MASK_DETECTORS
@@ -219,17 +267,14 @@ def run_det_training(cfg, work_dir: str, resume: bool = False,
     if synthetic:
         text = ((cfg.model["backbone"].get("vocab_size", 49411),
                  cfg.data.get("max_sent_len", 128)) if grounding else None)
-        it = synthetic_det_batches(batch, crop, max_inst,
-                                   cfg.model.get("num_classes", 80),
-                                   masks=needs_masks, text=text)
+        it = map(shard_batch, synthetic_det_batches(
+            batch, crop, max_inst, cfg.model.get("num_classes", 80),
+            masks=needs_masks, text=text))
     else:
         ds = build_det_dataset(cfg.data, "train", with_masks=needs_masks)
         tok = ClipTokenizer(cfg.data.get("bpe_vocab")) if grounding else None
-        sampler = EpochSampler(len(ds), seed=0)
-        it = prefetch(lambda s: det_train_batches(ds, cfg.data, batch,
-                                                  seed=s, tokenizer=tok,
-                                                  sampler=sampler),
-                      num_threads=cfg.data.get("workers", 4))
+        it = det_step_batches(ds, cfg.data, batch, tokenizer=tok,
+                              num_threads=cfg.data.get("workers", 4))
 
     # the in-training evaluation (mmcv EvalHook; the det configs set
     # `evaluation = dict(metric=['bbox', 'segm'])`). As in the JAX loop it
@@ -321,6 +366,20 @@ def paste_mask_crops(dets: Dict[str, np.ndarray], H: int, W: int
     return full
 
 
+def gather_by_image(local: Dict[int, Any]) -> list:
+    """The ranks' per-image results ({image index: result}, this rank's),
+    all of them in image order, on every rank."""
+    merged: Dict[int, Any] = {}
+    for part in process_allgather(local):
+        merged.update(part)
+    return [merged[i] for i in sorted(merged)]
+
+
+def _score_once(score: Callable[[], Dict[str, Any]]) -> Dict[str, Any]:
+    """`score()` on rank 0, its metrics on every rank."""
+    return broadcast_object(score() if world()[0] == 0 else None)
+
+
 def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
                  aug_test: bool = False, max_images: Optional[int] = None,
                  log_fn=print) -> Dict[str, Any]:
@@ -335,8 +394,11 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
     entry (the JAX package's `ranges[i // 2]` over the (scale 0, scale 0
     flipped, scale 1, ...) order), then `det/cascade.py::
     merge_aug_detections`. The model runs on the device of its parameters,
-    in eval mode. Returns the metrics, and under `timing` the seconds spent
-    in model calls (to a synchronize) and on the host (load, resize, merge,
+    in eval mode. Under a process group rank r runs images r, r + W, ...
+    as far as their per-image matching records, which are gathered into
+    image order and scored once (`_score_once`). Returns the metrics, the
+    same on every rank, and under `timing` this rank's seconds spent in
+    model calls (to a synchronize) and on the host (load, resize, merge,
     paste, evaluator)."""
     tcfg = dict(cfg.get("test_cfg") or {})
     img_scale = tuple(tcfg.get("img_scale", (1333, 800)))
@@ -358,14 +420,14 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
     per_call = int(tcfg.get("images_per_device", 2))
     device = next(model.parameters()).device
     n = min(len(dataset), max_images or len(dataset))
+    mine = range(world()[0], n, world()[1])
     results: Dict[int, list] = {}
     per_img: Dict[int, tuple] = {}
+    records: Dict[int, dict] = {}
     pending: Dict[tuple, list] = {}
     forward_s = 0.0
-    done = 0
 
     def finalize(i):
-        nonlocal done
         per_aug = results.pop(i)
         H, W, gts = per_img.pop(i)
         if aug_test:
@@ -376,11 +438,10 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
             dets = per_aug[0]
         if "masks" in dets and "segm" in evaluators:
             dets["masks"] = paste_mask_crops(dets, H, W)
-        for ev in evaluators.values():
-            ev.add_image(dets, gts)
-        done += 1
-        if done % 100 == 0 or done == n:
-            log_fn(f"eval {done}/{n}")
+        records[i] = {t: ev.image_records(dets, gts)
+                      for t, ev in evaluators.items()}
+        if len(records) % 100 == 0 or len(records) == len(mine):
+            log_fn(f"eval {len(records)}/{len(mine)}")
 
     def flush(key):
         nonlocal forward_s
@@ -403,7 +464,7 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
     model.eval()
     try:
         with torch.inference_mode():
-            for i in range(n):
+            for i in mine:
                 img, gts = dataset.load(i)
                 results[i] = [None] * len(augs)
                 per_img[i] = (img.shape[0], img.shape[1], gts)
@@ -417,15 +478,17 @@ def run_det_eval(cfg, model: torch.nn.Module, dataset, iou_types=("bbox",),
                 flush(key)
     finally:
         model.train(was_training)
-    metrics: Dict[str, Any] = {}
-    for ev in evaluators.values():
-        metrics.update(ev.summarize())
+    for rec in gather_by_image(records):
+        for t, ev in evaluators.items():
+            ev.add_records(rec[t])
+    metrics: Dict[str, Any] = _score_once(lambda: {
+        k: v for ev in evaluators.values() for k, v in ev.summarize().items()})
     log_fn(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     total_s = time.perf_counter() - t_start
-    metrics["timing"] = {"images": n, "augs": len(augs),
+    metrics["timing"] = {"images": len(mine), "augs": len(augs),
                          "forward_s": forward_s,
                          "host_s": total_s - forward_s}
-    log_fn(f"eval time: {n} images x {len(augs)} augs, model calls "
+    log_fn(f"eval time: {len(mine)} images x {len(augs)} augs, model calls "
            f"{forward_s:.3f} s, host {total_s - forward_s:.3f} s")
     return metrics
 
@@ -461,10 +524,12 @@ def run_grounding_eval(cfg, model: torch.nn.Module, dataset,
     repeating its last input, whose results are dropped, as the JAX
     package's batch slack); boxes unflipped in the aug's frame, then
     unscaled. The prediction is the top-scoring box, or with `aug_test`
-    `det/grounding_dino.py::aug_test_vote` over the augs. Returns mIoU and
-    Acc@0.5 against each image's first gt box, the predictions
-    (`boxes`, (n, 4) in original pixels) and under `timing` the seconds in
-    model calls (to a synchronize) and on the host."""
+    `det/grounding_dino.py::aug_test_vote` over the augs. Under a process
+    group rank r runs images r, r + W, ..., and the predictions are
+    gathered into image order. Returns mIoU and Acc@0.5 against each
+    image's first gt box, the predictions (`boxes`, (n, 4) in original
+    pixels), the same on every rank, and under `timing` this rank's
+    seconds in model calls (to a synchronize) and on the host."""
     if tokenizer is None:
         tokenizer = ClipTokenizer(cfg.data.get("bpe_vocab"))
     max_sent = cfg.data.get("max_sent_len", 128)
@@ -472,6 +537,7 @@ def run_grounding_eval(cfg, model: torch.nn.Module, dataset,
     per_call = int((cfg.get("test_cfg") or {}).get("images_per_device", 2))
     device = next(model.parameters()).device
     n = min(len(dataset), max_images or len(dataset))
+    mine = range(world()[0], n, world()[1])
     n_aug = len(scales) * len(flips)
     results: Dict[int, list] = {}
     preds: Dict[int, np.ndarray] = {}
@@ -486,8 +552,8 @@ def run_grounding_eval(cfg, model: torch.nn.Module, dataset,
                 per_aug[0]["scores"]))]
         else:
             preds[i] = aug_test_vote(per_aug)
-        if len(preds) % 100 == 0 or len(preds) == n:
-            log_fn(f"eval {len(preds)}/{n}")
+        if len(preds) % 100 == 0 or len(preds) == len(mine):
+            log_fn(f"eval {len(preds)}/{len(mine)}")
 
     def flush(key):
         nonlocal forward_s
@@ -521,7 +587,7 @@ def run_grounding_eval(cfg, model: torch.nn.Module, dataset,
     model.eval()
     try:
         with torch.inference_mode():
-            for i in range(n):
+            for i in mine:
                 img, t = dataset.load(i)
                 question = t.get("question", "")
                 toks = {fl: tokenizer.tokenize_refer(
@@ -550,15 +616,17 @@ def run_grounding_eval(cfg, model: torch.nn.Module, dataset,
                 flush(key)
     finally:
         model.train(was_training)
-    metrics: Dict[str, Any] = grounding_metrics(
-        [preds[i] for i in range(n)], [gts[i] for i in range(n)])
+    pairs = gather_by_image({i: (preds[i], gts[i]) for i in preds})
+    metrics: Dict[str, Any] = _score_once(lambda: grounding_metrics(
+        [p for p, _ in pairs], [g for _, g in pairs]))
     log_fn(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     total_s = time.perf_counter() - t_start
-    metrics["boxes"] = np.stack([preds[i] for i in range(n)]) if n else \
+    metrics["boxes"] = np.stack([p for p, _ in pairs]) if n else \
         np.zeros((0, 4), np.float32)
-    metrics["timing"] = {"images": n, "augs": n_aug, "forward_s": forward_s,
+    metrics["timing"] = {"images": len(mine), "augs": n_aug,
+                         "forward_s": forward_s,
                          "host_s": total_s - forward_s}
-    log_fn(f"eval time: {n} images x {n_aug} augs, model calls "
+    log_fn(f"eval time: {len(mine)} images x {n_aug} augs, model calls "
            f"{forward_s:.3f} s, host {total_s - forward_s:.3f} s")
     return metrics
 
@@ -587,10 +655,12 @@ def run_panoptic_eval(cfg, model: torch.nn.Module, dataset,
     images_per_device` (2) images of a padded size a model call, the last
     layer's queries (`return_queries=True`) fused on the device by
     `heads/panoptic.py::panoptic_fuse` with the config's `panoptic`
-    thresholds, the map cropped back and scored on the host
-    (`det/panoptic_eval.py::PQEvaluator`). Returns PQ, SQ, RQ, PQ_th and
-    PQ_st, and under `timing` the seconds in model calls and fusion (to a
-    synchronize) and on the host."""
+    thresholds, the map cropped back and matched on the host
+    (`det/panoptic_eval.py::PQEvaluator`). Under a process group rank r
+    runs images r, r + W, ..., and the per-image matches are gathered into
+    image order and scored once. Returns PQ, SQ, RQ, PQ_th and PQ_st, the
+    same on every rank, and under `timing` this rank's seconds in model
+    calls and fusion (to a synchronize) and on the host."""
     pcfg = dict(cfg.get("panoptic") or {})
     n_th = pcfg.get("num_things", dataset.num_things)
     n_st = pcfg.get("num_stuff", dataset.num_stuff)
@@ -600,12 +670,13 @@ def run_panoptic_eval(cfg, model: torch.nn.Module, dataset,
     device = next(model.parameters()).device
     ev = PQEvaluator(num_things=n_th, num_stuff=n_st)
     n = min(len(dataset), max_images or len(dataset))
+    mine = range(world()[0], n, world()[1])
+    stats: Dict[int, tuple] = {}
     pending: Dict[tuple, list] = {}
     forward_s = 0.0
-    done = 0
 
     def flush(key):
-        nonlocal forward_s, done
+        nonlocal forward_s
         items = pending.pop(key, [])
         if not items:
             return
@@ -618,35 +689,36 @@ def run_panoptic_eval(cfg, model: torch.nn.Module, dataset,
             iou_thr=pcfg.get("iou_thr", 0.8))
             for c, m in zip(cls_q, mask_q)]).cpu().numpy()
         forward_s += time.perf_counter() - t0
-        for pan, (_, H, W, gt_pan) in zip(pans, items):
-            ev.add_image(pan[:H, :W], gt_pan)
-            done += 1
-            if done % 100 == 0 or done == n:
-                log_fn(f"eval {done}/{n}")
+        for pan, (_, H, W, gt_pan, i) in zip(pans, items):
+            stats[i] = ev.image_stats(pan[:H, :W], gt_pan)
+            if len(stats) % 100 == 0 or len(stats) == len(mine):
+                log_fn(f"eval {len(stats)}/{len(mine)}")
 
     t_start = time.perf_counter()
     was_training = model.training
     model.eval()
     try:
         with torch.inference_mode():
-            for i in range(n):
+            for i in mine:
                 img, t = dataset.load(i)
                 H, W = img.shape[:2]
                 key = (-(-H // bucket) * bucket, -(-W // bucket) * bucket)
                 x = np.zeros((*key, 3), np.float32)
                 x[:H, :W] = img
-                pending.setdefault(key, []).append((x, H, W, t["pan"]))
+                pending.setdefault(key, []).append((x, H, W, t["pan"], i))
                 if len(pending[key]) == per_call:
                     flush(key)
             for key in list(pending):
                 flush(key)
     finally:
         model.train(was_training)
-    metrics: Dict[str, Any] = ev.summarize()
+    for st in gather_by_image(stats):
+        ev.add_stats(st)
+    metrics: Dict[str, Any] = _score_once(ev.summarize)
     log_fn(" ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     total_s = time.perf_counter() - t_start
-    metrics["timing"] = {"images": n, "forward_s": forward_s,
+    metrics["timing"] = {"images": len(mine), "forward_s": forward_s,
                          "host_s": total_s - forward_s}
-    log_fn(f"eval time: {n} images, model calls {forward_s:.3f} s, "
+    log_fn(f"eval time: {len(mine)} images, model calls {forward_s:.3f} s, "
            f"host {total_s - forward_s:.3f} s")
     return metrics

@@ -1,5 +1,6 @@
 """Config-driven training and evaluation for segmentation (counterpart of
-`vitadapter/train/loop.py`, on one device).
+`vitadapter/train/loop.py`), on one card or data-parallel over the ranks
+of a process group (`parallel/`).
 
 `run_training` replaces the reference's mm runner (IterBasedRunner and its
 hooks): the model and optimizer from the config, resume, a host data
@@ -8,8 +9,12 @@ batches), logging (lr, time, data time, ETA, memory), checkpoints and an
 in-training mIoU evaluation with best-checkpoint selection. `run_eval` is
 the reference test protocol. The JAX version batches images of one shape
 signature over a device mesh and caches one compiled program per
-signature; on one card the port runs each image eagerly, in the same order
-of operations.
+signature; the port runs each image eagerly, in the same order of
+operations, each rank taking every W-th image.
+
+With W ranks a step takes `samples_per_chip` images on each rank, W times
+that in all, as JAX's step over a W-device mesh; rank 0 alone logs and
+writes checkpoints, the others waiting for it at a barrier.
 """
 
 import os
@@ -18,14 +23,18 @@ from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vitadapter_torch.builder import build_model
 from vitadapter_torch.data import transforms as T
 from vitadapter_torch.data.datasets import DATASETS
-from vitadapter_torch.data.loader import EpochSampler, prefetch
+from vitadapter_torch.data.loader import EpochSampler, image_rng, prefetch
 from vitadapter_torch.data.metrics import confusion_matrix, miou_from_confusion
 from vitadapter_torch.data.preprocess import normalize
 from vitadapter_torch.models import seg_protocol as SP
+from vitadapter_torch.parallel.collectives import barrier, broadcast_object
+from vitadapter_torch.parallel.mesh import (rank_generator, rank_rows,
+                                            replicate, shard_batch, world)
 from vitadapter_torch.train.optim import make_optimizer
 from vitadapter_torch.train.trainer import (TrainState, make_m2f_train_step,
                                             make_seg_train_step)
@@ -44,38 +53,38 @@ def build_dataset(data_cfg: Dict[str, Any], split: str):
                   else None)
 
 
-def train_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
-                  sampler=None) -> Iterator[Dict[str, np.ndarray]]:
-    """`sampler` (shared `data.loader.EpochSampler`) gives DistributedSampler
-    epoch semantics across prefetch threads; without one, each stream draws
-    its own per-thread permutations (sampling with replacement globally)."""
-    rng = np.random.RandomState(seed)
-    crop = tuple(data_cfg["crop_size"])
-    scale = tuple(data_cfg["scale"])
-    rr = tuple(data_cfg.get("ratio_range", (0.5, 2.0)))
-    cmr = data_cfg.get("cat_max_ratio", 0.75)
-    n = len(dataset)
-    order = rng.permutation(n)
-    pos = 0
-    while True:
-        if sampler is not None:
-            idxs = sampler.take(batch_size)
-        else:
-            idxs = []
-            for _ in range(batch_size):
-                if pos >= n:
-                    order = rng.permutation(n)
-                    pos = 0
-                idxs.append(int(order[pos]))
-                pos += 1
-        imgs, segs = [], []
-        for idx in idxs:
-            img, seg = dataset.load(idx)
-            img, seg = T.train_transform(rng, img, seg, crop, scale, rr, cmr)
-            imgs.append(img)
-            segs.append(seg)
-        yield {"image": np.stack(imgs).astype(np.float32),
-               "label": np.stack(segs).astype(np.int32)}
+def _seg_aug(data_cfg) -> tuple:
+    """`transforms.train_transform`'s arguments after the draws: crop,
+    scale, ratio range, cat_max_ratio."""
+    return (tuple(data_cfg["crop_size"]), tuple(data_cfg["scale"]),
+            tuple(data_cfg.get("ratio_range", (0.5, 2.0))),
+            data_cfg.get("cat_max_ratio", 0.75))
+
+
+def _seg_batch(samples) -> Dict[str, np.ndarray]:
+    return {"image": np.stack([s[0] for s in samples]).astype(np.float32),
+            "label": np.stack([s[1] for s in samples]).astype(np.int32)}
+
+
+def step_batches(dataset, data_cfg, batch_size: int, seed: int = 0,
+                 num_threads: int = 4) -> Iterator[Dict[str, np.ndarray]]:
+    """This rank's rows of each step's global batch of `batch_size` images
+    (`parallel.rank_rows`), prefetched in step order: step k takes
+    positions [k * batch_size, (k + 1) * batch_size) of an `EpochSampler`
+    stream (every image once an epoch) and each image's augmentation draws
+    from `image_rng(seed, k, position)`, so that W ranks load the rows of
+    the batch one process would load."""
+    sampler = EpochSampler(len(dataset), seed)
+    rows = rank_rows(batch_size)
+    aug = _seg_aug(data_cfg)
+
+    def make(step):
+        idxs = sampler.indices(step * batch_size + rows.start, len(rows))
+        return _seg_batch([T.train_transform(image_rng(seed, step, j),
+                                             *dataset.load(i), *aug)
+                           for j, i in zip(rows, idxs)])
+
+    return prefetch(make, num_threads=num_threads)
 
 
 def synthetic_batches(batch_size: int, crop, num_classes: int):
@@ -132,8 +141,10 @@ def build_train_state(cfg, device: torch.device, total: int,
                       resume: bool, log_fn):
     """The config's model on `device`, its optimizer (AdamW with layer
     decay over the backbone's `depth`) and schedule, and the train state,
-    restored from the latest checkpoint in `work_dir/ckpt` when `resume`.
-    Returns (model, state, schedule, the step to start at)."""
+    restored from the latest checkpoint in `work_dir/ckpt` when `resume`
+    (the step rank 0 finds, on every rank); the model's parameters and
+    buffers are rank 0's on every rank. Returns (model, state, schedule,
+    the step to start at)."""
     # `build_model` refuses the types not ported yet, naming their item
     model = build_model(dict(cfg.model), device=device)
     opt = cfg.optimizer
@@ -152,19 +163,22 @@ def build_train_state(cfg, device: torch.device, total: int,
            f"checkpoint {12 * n_params / 2 ** 30:.2f} GiB on disk")
     start = 0
     ckpt_dir = os.path.join(work_dir, "ckpt")
-    if resume and latest_step(ckpt_dir) is not None:
-        restore_checkpoint(ckpt_dir, state)
+    step = broadcast_object(latest_step(ckpt_dir) if resume else None)
+    if step is not None:
+        restore_checkpoint(ckpt_dir, state, step)
         start = state.step
         log_fn(f"resumed from step {start}")
+    replicate(model)
     return model, state, schedule, start
 
 
 def run_training(cfg, work_dir: str, resume: bool = False,
                  max_iters: Optional[int] = None, synthetic: bool = False,
                  device=None, log_fn=print) -> TrainState:
-    """Train the config's segmentor on `device` (CUDA when None; raises
-    where there is none): `samples_per_chip` images a step on the one
-    device, the config's optimizer and schedule, resume from the latest
+    """Train the config's segmentor on `device` (CUDA when None, this
+    rank's card under a process group; raises where there is none):
+    `samples_per_chip` images a step on each rank (times the world size in
+    all), the config's optimizer and schedule, resume from the latest
     checkpoint in `work_dir/ckpt`, logs every `log_config.interval` steps,
     checkpoints every `checkpoint_config.interval` steps and at the end,
     and the in-training evaluation every `evaluation.interval` steps (with
@@ -173,6 +187,9 @@ def run_training(cfg, work_dir: str, resume: bool = False,
     generator anew, and the config's `pretrained` weights are not loaded.
     Returns the final `TrainState`."""
     device = resolve_device(device)
+    rank, size, _ = world()
+    if rank:
+        log_fn = silent
     total = max_iters or cfg.runner["max_iters"]
     model, state, schedule, start = build_train_state(
         cfg, device, total, cfg.lr_config.get("warmup_iters", 1500),
@@ -180,7 +197,9 @@ def run_training(cfg, work_dir: str, resume: bool = False,
     mtype = cfg.model["type"]
     num_classes = cfg.model["decode_head"]["num_classes"]
     crop = tuple(cfg.data["crop_size"])
-    batch = cfg.data.get("samples_per_chip", 2)
+    batch = cfg.data.get("samples_per_chip", 2) * size
+    if size > 1:
+        log_fn(f"data parallel over {size} ranks: {batch} images a step")
     if mtype == "EncoderDecoderMask2Former":
         tc = cfg.get("train_cfg", {})
         step_fn = make_m2f_train_step(
@@ -191,16 +210,12 @@ def run_training(cfg, work_dir: str, resume: bool = False,
         step_fn = make_seg_train_step(model, cfg.get("aux_loss_weight", 0.4))
 
     if synthetic:
-        it = synthetic_batches(batch, crop, num_classes)
+        it = map(shard_batch, synthetic_batches(batch, crop, num_classes))
     else:
-        ds = build_dataset(cfg.data, "train")
         # threaded prefetch hides host-side decode/augment behind device
-        # compute; the shared sampler keeps DistributedSampler epoch
-        # semantics across the threads
-        sampler = EpochSampler(len(ds), seed=0)
-        it = prefetch(lambda s: train_batches(ds, cfg.data, batch, seed=s,
-                                              sampler=sampler),
-                      num_threads=cfg.data.get("workers", 4))
+        # compute
+        it = step_batches(build_dataset(cfg.data, "train"), cfg.data, batch,
+                          num_threads=cfg.data.get("workers", 4))
 
     # in-training evaluation + best-checkpoint selection (the reference's
     # mmcv EvalHook: `evaluation = dict(interval=8000, metric='mIoU',
@@ -234,13 +249,15 @@ def train_steps(cfg, state: TrainState, step_fn, it, to_device, start: int,
     """The step loop that the segmentation and detection runs share: steps
     [start, total) of `step_fn(state, batch, generator)` on batches of `it`
     put on the device by `to_device` (the next one while the device runs
-    the step), DropPath's generator seeded 1; logs every
+    the step), DropPath's generator seeded from (1, rank); logs every
     `log_config.interval` steps (loss, lr, time, data time, ETA, grad norm,
     peak memory), checkpoints every `checkpoint_config.interval` steps
     (`ckpt_interval` by default) and at the end, and every
     `evaluation.interval` steps and at the end `evaluate()`, when given,
     whose metrics pick the best checkpoint (`evaluation.save_best`) into
-    `work_dir/best_<key>`. Returns the final `TrainState`."""
+    `work_dir/best_<key>`. Only rank 0 writes checkpoints (the others
+    wait for it); `log_fn` should log on rank 0 alone. Returns the final
+    `TrainState`."""
     log_int = cfg.get("log_config", {}).get("interval", 50)
     ckpt_cfg = cfg.get("checkpoint_config", {})
     ckpt_int = ckpt_cfg.get("interval", ckpt_interval)
@@ -249,7 +266,7 @@ def train_steps(cfg, state: TrainState, step_fn, it, to_device, start: int,
     ev_int = ev_cfg.get("interval") if evaluate is not None else None
     best = -float("inf")
 
-    generator = torch.Generator(device).manual_seed(1)
+    generator = rank_generator(device, 1)
     timer = StepTimer(device)
     # the next batch is fetched and copied while the device runs the step
     b = to_device(next(it))
@@ -289,12 +306,20 @@ def train_steps(cfg, state: TrainState, step_fn, it, to_device, start: int,
 
 def _save(ckpt_dir: str, step: int, state: TrainState, max_keep: int,
           log_fn) -> None:
-    t0 = time.perf_counter()
-    path = save_checkpoint(ckpt_dir, step, state, max_keep)
-    size = sum(os.path.getsize(os.path.join(path, f))
-               for f in os.listdir(path))
-    log_fn(f"checkpoint of step {step}: {size} bytes in "
-           f"{time.perf_counter() - t0:.2f} s -> {path}")
+    """Rank 0 writes the checkpoint; every rank leaves when it is on
+    disk."""
+    if world()[0] == 0:
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt_dir, step, state, max_keep)
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        log_fn(f"checkpoint of step {step}: {size} bytes in "
+               f"{time.perf_counter() - t0:.2f} s -> {path}")
+    barrier()
+
+
+def silent(*args) -> None:
+    """The `log_fn` of the ranks other than 0."""
 
 
 # the reference `--aug-test` ratios (segmentation/test.py:131-136)
@@ -332,8 +357,11 @@ def run_eval(cfg: Dict[str, Any], model: torch.nn.Module, dataset,
     overrides the reference `--aug-test` set when `aug_test` is true.
     Ratios scale the `img_scale` canvas (MultiScaleFlipAug mode 2).
     `dataset` has `__len__` and `load(i) -> (uint8 HxWx3, int HxW)`. The
-    model runs on the device of its parameters, in eval mode. Returns
-    aAcc, mIoU, mAcc and `confusion`, the (K, K) int64 counts[gt, pred].
+    model runs on the device of its parameters, in eval mode. Under a
+    process group rank r scores images r, r + W, ... and the confusion
+    matrix is summed over the ranks, so every rank returns the metrics of
+    the whole set. Returns aAcc, mIoU, mAcc and `confusion`, the (K, K)
+    int64 counts[gt, pred].
     """
     num_classes = cfg["num_classes"]
     test_cfg = dict(cfg.get("test_cfg") or {})
@@ -361,11 +389,13 @@ def run_eval(cfg: Dict[str, Any], model: torch.nn.Module, dataset,
     cm = torch.zeros((num_classes, num_classes), dtype=torch.int64,
                      device=device)
     n = min(len(dataset), max_images or len(dataset))
+    rank, size, _ = world()
+    mine = range(rank, n, size)
     was_training = model.training
     model.eval()
     try:
         with torch.inference_mode():
-            for i in range(n):
+            for done, i in enumerate(mine, 1):
                 img, seg = dataset.load(i)
                 img = np.asarray(img)
                 seg = np.asarray(seg, np.int32)
@@ -411,8 +441,10 @@ def run_eval(cfg: Dict[str, Any], model: torch.nn.Module, dataset,
                 cm += confusion_matrix(acc.argmax(dim=-1),
                                        torch.from_numpy(seg).to(device),
                                        num_classes)
-                if (i + 1) % 50 == 0 or i + 1 == n:
-                    log_fn(f"eval {i + 1}/{n}")
+                if done % 50 == 0 or done == len(mine):
+                    log_fn(f"eval {done}/{len(mine)}")
+            if size > 1:
+                dist.all_reduce(cm)
     finally:
         model.train(was_training)
     cm = cm.cpu().numpy()

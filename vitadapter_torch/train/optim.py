@@ -25,6 +25,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
+from vitadapter_torch.parallel.collectives import allreduce_grads
+
 Schedule = Callable[[int], float]
 STACKED = "pixel_decoder.encoder.layers."
 # the port keeps the reference's names where the JAX package renamed a
@@ -131,10 +133,13 @@ class LayerDecayAdamW:
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> torch.Tensor:
-        """Clip the gradients in place, update, advance the schedule;
-        returns the global norm of the gradients before clipping."""
-        params = [p for g in self.adamw.param_groups for p in g["params"]
-                  if p.grad is not None]
+        """Average the gradients over the ranks (`parallel.allreduce_grads`,
+        under a process group of several ranks), clip them in place,
+        update, advance the schedule; returns the global norm of the
+        gradients before clipping, the same on every rank."""
+        params = [p for g in self.adamw.param_groups for p in g["params"]]
+        allreduce_grads(params)
+        params = [p for p in params if p.grad is not None]
         clip = math.inf if self.grad_clip is None else self.grad_clip
         norm = torch.nn.utils.clip_grad_norm_(params, clip)
         self.adamw.step()

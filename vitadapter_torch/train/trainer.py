@@ -8,6 +8,16 @@ running statistics), the loss (Mask2Former's over every decoder layer, the
 decode and auxiliary heads' cross entropy, or a detector's), the
 backward, and one optimizer update. The port updates the model and the optimizer in
 place, where JAX returns a new state.
+
+Under a process group of several ranks (`parallel/`), each rank's step
+takes its share of the global batch: the loss normalizers count over the
+global batch (`parallel.global_normalizer`), BatchNorm is SyncBN, the
+optimizer averages the gradients before it clips them, and the logs are
+the ranks' mean, so that W ranks take the step JAX takes on a W-device
+mesh. The `generator` a step is given on rank r is seeded from (seed,
+rank) by the loop (`parallel.rank_generator`): DropPath, dropout, the
+loss's point draws and DINO's denoising draws are independent across the
+ranks, as across the images of JAX's global batch.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from torch import nn
 from vitadapter_torch.heads.mask2former_loss import mask2former_loss
 from vitadapter_torch.models.segmentor import segmentation_loss
 from vitadapter_torch.ops.point_sample import Sampler, uniform_sampler
+from vitadapter_torch.parallel.collectives import all_reduce_dict
 from vitadapter_torch.train.optim import LayerDecayAdamW
 
 
@@ -82,9 +93,10 @@ def make_m2f_train_step(model: nn.Module, num_classes: int,
         grad_norm = state.optimizer.step()
         state.step += 1
         state.update_ema()
-        logs = {k: v.detach() for k, v in logs.items()
-                if not k.startswith("d")}
-        logs.update(loss=loss.detach(), grad_norm=grad_norm)
+        logs = all_reduce_dict({**{k: v.detach() for k, v in logs.items()
+                                   if not k.startswith("d")},
+                                "loss": loss.detach()})
+        logs["grad_norm"] = grad_norm
         return state, logs
 
     return train_step
@@ -112,8 +124,9 @@ def make_seg_train_step(model: nn.Module, aux_weight: float = 0.4,
         grad_norm = state.optimizer.step()
         state.step += 1
         state.update_ema()
-        logs = {k: v.detach() for k, v in logs.items()}
-        logs.update(loss=loss.detach(), grad_norm=grad_norm)
+        logs = all_reduce_dict({**{k: v.detach() for k, v in logs.items()},
+                                "loss": loss.detach()})
+        logs["grad_norm"] = grad_norm
         return state, logs
 
     return train_step
@@ -174,7 +187,7 @@ def make_det_train_step(model: nn.Module) -> Callable:
         grad_norm = state.optimizer.step()
         state.step += 1
         state.update_ema()
-        logs = {k: v.detach() for k, v in losses.items()}
+        logs = all_reduce_dict({k: v.detach() for k, v in losses.items()})
         logs["grad_norm"] = grad_norm
         return state, logs
 

@@ -21,6 +21,7 @@ from vitadapter_torch.models.mask2former_segmentor import \
     EncoderDecoderMask2Former
 from vitadapter_torch.models.segmentor import EncoderDecoder
 from vitadapter_torch.models.vit_adapter import ViTAdapter
+from vitadapter_torch.parallel.mesh import rank_device, world
 from vitadapter_torch.utils.init import init_weights
 
 # interaction spans for 12-layer (T/S/B) and 24-layer (L) trunks
@@ -44,12 +45,17 @@ VIT_ADAPTER_VARIANTS = {
 
 
 def resolve_device(device=None) -> torch.device:
-    """`device`, or CUDA when it is None; raises when CUDA is missing."""
+    """`device`, or CUDA when it is None: under a process group of several
+    ranks this rank's card (`cuda:LOCAL_RANK`, made the current one), else
+    `cuda`. Raises when CUDA is missing."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
                            "device='cpu' to run its plain versions")
+    if world()[1] > 1:
+        torch.cuda.set_device(rank_device())
+        return rank_device()
     return torch.device("cuda")
 
 
