@@ -176,7 +176,28 @@ Phases (each failure exits non-zero; nothing is caught):
      torchrun on NCCL at world size 1 (and 2 with two cards) on
      phase 13's config cut to depth 4, two synthetic steps; on a host
      with several cards, then the train and test CLIs on NCCL over every
-     card, the test's metrics against one rank's (`ddp_nccl`).
+     card, the test's metrics against one rank's (`ddp_nccl`);
+ 29. the host tools (`vitadapter_torch/tools/{convert,release,
+     image_demo,video_demo}.py`, `ops/native.py`): (a) a reference-style
+     checkpoint of phase 11's config with its tables at the 512 px grid
+     (under `state_dict`, `module.` prefixes, the weights under `ema_`
+     names, decoys under the bare ones) through `tools.convert
+     --target-grid 40`, then `tools.image_demo` on the card on a 640x640
+     image (the launches against what the model's modules reckon, ms per
+     image, peak memory), the model cut to depth 4 on the card and the
+     CPU (`DEMO_SAME_PIXELS` of the argmax equal) and a 640x853 image
+     refused for BEiT's square tables, as in JAX; (b) `tools.image_demo`
+     on phase 15's Mask R-CNN config on an 800x1333 image (exact
+     launches, `nms` included, finite boxes); (c) `tools.video_demo` over
+     3 frames (s per frame, the first apart); (d) `tools.release` of phase
+     11's checkpoint (made in phase 11, before its directory goes), and
+     `tools.test` on it giving phase 11's confusion matrix exactly; (e)
+     LAPJV, scipy and `auction.cu` through `hungarian_assign` on
+     `auction_cases` (total costs and times), the native RLE codec and
+     popcount mask IoU against their numpy versions, bitwise, on the
+     masks of phase 15's test path (timed there once more on its
+     checkpoint after phase 15's gates), and phase 15's host ms per test
+     image split into mask IoU, RLE and the rest.
 Phase 3 holds the fused MSDA kernels (msda_fwd, msda_bwd) against their
 plain versions on uniform locations and on locations shaped as the model
 makes them (`msda_model_locations` with each geometry's query set, timed
@@ -236,6 +257,7 @@ numbers (with the TPU kernels each one covers besides the one it replaces)
 and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -2916,7 +2938,7 @@ def launch_diff(after, before):
 
 def run_config_cli(name, config, options, step_launches, never, aug_options,
                    forward_launches=None, refuse_small_crops=False,
-                   model_options=()):
+                   model_options=(), after=None):
     """The config entry points in this process, so that the launch counters
     can be read: `tools.train.main` for `CLI_STEPS` steps on synthetic data
     with `options` (checkpoints, the eval hook), `--resume` for one more
@@ -2928,10 +2950,12 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
     runs, the resume, finite losses and mIoU, and the test CLI's confusion
     matrix against `run_eval`'s; with `refuse_small_crops`, that the
     default `--aug-test` ratios raise (BEiT's tables). Everything is
-    written into a temporary directory, removed at the end. Logs under
+    written into a temporary directory, removed at the end; before that
+    `after(ckpt, test_args, results)`, if given, runs with the checkpoint
+    directory, the test CLI's arguments and its results. Logs under
     `name`; `model_options` also go to the test runs. Returns the launches
-    of the first run's train steps and the plain test CLI's launches
-    divided by its model calls."""
+    of the first run's train steps, the plain test CLI's launches divided
+    by its model calls and what `after` returned."""
     import tempfile
 
     from vitadapter_torch.builder import build_model
@@ -3053,6 +3077,7 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
         eval_s["run_eval"] = time.perf_counter() - t0
         del model
         torch.cuda.empty_cache()
+        extra = after(ckpt, test_args, results) if after else None
     finally:
         for cls, fwd in forwards.items():
             cls.forward = fwd
@@ -3104,7 +3129,7 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
                          f"test call {eval_counts} over {n_calls}, kernels "
                          f"that must not run {bad_never}")
     return train_counts, {k: v // n_calls["slide"]
-                          for k, v in eval_counts["slide"].items()}
+                          for k, v in eval_counts["slide"].items()}, extra
 
 
 def config_cli():
@@ -3113,10 +3138,13 @@ def config_cli():
     (checkpoints every 2 steps, the eval hook at the last), a resumed
     fifth, the test CLI with `--aug-test` at ratios 1.0-1.75 and the
     default ratios refused (`run_config_cli`). No attention kernel runs
-    (BEiT's biased attention is plain PyTorch) and no per-level one."""
-    return run_config_cli("config CLI", CLI_CONFIG, CLI_OPTIONS,
-                          CLI_STEP_LAUNCHES, CLI_NEVER, [CLI_AUG_RATIOS],
-                          refuse_small_crops=True)[0]
+    (BEiT's biased attention is plain PyTorch) and no per-level one.
+    Returns the train steps' launches and, for phase 29 (d), what
+    `keep_release` kept of the checkpoint."""
+    counts, _, kept = run_config_cli(
+        "config CLI", CLI_CONFIG, CLI_OPTIONS, CLI_STEP_LAUNCHES, CLI_NEVER,
+        [CLI_AUG_RATIOS], refuse_small_crops=True, after=keep_release)
+    return counts, kept
 
 
 def upernet_cli():
@@ -3512,17 +3540,19 @@ def det_cli():
     """Phase 15: the config entry points in this process on the AugReg-L
     Mask R-CNN config as shipped (`DET_CONFIG`: ViT-Adapter-L in fp32 with
     `with_cp`, drop path 0.4, 20 windowed and 4 global blocks, batch 1 on
-    the 1024 canvas, 100 synthetic instances), through `run_cli`.
-    Returns the launches of the first run's train steps and of one model
-    call of the test CLI."""
+    the 1024 canvas, 100 synthetic instances), through `run_cli`, its test
+    CLI run inside a `HostSplit`. Returns the launches of the first run's
+    train steps and of one model call of the test CLI, and the host split
+    for phase 29 (e)."""
     from vitadapter_torch.det.mask_rcnn import MaskRCNN
 
+    split = HostSplit()
     train_counts, test_counts, _, _ = run_cli(
         "det", MaskRCNN, DET_CONFIG, DET_STEPS, DET_STEP_LAUNCHES,
         DET_FORWARD_LAUNCHES, det_cli_data(DET_OPTIONS), det_eval,
         DET_EVAL_ARGS, DET_HEADLINE, never=DET_NEVER,
-        per_input=DET_PER_INPUT)
-    return train_counts, test_counts
+        per_input=DET_PER_INPUT, test_hook=split)
+    return train_counts, test_counts, split
 
 
 # the detection test CLIs' metrics (those that must be finite: no
@@ -3575,7 +3605,7 @@ def cli_log(lines, marks, line):
 def run_cli(label, model_cls, config, steps, step_launches, call_launches,
             prepare, evaluate, eval_args, headline, never=(),
             per_input=None, inputs_per_call=1, aug_config=None, aug_augs=12,
-            after=None):
+            test_hook=None, after=None):
     """The config entry points in this process on `config`. `prepare(tmp)`
     writes the data under a temporary directory and returns the train CLI's
     arguments and the test CLI's `--cfg-options`. Then `tools.train.main`
@@ -3585,7 +3615,8 @@ def run_cli(label, model_cls, config, steps, step_launches, call_launches,
     the same weights; with `aug_config`, the test CLI again with
     `--aug-test` on that config and `evaluate(..., True)` on those weights;
     then `after(tmp, ckpt, test_options)`, if given, with the checkpoint.
-    Checks the launches of each train step (`step_launches`) and of each
+    `test_hook`, if given, is a context manager entered around the plain
+    test CLI run; its `timing` is set to that run's. Checks the launches of each train step (`step_launches`) and of each
     model call of the tests (`call_launches` a call and `per_input` an
     input; `inputs_per_call` inputs a call of the plain test), that no
     kernel of `never` runs, the resume, finite losses and gradient norms,
@@ -3693,8 +3724,11 @@ def run_cli(label, model_cls, config, steps, step_launches, call_launches,
         del state
         torch.cuda.empty_cache()
 
-        (metrics, test_s, test_counts, n_calls, n_inputs,
-         forwards_ok) = run_test(config, [])
+        with test_hook or contextlib.nullcontext():
+            (metrics, test_s, test_counts, n_calls, n_inputs,
+             forwards_ok) = run_test(config, [])
+        if test_hook is not None:
+            test_hook.timing = metrics["timing"]
         forwards_ok &= n_inputs == inputs_per_call * n_calls
         ref, direct_s = direct(config, False)
         aug = None
@@ -4773,7 +4807,7 @@ def maskformer_cli():
                           CLI_OPTIONS + [MF_ENCODER], MF_STEP_LAUNCHES,
                           CLI_NEVER, [CLI_AUG_RATIOS],
                           forward_launches=MF_FORWARD_LAUNCHES,
-                          model_options=[MF_ENCODER])
+                          model_options=[MF_ENCODER])[:2]
 
 
 def write_coco_panoptic(root, sizes, seed):
@@ -5964,6 +5998,591 @@ def check_ddp(refs, ref_cm, ranks):
     return per_step[0]
 
 
+# phase 29: the host tools on the card. (a) a reference-style checkpoint of
+# `CLI_CONFIG` whose tables span the 512 px grid, converted to the config's
+# 640 px grid, then the image demo on a square image (BEiT's tables span
+# img_size: the wide image must raise, as in JAX) and the same model cut to
+# depth 4 on the card and the CPU; (b) the detector demo on an 800x1333
+# image (the 800x1344 canvas of phase 15's test); (c) the video demo; (d)
+# the release of phase 11's checkpoint; (e) the native runtime
+DEMO_SRC_GRID = 32
+DEMO_GRID = 40
+DEMO_HW = (640, 640)
+DEMO_WIDE_HW = (640, 853)
+DEMO_DET_HW = (800, 1333)
+DEMO_DET_THR = 0.05
+DEMO_FRAMES = 3
+# the image demo's model calls timed after the first, on its model
+DEMO_WARM = 3
+# parameters whose bare entry in 29 (a)'s reference file is zeros, beside
+# the EMA copy that must win
+DEMO_DECOYS = 4
+DEMO_REDUCED = ["model.backbone.depth=4",
+                "model.backbone.interaction_indexes=[[0,0],[1,1],[2,2],"
+                "[3,3]]"]
+# the share of the depth-4 demo's argmax pixels the card and the CPU must
+# agree on (float noise can flip a near tie)
+DEMO_SAME_PIXELS = 0.999
+# the random Mask2Former's class and mask embeddings are multiplied by this,
+# so that its argmax takes several classes
+DEMO_SHARPEN = 20.0
+# LAPJV's total matched cost against scipy's, relative (both exact)
+LAP_RTOL = 1e-9
+
+
+def keep_release(ckpt, test_args, results):
+    """Phase 11's `after`: `tools.release` of its checkpoint directory
+    into a directory that phase 29 (d) reads and removes, beside a copy of
+    its test images and its test CLI's confusion matrix."""
+    import tempfile
+
+    from vitadapter_torch.tools import release as release_cli
+
+    start = time.perf_counter()
+    keep = tempfile.mkdtemp(prefix="chip_smoke_release_")
+    out = os.path.join(keep, "released.pth")
+    t0 = time.perf_counter()
+    release_cli.main([ckpt, out], log_fn=log)
+    release_s = time.perf_counter() - t0
+    args = test_args([])
+    root = args[args.index("--cfg-options") + 1].split("=", 1)[1]
+    shutil.copytree(root, os.path.join(keep, "ade"))
+    try:
+        release_cli.main([ckpt, out + ".ema", "--use-ema"],
+                         log_fn=lambda *_: None)
+        ema_refused = False
+    except SystemExit as e:
+        ema_refused = "no EMA" in str(e)
+    return {"dir": keep, "released": out, "release_s": release_s,
+            "hook_s": time.perf_counter() - start,
+            "bytes": os.path.getsize(out), "ema_refused": ema_refused,
+            "confusion": results["slide"]["confusion"]}
+
+
+class HostSplit:
+    """While in the `with` block, `DET_CONFIG`'s test path
+    (`run_det_eval`) with the host's mask IoU, RLE codec and mask pasting
+    timed (`secs`), the IoU's inputs (`iou_inputs`) and every detection's
+    pasted mask (`pasted`) kept, for phase 29 (e); phase 15's test CLI run
+    goes through it, and `run_cli` sets `timing` to that run's."""
+
+    def __init__(self):
+        self.secs = {"mask_iou": 0.0, "rle": 0.0, "paste": 0.0}
+        self.iou_inputs, self.pasted, self.timing = [], [], None
+
+    def __enter__(self):
+        import numpy as np
+
+        from vitadapter_torch.data import coco
+        from vitadapter_torch.det import coco_eval, mask_utils
+        from vitadapter_torch.train import det_loop
+
+        patched = [(coco_eval, "mask_iou", "mask_iou"),
+                   (coco, "decode_rle", "rle"), (coco, "encode_rle", "rle"),
+                   (mask_utils, "encode_rle", "rle"),
+                   (det_loop, "paste_mask_crops", "paste")]
+        self.originals = [(mod, name, getattr(mod, name))
+                          for mod, name, _ in patched]
+
+        def timed(fn, key):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.secs[key] += time.perf_counter() - t0
+                if key == "mask_iou":
+                    self.iou_inputs.append(tuple(
+                        None if x is None else np.array(x)
+                        for x in (a + (None,) * 3)[:3]))
+                elif key == "paste":
+                    self.pasted.append(out)
+                return out
+            return wrapper
+
+        for mod, name, key in patched:
+            setattr(mod, name, timed(getattr(mod, name), key))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.originals:
+            setattr(mod, name, fn)
+
+
+def reckoned_launches(config, options=()):
+    """The kernel launches of one eval model call of `config`'s model, as
+    its modules reckon them: an `msda_fwd` an `MSDeformAttn`, an
+    `attention_fwd` a ViT `Attention` (global or windowed) and, for Mask
+    R-CNN, two NMS (the RPN's proposals and the decode)."""
+    from vitadapter_torch import builder
+    from vitadapter_torch.det.mask_rcnn import MaskRCNN
+    from vitadapter_torch.layers.attention import Attention
+    from vitadapter_torch.ops.msda import MSDeformAttn
+    from vitadapter_torch.utils.config import Config, parse_cfg_options
+
+    cfg = Config.fromfile(config)
+    cfg.merge_from_options(parse_cfg_options(list(options)))
+    model = builder.build(dict(cfg.model))        # on the meta device
+    want = {"msda_fwd": sum(isinstance(m, MSDeformAttn)
+                            for m in model.modules()),
+            "attention_fwd": sum(isinstance(m, Attention)
+                                 for m in model.modules()),
+            "nms": 2 if isinstance(model, MaskRCNN) else 0}
+    return {k: v for k, v in want.items() if v}
+
+
+def write_demo_image(path, hw, seed):
+    """A uint8 RGB PNG of `hw`: noise over blocks of 64 pixels."""
+    import numpy as np
+    from PIL import Image
+
+    host = torch.Generator().manual_seed(seed)
+    h, w = hw
+    blocks = torch.randint(0, 256, (-(-h // 64), -(-w // 64), 3),
+                           dtype=torch.uint8, generator=host)
+    img = blocks.repeat_interleave(64, 0).repeat_interleave(64, 1)[:h, :w]
+    noise = torch.randint(-20, 21, (h, w, 3), generator=host)
+    img = (img.int() + noise).clamp(0, 255).to(torch.uint8).numpy()
+    Image.fromarray(img).save(path)
+    return np.asarray(img)
+
+
+class TimedPredicts:
+    """`tools.image_demo.predict` timed to a synchronize on each call
+    while in the `with` block (`ms`, one entry a model call); `repeat(n)`
+    makes n more calls on the last call's model and image."""
+
+    def __enter__(self):
+        from vitadapter_torch.tools import image_demo
+
+        self.mod, self.fn, self.ms = image_demo, image_demo.predict, []
+
+        def predict(*a, **kw):
+            self.args = a, kw
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        image_demo.predict = predict
+        return self
+
+    def repeat(self, n):
+        a, kw = self.args
+        for _ in range(n):
+            self.mod.predict(*a, **kw)
+
+    def warm(self):
+        """'first call X ms, warm median Y ms of N'."""
+        return (f"first call {self.ms[0]:.1f} ms, warm median "
+                f"{statistics.median(self.ms[1:]):.1f} ms of "
+                f"{len(self.ms) - 1}")
+
+    def __exit__(self, *exc):
+        self.mod.predict = self.fn
+        self.args = None
+
+
+def demo_launches(label, counts, want, calls):
+    ok = counts == {k: v * calls for k, v in want.items()}
+    log(f"{label} launches {counts} over {calls} model calls; reckoned "
+        f"from the model's modules {want} a call; equal={ok}")
+    return ok
+
+
+def demo_segmentor(tmp):
+    """Phase 29 (a): a reference-style `.pth` of `CLI_CONFIG` (random
+    weights, `DEMO_SHARPEN`ed class and mask embeddings, tables at
+    `DEMO_SRC_GRID`; under `state_dict`, `module.` prefixes, as mmcv's
+    `EMAHook` saves it: every entry bare and an `ema_` copy of each
+    parameter, the copy sharing the bare entry's storage, which
+    `torch.save` writes once, except for `DEMO_DECOYS` parameters whose
+    bare entry is zeros) through `tools.convert --target-grid DEMO_GRID`,
+    then `tools.image_demo` on the card, its model called `DEMO_WARM`
+    times more. Returns (the converted file, the demo's launches)."""
+    import numpy as np
+
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.tools import convert as convert_cli
+    from vitadapter_torch.tools import image_demo
+    from vitadapter_torch.utils.config import Config
+
+    cfg = Config.fromfile(CLI_CONFIG)
+    cfg.merge_from_options({"model.backbone.img_size": 16 * DEMO_SRC_GRID})
+    model = build_model(dict(cfg.model), device="cpu")
+    randomize(model, torch.Generator().manual_seed(29))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith(("decode_head.cls_embed",
+                                "decode_head.mask_embed")):
+                p.mul_(DEMO_SHARPEN)
+    sd = model.state_dict()
+    params = [k for k, _ in model.named_parameters()]
+    del model
+    plain = [k for k in params
+             if not k.endswith("relative_position_bias_table")]
+    decoys = set(plain[::len(plain) // DEMO_DECOYS][:DEMO_DECOYS])
+    n_buffers = len(sd) - len(params)
+    src, dst = os.path.join(tmp, "reference.pth"), os.path.join(tmp,
+                                                                "port.pth")
+    ref = {"state_dict": {
+        **{"module." + k: (torch.zeros_like(v) if k in decoys else v)
+           for k, v in sd.items()},
+        **{"module.ema_" + k.replace(".", "_"): sd[k] for k in params}}}
+    t0 = time.perf_counter()
+    torch.save(ref, src)
+    write_s = time.perf_counter() - t0
+    src_bytes = os.path.getsize(src)
+    del ref
+    t0 = time.perf_counter()
+    convert_cli.main([src, dst, "--target-grid", str(DEMO_GRID)],
+                     log_fn=log)
+    convert_s = time.perf_counter() - t0
+    os.remove(src)
+    got = torch.load(dst, weights_only=True)["state_dict"]
+    table = "backbone.blocks.0.attn.relative_position_bias_table"
+    tables_ok = all(v.shape[0] == (2 * DEMO_GRID - 1) ** 2 + 3
+                    for k, v in got.items()
+                    if k.endswith("relative_position_bias_table"))
+    ema_ok = all(torch.equal(got[k], v) for k, v in sd.items()
+                 if not k.endswith("relative_position_bias_table"))
+    log(f"phase 29 (a) convert: a {src_bytes} byte reference file written "
+        f"in {write_s:.1f} s, converted in {convert_s:.1f} s to "
+        f"{os.path.getsize(dst)} bytes "
+        f"(--target-grid {DEMO_GRID}: {tuple(sd[table].shape)} -> "
+        f"{tuple(got[table].shape)}); the EMA copies of {len(params)} "
+        f"parameters kept over {len(decoys)} zero decoys and {n_buffers} "
+        f"buffers from their bare entries={ema_ok}; every table at grid "
+        f"{DEMO_GRID}={tables_ok}")
+    del sd, got
+    img_path = os.path.join(tmp, "square.png")
+    img = write_demo_image(img_path, DEMO_HW, 291)
+    want = reckoned_launches(CLI_CONFIG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.launches.clear()
+    t0 = time.perf_counter()
+    with TimedPredicts() as timed:
+        result = image_demo.main([img_path, CLI_CONFIG, dst, "--out-file",
+                                  os.path.join(tmp, "demo.png")], log_fn=log)
+        torch.cuda.synchronize()
+        demo_s = time.perf_counter() - t0
+        counts = dict(cuda_ext.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timed.repeat(DEMO_WARM)
+    pred = image_demo.segment(result.out, result.hw)
+    launches_ok = demo_launches("phase 29 (a) image demo", counts, want, 1)
+    finite = bool(torch.isfinite(result.out).all())
+    log(f"phase 29 (a) image demo {CLI_CONFIG} on {DEMO_HW}: {demo_s:.1f} "
+        f"s with the build and weight load, the model call "
+        f"{timed.warm()}, peak memory {peak:.2f} GiB; logits "
+        f"{tuple(result.out.shape)} finite={finite}, "
+        f"{len(np.unique(pred))} classes in the argmax")
+    del result
+    torch.cuda.empty_cache()
+
+    # the same model cut to depth 4, card against CPU; the wide image
+    card = image_demo.load_model(CLI_CONFIG, dst, DEMO_REDUCED)
+    cpu = image_demo.load_model(CLI_CONFIG, dst, DEMO_REDUCED, "cpu")
+    out, hw = image_demo.predict(card, img)
+    got = image_demo.segment(out, hw)
+    t0 = time.perf_counter()
+    ref, _ = image_demo.predict(cpu, img)
+    cpu_s = time.perf_counter() - t0
+    ref = image_demo.segment(ref, hw)
+    same = float((got == ref).mean())
+    wide = write_demo_image(os.path.join(tmp, "wide.png"), DEMO_WIDE_HW, 292)
+    try:
+        image_demo.predict(card, wide)
+        refused = False
+    except ValueError as e:
+        refused = "patch grid" in str(e)
+    del card, cpu, out
+    torch.cuda.empty_cache()
+    log(f"phase 29 (a) depth 4, card against CPU ({cpu_s:.1f} s on the "
+        f"CPU): {same:.6f} of {got.size} argmax pixels equal (at least "
+        f"{DEMO_SAME_PIXELS}); {len(np.unique(got))} classes; a "
+        f"{DEMO_WIDE_HW} image refused for BEiT's {DEMO_GRID}x{DEMO_GRID} "
+        f"tables (ValueError, as JAX fails there)={refused}")
+    if not (ema_ok and tables_ok and launches_ok and finite and refused
+            and same >= DEMO_SAME_PIXELS):
+        raise SystemExit("FAIL: phase 29 (a) (conversion, launches, finite "
+                         "logits, the wide image's refusal or card against "
+                         "CPU)")
+    return dst, counts
+
+
+def demo_detector(tmp):
+    """Phase 29 (b): `tools.image_demo` on `DET_CONFIG` (its init weights
+    from seed 0) on an 800x1333 image: the exact launches, `nms` included,
+    finite boxes, and the boxes drawn those of the output above the
+    threshold; its model called `DEMO_WARM` times more. Returns the
+    launches."""
+    import numpy as np
+
+    from vitadapter_torch.builder import build_model
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.tools import image_demo
+    from vitadapter_torch.utils.config import Config
+
+    ckpt = os.path.join(tmp, "det.pth")
+    model = build_model(dict(Config.fromfile(DET_CONFIG).model))
+    torch.save({"state_dict": model.state_dict()}, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    img_path = os.path.join(tmp, "det.png")
+    write_demo_image(img_path, DEMO_DET_HW, 293)
+    want = reckoned_launches(DET_CONFIG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.launches.clear()
+    t0 = time.perf_counter()
+    with TimedPredicts() as timed:
+        result = image_demo.main([img_path, DET_CONFIG, ckpt, "--out-file",
+                                  os.path.join(tmp, "det_out.png"),
+                                  "--score-thr", str(DEMO_DET_THR)],
+                                 log_fn=log)
+        torch.cuda.synchronize()
+        demo_s = time.perf_counter() - t0
+        counts = dict(cuda_ext.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timed.repeat(DEMO_WARM)
+    launches_ok = demo_launches("phase 29 (b) detector demo", counts, want, 1)
+    out = result.out
+    scores = out["scores"][0]
+    live = torch.isfinite(scores)
+    boxes_ok = bool(torch.isfinite(out["boxes"][0][live]).all())
+    drawn = image_demo.drawn_boxes(out, DEMO_DET_THR)
+    want_drawn = int((live & (scores >= DEMO_DET_THR)).sum())
+    log(f"phase 29 (b) detector demo {DET_CONFIG} on {DEMO_DET_HW}: "
+        f"{demo_s:.1f} s with the build and weight load, the model call "
+        f"{timed.warm()}, peak memory {peak:.2f} GiB; "
+        f"{int(live.sum())} detections, boxes finite={boxes_ok}, "
+        f"{len(drawn)} drawn at score >= {DEMO_DET_THR} (want "
+        f"{want_drawn}); top scores "
+        f"{np.round(np.sort(scores[live].cpu().numpy())[::-1][:3], 4)}")
+    if not (launches_ok and boxes_ok and len(drawn) == want_drawn):
+        raise SystemExit("FAIL: phase 29 (b) (launches, finite boxes or the "
+                         "boxes drawn)")
+    return counts
+
+
+def demo_video(tmp, ckpt):
+    """Phase 29 (c): `tools.video_demo` over `DEMO_FRAMES` square frames
+    with phase 29 (a)'s converted file: s per frame, the first apart."""
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.tools import video_demo
+
+    frames, out_dir = os.path.join(tmp, "frames"), os.path.join(tmp, "video")
+    os.makedirs(frames)
+    for i in range(DEMO_FRAMES):
+        write_demo_image(os.path.join(frames, f"{i:04d}.png"), DEMO_HW,
+                         300 + i)
+    stamps = []
+    want = reckoned_launches(CLI_CONFIG)
+
+    def on_frame(i, result):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    cuda_ext.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with TimedPredicts() as timed:
+        n = video_demo.main([frames, CLI_CONFIG, ckpt, "--out-dir", out_dir],
+                            log_fn=log, on_frame=on_frame)
+    total = time.perf_counter() - t0
+    launches_ok = demo_launches("phase 29 (c) video demo",
+                                dict(cuda_ext.launches), want, DEMO_FRAMES)
+    per = [b - a for a, b in zip(stamps, stamps[1:])]
+    written = sorted(os.listdir(out_dir))
+    log(f"phase 29 (c) video demo: {n} frames in {total:.1f} s with the "
+        f"build and weight load; the first frame done {stamps[0] - t0:.1f} "
+        f"s after the start, then {[round(p, 3) for p in per]} s a frame "
+        f"(model calls {[round(m, 1) for m in timed.ms]} ms); "
+        f"{len(written)} frames written")
+    if not (launches_ok and n == DEMO_FRAMES and len(written) == n):
+        raise SystemExit("FAIL: phase 29 (c) (launches or frames written)")
+
+
+def demo_release(kept):
+    """Phase 29 (d): `tools.test` on phase 11's released checkpoint and
+    test images gives phase 11's confusion matrix exactly."""
+    from vitadapter_torch.tools import test as test_cli
+
+    t0 = time.perf_counter()
+    got = test_cli.main([CLI_CONFIG, kept["released"], "--eval", "mIoU",
+                         "--cfg-options",
+                         f"data.data_root={os.path.join(kept['dir'], 'ade')}"],
+                        log_fn=lambda *_: None)
+    test_s = time.perf_counter() - t0
+    same = bool((got["confusion"] == kept["confusion"]).all())
+    log(f"phase 29 (d) release of phase 11's checkpoint: "
+        f"{kept['bytes']} bytes in {kept['release_s']:.1f} s (in phase "
+        f"11, before its directory went); --use-ema refused for a run "
+        f"without EMA={kept['ema_refused']}; tools.test on it in "
+        f"{test_s:.1f} s, the confusion matrix equal to phase 11's={same}")
+    if not (same and kept["ema_refused"]):
+        raise SystemExit("FAIL: phase 29 (d) (the released file's confusion "
+                         "matrix or the EMA refusal)")
+
+
+def native_runtime(split):
+    """Phase 29 (e): LAPJV, scipy and `auction.cu` through
+    `hungarian_assign` on `auction_cases` (total costs, host-clock times
+    with the copies); phase 15's test CLI run (`split`, its `HostSplit`)
+    split into mask IoU, RLE and the rest, host ms per test image; the
+    native codec and popcount IoU against their numpy versions, bitwise,
+    on that run's masks, with both times."""
+    import numpy as np
+
+    from vitadapter_torch.data import coco
+    from vitadapter_torch.det import coco_eval
+    from vitadapter_torch.ops import matching as mt
+    from vitadapter_torch.ops import native
+
+    def clocked(fn, reps=3):
+        times, out = [], None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    ok = True
+    native.library()            # the build, untimed
+    for case, (cost, n_valid) in auction_cases(
+            torch.Generator("cuda").manual_seed(2929)).items():
+        nv = n_valid.tolist()
+        totals, ms = {}, {}
+        for impl in ("native", "callback", "auction_kernel"):
+            own, ms[impl] = clocked(lambda: mt.hungarian_assign(
+                cost, n_valid, impl=impl))
+            totals[impl] = assignment_cost(cost.double(), own).tolist()
+        span = torch.where(torch.arange(cost.shape[2], device="cuda")[
+            None, None] < n_valid[:, None, None], cost.abs(), 0.0).amax(
+            dim=(1, 2)).clamp(min=1e-6).tolist()
+        lap_ok = all(abs(a - b) <= LAP_RTOL * max(abs(b), 1.0)
+                     for a, b in zip(totals["native"], totals["callback"]))
+        auction_ok = all(
+            -1e-5 * abs(o) <= a - o <= n * s / mt.EPS_DIV + 1e-5 * abs(o)
+            for a, o, n, s in zip(totals["auction_kernel"],
+                                  totals["callback"], nv, span))
+        ok &= lap_ok and auction_ok
+        log(f"phase 29 (e) {case:13s} {tuple(cost.shape)} n_valid "
+            f"{nv[:8]}: total cost LAPJV {sum(totals['native']):.6f}, "
+            f"scipy {sum(totals['callback']):.6f}, auction.cu "
+            f"{sum(totals['auction_kernel']):.6f}; LAPJV equal to scipy "
+            f"within {LAP_RTOL}={lap_ok}, the auction within n_valid*eps="
+            f"{auction_ok}; ms (host clock, copies included) LAPJV "
+            f"{ms['native']:.3f}, scipy {ms['callback']:.3f}, auction.cu "
+            f"{ms['auction_kernel']:.3f}")
+
+    timing, secs = split.timing, split.secs
+    n_img = timing["images"]
+    host = timing["host_s"] / n_img * 1e3
+    iou = secs["mask_iou"] / n_img * 1e3
+    rle = secs["rle"] / n_img * 1e3
+    paste = secs["paste"] / n_img * 1e3
+    n_dets = sum(len(d) for d in split.pasted)
+    n_met = sum(len(d) for d, _, _ in split.iou_inputs)
+    log(f"phase 29 (e) phase 15's test CLI run (host clock, {n_img} "
+        f"images, {n_dets} detections, {n_met} of them in a gt's "
+        f"category): model calls {timing['forward_s'] / n_img * 1e3:.1f} "
+        f"ms/image, host {host:.1f} ms/image = mask IoU {iou:.2f} + RLE "
+        f"{rle:.2f} + pasting the masks {paste:.1f} + the rest "
+        f"{host - iou - rle - paste:.1f}")
+
+    # the codec and the IoU on those masks: the evaluator pairs masks
+    # within a category, here every pasted detection meets every gt of its
+    # image size
+    by_image = {}
+    for dets in split.pasted:
+        by_image.setdefault(dets.shape[1:], ([], [], []))[0].extend(dets)
+    for _, gts, crowd in split.iou_inputs:
+        _, g, c = by_image.setdefault(gts.shape[1:], ([], [], []))
+        g += list(gts)
+        c += list(np.zeros(len(gts), bool) if crowd is None else crowd)
+    ms = {k: 0.0 for k in ("iou", "iou_plain", "enc", "enc_plain", "dec",
+                           "dec_plain")}
+    n_iou = n_masks = 0
+    same = True
+    for dets, gts, crowd in by_image.values():
+        if not (dets and gts):
+            continue
+        dets, gts, crowd = np.stack(dets), np.stack(gts), np.asarray(crowd)
+        t0 = time.perf_counter()
+        got = coco_eval.mask_iou(dets, gts, crowd)
+        t1 = time.perf_counter()
+        ref = coco_eval.mask_iou_plain(dets, gts, crowd)
+        t2 = time.perf_counter()
+        ms["iou"] += (t1 - t0) * 1e3
+        ms["iou_plain"] += (t2 - t1) * 1e3
+        same &= got.shape == ref.shape and bool((got == ref).all())
+        n_iou += got.size
+        for m in list(dets) + list(gts):
+            t0 = time.perf_counter()
+            enc = coco.encode_rle(m)
+            t1 = time.perf_counter()
+            enc_plain = coco.encode_rle_plain(m)
+            t2 = time.perf_counter()
+            dec = coco.decode_rle(enc["counts"], enc["size"])
+            t3 = time.perf_counter()
+            dec_plain = coco.decode_rle_plain(enc["counts"], enc["size"])
+            t4 = time.perf_counter()
+            for k, a, b in (("enc", t0, t1), ("enc_plain", t1, t2),
+                            ("dec", t2, t3), ("dec_plain", t3, t4)):
+                ms[k] += (b - a) * 1e3
+            same &= (enc == enc_plain and bool((dec == dec_plain).all())
+                     and bool((dec == np.asarray(m, bool)).all()))
+            n_masks += 1
+    ok &= same and n_iou > 0
+    log(f"phase 29 (e) on phase 15's test masks ({len(by_image)} image "
+        f"sizes, every detection against every gt: {n_iou} pairs; {n_masks} "
+        f"masks): native equal to numpy bitwise={same}; ms native / numpy: "
+        f"mask IoU "
+        f"{ms['iou']:.2f} / {ms['iou_plain']:.2f}, RLE encode "
+        f"{ms['enc']:.2f} / {ms['enc_plain']:.2f}, decode {ms['dec']:.2f} / "
+        f"{ms['dec_plain']:.2f}; library calls {dict(native.calls)}")
+    if not ok:
+        raise SystemExit("FAIL: phase 29 (e) (LAPJV against scipy, the "
+                         "auction's bound, or the codec or IoU against "
+                         "numpy)")
+
+
+def host_tools(cli_kept, det_split):
+    """Phase 29: the converted checkpoint and the demos on the card, the
+    release and the native runtime. Returns the launches of the image
+    demo's segmentor and detector calls."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        t = [time.perf_counter()]
+        ckpt, demo_counts = demo_segmentor(tmp)
+        t.append(time.perf_counter())
+        det_counts = demo_detector(tmp)
+        t.append(time.perf_counter())
+        demo_video(tmp, ckpt)
+        t.append(time.perf_counter())
+        demo_release(cli_kept)
+        t.append(time.perf_counter())
+        native_runtime(det_split)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(cli_kept["dir"], ignore_errors=True)
+    log(f"phase 29 (a)-(e) took "
+        f"{[round(b - a, 1) for a, b in zip(t, t[1:])]} s, and its hook in "
+        f"phase 11 (two releases and a copy of the test images) "
+        f"{cli_kept['hook_s']:.1f} s (host clock); phase 15's test CLI run "
+        f"gave (e)'s host split")
+    return demo_counts, det_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -6036,7 +6655,7 @@ def main():
     eval_card_vs_cpu()
 
     # phase 11: the config CLI on the 640 BEiT-Adapter-L + Mask2Former config
-    cli_counts = config_cli()
+    cli_counts, cli_kept = config_cli()
 
     # phase 12: BEiT-Adapter, card against CPU
     beit_card_vs_cpu()
@@ -6054,7 +6673,7 @@ def main():
 
     # phase 15: the config CLI on the AugReg-L Mask R-CNN config
     t0 = time.perf_counter()
-    det_counts, det_test_counts = det_cli()
+    det_counts, det_test_counts, det_split = det_cli()
     t15 = time.perf_counter() - t0
 
     # phase 16: Mask R-CNN, card against CPU
@@ -6127,6 +6746,11 @@ def main():
     ddp_counts = data_parallel()
     log(f"phase 28 took {time.perf_counter() - t0:.1f} s (host clock)")
 
+    # phase 29: the host tools: convert, demos, release, native runtime
+    t0 = time.perf_counter()
+    demo_counts, demo_det_counts = host_tools(cli_kept, det_split)
+    log(f"phase 29 took {time.perf_counter() - t0:.1f} s (host clock)")
+
     paths = {"serve": serve_counts, "train": train_counts,
              "eval_whole": eval_counts, "train_overline": overline_counts,
              "cli": cli_counts, "upernet": upernet_counts, "det": det_counts,
@@ -6138,7 +6762,8 @@ def main():
              "atss": atss_counts, "atss_test": atss_test_counts,
              "gfl": gfl_counts, "gfl_test": gfl_test_counts,
              "sparse": sparse_counts, "sparse_test": sparse_test_counts,
-             "ddp": ddp_counts}
+             "ddp": ddp_counts, "demo": demo_counts,
+             "demo_det": demo_det_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -6193,6 +6818,11 @@ def main():
         if name in ddp_counts:
             per += ("; launches_ddp: per flagship train step on each of "
                     "phase 28's 2 ranks (1 image a rank)")
+        if name in demo_counts or name in demo_det_counts:
+            per += ("; launches_demo, launches_demo_det: phase 29's "
+                    "tools.image_demo call on the 640 BEiT-Adapter-L "
+                    "Mask2Former (640x640) and the AugReg-L Mask R-CNN "
+                    "(800x1333), fp32, one model call each")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"vitadapter_torch/ops/csrc/{name}.cu",

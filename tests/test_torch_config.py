@@ -144,12 +144,22 @@ def test_builder_refuses_what_is_not_ported():
                       "model.auxiliary_head.channels=16"])
     with pytest.raises(KeyError, match="unknown component type"):
         builder.build({"type": "NoSuchThing"})
+    # what these refused before they were ported now builds: BEiT's
+    # absolute position embedding (over the 224 pretrain grid), the cascade
+    # detector, and BEiT's windowed blocks without a cls token
     cfg = Config.fromfile(os.path.join(ROOT, M2F_640))
     cfg.merge_from_options({"model.backbone.use_abs_pos_emb": True})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        builder.build(dict(cfg.model))
-    # what these refused before they were ported now builds: the cascade
-    # detector, and BEiT's windowed blocks without a cls token
+    assert builder.build(dict(cfg.model)).backbone.pos_embed.shape == (
+        1, 14 * 14, 1024)
+    cfg.merge_from_options({"model.backbone.qkv_bias": False,
+                            "model.backbone.use_rel_pos_bias": False})
+    attn = builder.build(dict(cfg.model)).backbone.blocks[0].attn
+    assert not hasattr(attn, "q_bias") and attn.rel_pos_grid is None
+    cfg = Config.fromfile(os.path.join(
+        ROOT, "configs/ade20k/upernet_vit_adapter_tiny_512_160k_ade20k.py"))
+    cfg.merge_from_options({"model.backbone.residual_indices": [2, 5]})
+    blocks = builder.build(dict(cfg.model)).backbone.blocks
+    assert [i for i, b in enumerate(blocks) if b.use_residual] == [2, 5]
     cfg = Config.fromfile(os.path.join(ROOT, M2F_640))
     cfg.merge_from_options({"model.backbone.window_attn": True,
                             "model.backbone.use_cls_token": False})

@@ -22,7 +22,9 @@ DET_MODULES = {f"vitadapter_torch.{m}" for m in (
     "data.grounding", "data.tokenization", "models.uniperceiver",
     "models.uniperceiver_adapter", "tools.generate_results",
     "det.single_stage", "det.sparse_rcnn", "det.panoptic_eval",
-    "heads.maskformer", "heads.panoptic")}
+    "heads.maskformer", "heads.panoptic", "ops.native", "utils.checkpoint",
+    "tools.convert", "tools.release", "tools.image_demo",
+    "tools.video_demo")}
 
 
 @pytest.fixture(autouse=True, scope="module")

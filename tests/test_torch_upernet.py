@@ -419,18 +419,15 @@ def test_with_cp_replays_drop_path_draws_in_vit_blocks():
                                 dict(window_attn=[False, True]),
                                 dict(residual_indices=[1])])
 def test_windowed_vit_raises_naming_item_4(kw):
-    """Windowed attention is ported: the three trunks build with it and
-    give their outputs' shapes (on a 64x96 image, 4x6 tokens in windows
-    of 3); the residual bottleneck blocks still raise naming item 4."""
+    """Windowed attention and the residual bottleneck blocks are ported:
+    the trunks build with them and give their outputs' shapes (on a 64x96
+    image, 4x6 tokens in windows of 3; the baseline takes no residual
+    blocks, as in JAX)."""
     x = torch.zeros(1, 64, 96, 3)
     for cls in (ViTAdapter, TIMMVisionTransformer, tbaselines.ViTBaseline):
         if "residual_indices" in kw and cls is tbaselines.ViTBaseline:
             continue
         cfg = dict(embed_dim=48, depth=2, num_heads=4, **kw)
-        if "residual_indices" in kw:
-            with pytest.raises(NotImplementedError, match="item 4"):
-                cls(device="meta", **cfg)
-            continue
         if cls is ViTAdapter:
             cfg.update(deform_num_heads=6, conv_inplane=16,
                        interaction_indexes=((0, 0), (1, 1)))
@@ -439,6 +436,8 @@ def test_windowed_vit_raises_naming_item_4(kw):
             out = model(x)
         shapes = ([tuple(o.shape) for o in out]
                   if isinstance(out, list) else tuple(out.shape))
+        assert [b.use_residual for b in model.blocks] == [
+            False, "residual_indices" in kw]
         if cls is TIMMVisionTransformer:
             assert shapes == (1, 24, 48)
         else:

@@ -4,10 +4,11 @@ from `vitadapter/data/coco.py`.
 Parses instances JSON, rasterizes polygon segmentations with PIL and decodes
 COCO compressed RLE for crowd regions. Emits static-shape training targets
 (boxes/labels/masks padded to max_instances) matching `det/mask_rcnn.py`.
-The RLE codec is the numpy/Python one: the JAX package's native codec
-(`native/rle.cpp`) is not ported yet (ROADMAP.md §1 item 6); it gives the
-same masks and strings. `CocoPanopticDataset` reads the COCO panoptic
-format for `--eval PQ`.
+Compressed RLE strings go through the native codec (`ops/native.py`,
+`ops/host/rle.cpp`), as in the JAX package; `decode_rle_plain` and
+`encode_rle_plain` are the numpy/Python codec, which gives the same masks
+and strings. `CocoPanopticDataset` reads the COCO panoptic format for
+`--eval PQ`.
 
 Parity targets: mmdet `CocoDataset` + the reference detection pipelines
 (`mask_rcnn_deit_adapter_tiny_fpn_3x_coco.py`: multi-scale resize + flip +
@@ -22,9 +23,21 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image, ImageDraw
 
+from vitadapter_torch.ops import native
+
 
 def decode_rle(counts, size) -> np.ndarray:
-    """Decode COCO RLE (compressed string or uncompressed list) -> (H, W)."""
+    """Decode COCO RLE (compressed string or uncompressed list) -> (H, W):
+    a compressed string by the native codec, a list of runs in numpy."""
+    if isinstance(counts, list):
+        return decode_rle_plain(counts, size)
+    H, W = size
+    s = counts.decode("ascii") if isinstance(counts, bytes) else counts
+    return native.rle_decode(s, H, W)
+
+
+def decode_rle_plain(counts, size) -> np.ndarray:
+    """`decode_rle` in numpy/Python (the codec's plain version)."""
     H, W = size
     if isinstance(counts, list):
         runs = counts
@@ -59,7 +72,13 @@ def decode_rle(counts, size) -> np.ndarray:
 
 
 def encode_rle(mask: np.ndarray) -> Dict:
-    """Binary (H, W) mask -> COCO compressed RLE dict."""
+    """Binary (H, W) mask -> COCO compressed RLE dict (the native codec)."""
+    H, W = mask.shape
+    return {"size": [H, W], "counts": native.rle_encode(mask)}
+
+
+def encode_rle_plain(mask: np.ndarray) -> Dict:
+    """`encode_rle` in numpy/Python (the codec's plain version)."""
     H, W = mask.shape
     flat = np.asarray(mask, np.uint8).T.reshape(-1)
     # run lengths starting with a 0-run

@@ -1,7 +1,7 @@
 """Self-contained COCO-protocol detection evaluation (no pycocotools),
-copied from `vitadapter/det/coco_eval.py` with the numpy mask IoU (the JAX
-package's native popcount kernel, `native/rle.cpp`, is not ported yet:
-ROADMAP.md §1 item 6; it gives the same IoUs).
+copied from `vitadapter/det/coco_eval.py`. The mask IoU is the native
+bit-packed popcount (`ops/native.py`, `ops/host/rle.cpp`), as in the JAX
+package; `mask_iou_plain` is its numpy version, which gives the same IoUs.
 
 Implements the COCOeval bbox/segm algorithm: greedy per-category matching at
 IoU thresholds .5:.05:.95, 101-point interpolated AP, area-range splits and
@@ -15,6 +15,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from vitadapter_torch.ops import native
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -48,7 +50,16 @@ def box_iou(dets: np.ndarray, gts: np.ndarray,
 def mask_iou(dets: np.ndarray, gts: np.ndarray,
              iscrowd: Optional[np.ndarray] = None) -> np.ndarray:
     """IoU between binary masks dets (D, H, W) and gts (G, H, W); for crowd
-    gts, intersection over the detection's area (COCO rule)."""
+    gts, intersection over the detection's area (COCO rule). The native
+    popcount."""
+    if len(dets) == 0 or len(gts) == 0:
+        return np.zeros((len(dets), len(gts)))
+    return native.mask_iou_native(dets, gts, iscrowd)
+
+
+def mask_iou_plain(dets: np.ndarray, gts: np.ndarray,
+                   iscrowd: Optional[np.ndarray] = None) -> np.ndarray:
+    """`mask_iou` in dense numpy (its plain version)."""
     if len(dets) == 0 or len(gts) == 0:
         return np.zeros((len(dets), len(gts)))
     d = dets.reshape(len(dets), -1).astype(bool)

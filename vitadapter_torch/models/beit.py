@@ -1,10 +1,13 @@
 """BEiT trunk (counterpart of `vitadapter/models/beit.py`): a qkv
-projection without bias plus separate q and v biases, per-block
-relative-position bias tables, layer scale `gamma_1`/`gamma_2`, and
-`embed()` / `run_blocks()` to let the adapter interleave its interactions
-between block spans. Parameter names are the reference's (`cls_token`,
-`patch_embed.proj`, `blocks.N.attn.relative_position_bias_table`,
-`blocks.N.gamma_1`, ...).
+projection without bias plus separate q and v biases (`qkv_bias`),
+per-block relative-position bias tables (`use_rel_pos_bias`), layer scale
+`gamma_1`/`gamma_2`, an optional absolute position embedding over the
+`pretrain_size` grid, bicubic-resampled to each input (`use_abs_pos_emb`),
+the patchify conv or a CNN stem (`hybrid_backbone`,
+`layers/patch_embed.py::HybridEmbed`), and `embed()` / `run_blocks()` to
+let the adapter interleave its interactions between block spans. Parameter
+names are the reference's (`cls_token`, `pos_embed`, `patch_embed.proj`,
+`blocks.N.attn.relative_position_bias_table`, `blocks.N.gamma_1`, ...).
 
 The segmentation variant carries a cls token along every block, and its
 tables span the `img_size // patch_size` grid with three cls buckets. The
@@ -33,15 +36,8 @@ from vitadapter_torch.layers.drop import DropPath, checkpointed
 from vitadapter_torch.layers.linear import Linear
 from vitadapter_torch.layers.mlp import Mlp
 from vitadapter_torch.layers.norm import LayerNorm
-from vitadapter_torch.layers.patch_embed import PatchEmbed
-from vitadapter_torch.models.vit import per_block
-
-# the BEiT options of the JAX module that no config of `configs/` sets
-NOT_PORTED = ("BEiT is ported with q/v biases, relative-position tables, "
-              "no absolute pos embed, global or windowed attention and an "
-              "optional cls token; a hybrid CNN stem (`hybrid_backbone`), "
-              "an absolute pos embed, or no qkv bias or relative-position "
-              "bias are not ported yet: ROADMAP.md §1 item 4")
+from vitadapter_torch.layers.patch_embed import HybridEmbed, PatchEmbed
+from vitadapter_torch.models.vit import per_block, resample_abs_pos_embed
 
 
 def relative_position_index(wh: int, ww: int, with_cls: bool) -> np.ndarray:
@@ -73,74 +69,88 @@ def relative_position_index(wh: int, ww: int, with_cls: bool) -> np.ndarray:
 
 class BEiTAttention(nn.Module):
     """BEiT MHSA over (B, N, C) tokens: a qkv projection without bias, the
-    bias cat(q_bias, 0, v_bias) added after it, and the relative-position
-    bias gathered from `relative_position_bias_table` for the (gh, gw)
-    grid it spans (plus 3 cls buckets `with_cls`). A `windowed` block
-    zero-pads the (H, W) token grid at the bottom and right to a multiple
-    of `window_size` before the projection (the padded tokens get the
-    biases, as in the JAX module) and attends inside each window; its grid
-    is the window."""
+    bias cat(q_bias, 0, v_bias) added after it (`qkv_bias`), and the
+    relative-position bias gathered from `relative_position_bias_table` for
+    the (gh, gw) grid it spans (plus 3 cls buckets `with_cls`; none where
+    `rel_pos_grid` is None). A `windowed` block zero-pads the (H, W) token
+    grid at the bottom and right to a multiple of `window_size` before the
+    projection (the padded tokens get the biases, as in the JAX module) and
+    attends inside each window; its grid is the window."""
 
-    def __init__(self, dim: int, num_heads: int, rel_pos_grid: Tuple[int, int],
+    def __init__(self, dim: int, num_heads: int,
+                 rel_pos_grid: Optional[Tuple[int, int]],
                  with_cls: bool = True, windowed: bool = False,
-                 window_size: int = 14, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 window_size: int = 14, qkv_bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.with_cls = with_cls
         self.windowed = windowed
         self.window_size = window_size
+        self.qkv_bias = qkv_bias
         self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype,
                           device=device)
-        self.q_bias = nn.Parameter(torch.zeros(dim, device=device))
-        self.v_bias = nn.Parameter(torch.zeros(dim, device=device))
-        self.rel_pos_grid = gh, gw = rel_pos_grid
-        extra = 3 if with_cls else 0
-        self.relative_position_bias_table = nn.Parameter(
-            torch.zeros((2 * gh - 1) * (2 * gw - 1) + extra, num_heads,
-                        device=device))
-        n = gh * gw + (1 if with_cls else 0)
-        # recomputed, not loaded: `init_weights` fills it
-        self.register_buffer("relative_position_index",
-                             torch.zeros(n * n, dtype=torch.long,
-                                         device=device), persistent=False)
+        if qkv_bias:
+            self.q_bias = nn.Parameter(torch.zeros(dim, device=device))
+            self.v_bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.rel_pos_grid = rel_pos_grid
+        if rel_pos_grid is not None:
+            gh, gw = rel_pos_grid
+            extra = 3 if with_cls else 0
+            self.relative_position_bias_table = nn.Parameter(
+                torch.zeros((2 * gh - 1) * (2 * gw - 1) + extra, num_heads,
+                            device=device))
+            n = gh * gw + (1 if with_cls else 0)
+            # recomputed, not loaded: `init_weights` fills it
+            self.register_buffer("relative_position_index",
+                                 torch.zeros(n * n, dtype=torch.long,
+                                             device=device),
+                                 persistent=False)
         self.proj = Linear(dim, dim, dtype=dtype, device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        self.q_bias.zero_()
-        self.v_bias.zero_()
-        self.relative_position_bias_table.zero_()
-        idx = relative_position_index(*self.rel_pos_grid, self.with_cls)
-        self.relative_position_index.copy_(torch.from_numpy(idx.reshape(-1)))
+        if self.qkv_bias:
+            self.q_bias.zero_()
+            self.v_bias.zero_()
+        if self.rel_pos_grid is not None:
+            self.relative_position_bias_table.zero_()
+            idx = relative_position_index(*self.rel_pos_grid, self.with_cls)
+            self.relative_position_index.copy_(
+                torch.from_numpy(idx.reshape(-1)))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Attention over (B, N, C) tokens whose grid is the table's."""
+        """Attention over (B, N, C) tokens, whose grid is the table's where
+        there is one."""
         B, N, C = x.shape
         h = self.num_heads
         Dh = C // h
-        gh, gw = self.rel_pos_grid
-        if N != gh * gw + self.with_cls:
-            # as in the JAX package and the reference, whose ms test
-            # pipelines resize every image's short side to at least the
-            # crop (SETR_Resize) so that no crop is smaller
-            raise ValueError(
-                f"BEiT's relative-position tables span a {gh}x{gw} patch "
-                f"grid (img_size / patch_size); this input has "
-                f"{N - self.with_cls} patches: crops must be img_size "
-                f"square (ROADMAP.md §3)")
-        bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
-                          self.v_bias])
+        if self.rel_pos_grid is not None:
+            gh, gw = self.rel_pos_grid
+            if N != gh * gw + self.with_cls:
+                # as in the JAX package and the reference, whose ms test
+                # pipelines resize every image's short side to at least the
+                # crop (SETR_Resize) so that no crop is smaller
+                raise ValueError(
+                    f"BEiT's relative-position tables span a {gh}x{gw} "
+                    f"patch grid (img_size / patch_size); this input has "
+                    f"{N - self.with_cls} patches: crops must be img_size "
+                    f"square (ROADMAP.md §3)")
         qkv = self.qkv(x)
-        qkv = qkv + bias.to(qkv.dtype)
+        if self.qkv_bias:
+            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
+                              self.v_bias])
+            qkv = qkv + bias.to(qkv.dtype)
         q, k, v = qkv.reshape(B, N, 3, h, Dh).permute(2, 0, 3, 1, 4)
         # fp32 logits, the fp32 bias added, then stored in the compute
         # dtype; fp32 softmax (the JAX module's order)
         logits = torch.matmul((q * Dh ** -0.5).float(),
                               k.float().transpose(-1, -2))
-        rel = self.relative_position_bias_table[
-            self.relative_position_index].reshape(N, N, h)
-        logits = (logits + rel.permute(2, 0, 1)[None]).to(v.dtype)
+        if self.rel_pos_grid is not None:
+            rel = self.relative_position_bias_table[
+                self.relative_position_index].reshape(N, N, h)
+            logits = logits + rel.permute(2, 0, 1)[None]
+        logits = logits.to(v.dtype)
         w = torch.softmax(logits.float(), dim=-1).to(v.dtype)
         out = torch.matmul(w, v)
         return out.transpose(1, 2).reshape(B, N, C)
@@ -160,16 +170,18 @@ class BEiTAttention(nn.Module):
 
 
 class BEiTBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, rel_pos_grid: Tuple[int, int],
+    def __init__(self, dim: int, num_heads: int,
+                 rel_pos_grid: Optional[Tuple[int, int]],
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  init_values: float = 1e-6, with_cls: bool = True,
                  windowed: bool = False, window_size: int = 14,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6, device=device)
         self.attn = BEiTAttention(dim, num_heads, rel_pos_grid, with_cls,
-                                  windowed, window_size, dtype=dtype,
-                                  device=device)
+                                  windowed, window_size, qkv_bias,
+                                  dtype=dtype, device=device)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=1e-6, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
@@ -195,10 +207,12 @@ class BEiT(nn.Module):
     Block i attends in windows of `window_size[i]` (None meaning 14) where
     `window_attn[i]`, each option a value or a list by depth; a windowed
     block's table spans its window, a global block's the `img_size //
-    patch_size` grid. With `use_cls_token` (the segmentation variant) the
-    cls token rides along the blocks, which then must all be global. The
-    flags of the JAX module that no config sets must keep their one value
-    (`NOT_PORTED`)."""
+    patch_size` grid (none without `use_rel_pos_bias`). With
+    `use_cls_token` (the segmentation variant) the cls token rides along
+    the blocks, which then must all be global. `use_abs_pos_emb` adds a
+    (1, g*g, D) position embedding over the `pretrain_size // patch_size`
+    grid g, resampled to the input's patch grid; `hybrid_backbone`, an
+    NHWC CNN module, replaces the patchify conv (`HybridEmbed`)."""
 
     def __init__(self, img_size: int = 512, patch_size: int = 16,
                  embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
@@ -207,12 +221,10 @@ class BEiT(nn.Module):
                  qkv_bias: bool = True, use_abs_pos_emb: bool = False,
                  use_rel_pos_bias: bool = True, window_attn=False,
                  window_size=14, use_cls_token: bool = True,
-                 hybrid_backbone=None,
+                 hybrid_backbone: Optional[nn.Module] = None,
+                 pretrain_size: int = 224,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if (not qkv_bias or use_abs_pos_emb or not use_rel_pos_bias
-                or hybrid_backbone is not None):
-            raise NotImplementedError(NOT_PORTED)
         windowed = [bool(w) for w in per_block(window_attn, depth)]
         sizes = [int(s or 14) for s in per_block(window_size, depth)]
         if use_cls_token and any(windowed):
@@ -221,29 +233,52 @@ class BEiT(nn.Module):
         self.embed_dim = embed_dim
         self.with_cp = with_cp
         self.use_cls_token = use_cls_token
+        self.use_abs_pos_emb = use_abs_pos_emb
+        self.pos_grid = pretrain_size // patch_size
         grid = img_size // patch_size
         dpr = np.linspace(0, drop_path_rate, depth)
-        self.patch_embed = PatchEmbed(patch_size, 3, embed_dim, dtype=dtype,
-                                      device=device)
+        if hybrid_backbone is not None:
+            self.patch_embed = HybridEmbed(hybrid_backbone, embed_dim,
+                                           img_size=img_size, dtype=dtype,
+                                           device=device)
+        else:
+            self.patch_embed = PatchEmbed(patch_size, 3, embed_dim,
+                                          dtype=dtype, device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim,
                                                   device=device))
+        if use_abs_pos_emb:
+            self.pos_embed = nn.Parameter(torch.zeros(
+                1, self.pos_grid ** 2, embed_dim, device=device))
+
+        def rel_grid(i):
+            if not use_rel_pos_bias:
+                return None
+            return (sizes[i], sizes[i]) if windowed[i] else (grid, grid)
+
         self.blocks = nn.ModuleList([
-            BEiTBlock(embed_dim, num_heads,
-                      (sizes[i], sizes[i]) if windowed[i] else (grid, grid),
-                      mlp_ratio, drop_path=float(dpr[i]),
-                      init_values=init_values,
+            BEiTBlock(embed_dim, num_heads, rel_grid(i), mlp_ratio,
+                      drop_path=float(dpr[i]), init_values=init_values,
                       with_cls=use_cls_token and not windowed[i],
                       windowed=windowed[i], window_size=sizes[i],
-                      dtype=dtype, device=device)
+                      qkv_bias=qkv_bias, dtype=dtype, device=device)
             for i in range(depth)])
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         self.cls_token.normal_(0.0, 0.02, generator=generator)
+        if self.use_abs_pos_emb:
+            self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
     def embed(self, x: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
-        """Patchify: (B, H*W, C) tokens, no cls token."""
-        return self.patch_embed(x)
+        """Patchify (and add the resampled position embedding): (B, H*W, C)
+        tokens, no cls token."""
+        tokens, H, W = self.patch_embed(x)
+        if self.use_abs_pos_emb:
+            g = self.pos_grid
+            pe = resample_abs_pos_embed(self.pos_embed.float(), (g, g),
+                                        (H, W))
+            tokens = tokens + pe.to(tokens.dtype)
+        return tokens, H, W
 
     def run_blocks(self, x: torch.Tensor, H: int, W: int, start: int,
                    end: int, generator: Optional[torch.Generator] = None

@@ -2,7 +2,8 @@
 with global or windowed attention and layer scale, `resample_abs_pos_embed`
 and `TIMMVisionTransformer` with `embed()` / `run_blocks()`, windowing
 chosen per block (`window_attn`, `window_size`, a value or a list by
-depth). `ResBottleneckBlock` is not ported yet (`NOT_PORTED`). In training mode
+depth), and the ViTDet `ResBottleneckBlock` after each block of
+`residual_indices` (reference `base/vit.py:233-289`). In training mode
 the blocks' DropPath draws from the `generator` passed down (JAX's
 "dropout" rng). With `with_cp` each block is recomputed in the backward
 (`layers/drop.py::checkpointed`, as `nn.remat` wraps the JAX block).
@@ -16,23 +17,11 @@ from torch import nn
 
 from vitadapter_torch.layers.attention import Attention, WindowedAttention
 from vitadapter_torch.layers.drop import DropPath, checkpointed
-from vitadapter_torch.layers.mlp import Mlp
-from vitadapter_torch.layers.norm import LayerNorm
+from vitadapter_torch.layers.linear import Conv2d, conv_nhwc
+from vitadapter_torch.layers.mlp import Mlp, gelu
+from vitadapter_torch.layers.norm import LayerNorm, LayerNorm2d
 from vitadapter_torch.layers.patch_embed import PatchEmbed
 from vitadapter_torch.utils.resize import resize_2d
-
-NOT_PORTED = ("the ViT trunk is ported with global and windowed "
-              "attention; the residual bottleneck blocks "
-              "(`residual_indices`, `ResBottleneckBlock`) are not ported "
-              "yet: ROADMAP.md §1 item 4")
-
-
-def refuse_residual(residual_indices) -> None:
-    """Raise `NotImplementedError` naming ROADMAP.md's item for the ViT
-    option the port lacks."""
-    if tuple(residual_indices or ()):
-        raise NotImplementedError(NOT_PORTED)
-
 
 def per_block(value, depth: int) -> list:
     """A per-depth option: a list or tuple as it is, a value repeated."""
@@ -40,15 +29,48 @@ def per_block(value, depth: int) -> list:
             else [value] * depth)
 
 
+class ZeroLayerNorm2d(LayerNorm2d):
+    """A `LayerNorm2d` whose weight and bias start at zero."""
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.weight.zero_()
+        self.bias.zero_()
+
+
+class ResBottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1 convs without bias on an NHWC map, each followed
+    by a channel LayerNorm, GELU after the first two; the last norm starts
+    at zero, so the block starts as the identity (reference
+    `base/vit.py:233-289`). Returns x + the branch."""
+
+    def __init__(self, dim: int, bottleneck: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        kw = dict(bias=False, dtype=dtype, device=device)
+        self.conv1 = Conv2d(dim, bottleneck, 1, **kw)
+        self.norm1 = LayerNorm2d(bottleneck, device=device)
+        self.conv2 = Conv2d(bottleneck, bottleneck, 3, padding=1, **kw)
+        self.norm2 = LayerNorm2d(bottleneck, device=device)
+        self.conv3 = Conv2d(bottleneck, dim, 1, **kw)
+        self.norm3 = ZeroLayerNorm2d(dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = gelu(self.norm1(conv_nhwc(self.conv1, x)))
+        out = gelu(self.norm2(conv_nhwc(self.conv2, out)))
+        return x + self.norm3(conv_nhwc(self.conv3, out)).to(x.dtype)
+
+
 class Block(nn.Module):
     """Pre-norm transformer block with optional windowing (`windowed`,
-    `window_size`) and layer scale."""
+    `window_size`), layer scale and a residual bottleneck after it
+    (`use_residual`)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path: float = 0.0,
                  layer_scale: bool = False, windowed: bool = False,
-                 window_size: int = 14, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 window_size: int = 14, use_residual: bool = False,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6, device=device)
         if windowed:
@@ -65,6 +87,10 @@ class Block(nn.Module):
         if layer_scale:
             self.gamma1 = nn.Parameter(torch.ones(dim, device=device))
             self.gamma2 = nn.Parameter(torch.ones(dim, device=device))
+        self.use_residual = use_residual
+        if use_residual:
+            self.residual = ResBottleneckBlock(dim, dim // 2, dtype=dtype,
+                                               device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -81,7 +107,11 @@ class Block(nn.Module):
         m = self.mlp(self.norm2(x))
         if self.layer_scale:
             m = self.gamma2 * m
-        return x + self.drop_path(m, generator)
+        x = x + self.drop_path(m, generator)
+        if self.use_residual:
+            B, N, C = x.shape
+            x = self.residual(x.reshape(B, H, W, C)).reshape(B, N, C)
+        return x
 
 
 def resample_abs_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int],
@@ -99,7 +129,8 @@ class TIMMVisionTransformer(nn.Module):
     """Plain ViT trunk. `embed()` (patch + pos) and `run_blocks()` let the
     adapter interleave injectors and extractors between block spans.
     Block i attends in windows of `window_size[i]` (None meaning 14) where
-    `window_attn[i]`; each option is a value or a list by depth."""
+    `window_attn[i]`; each option is a value or a list by depth. A
+    `ResBottleneckBlock` follows each block of `residual_indices`."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
@@ -109,7 +140,7 @@ class TIMMVisionTransformer(nn.Module):
                  residual_indices=(), dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        refuse_residual(residual_indices)
+        residual = set(residual_indices or ())
         self.embed_dim = embed_dim
         self.with_cp = with_cp
         self.patch_size = patch_size
@@ -126,8 +157,8 @@ class TIMMVisionTransformer(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias=qkv_bias,
                   drop_path=float(dpr[i]), layer_scale=layer_scale,
                   windowed=bool(windowed[i]),
-                  window_size=int(sizes[i] or 14), dtype=dtype,
-                  device=device)
+                  window_size=int(sizes[i] or 14),
+                  use_residual=i in residual, dtype=dtype, device=device)
             for i in range(depth)])
 
     @torch.no_grad()

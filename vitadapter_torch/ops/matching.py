@@ -3,23 +3,26 @@
 
 The costs are those of the reference `MaskHungarianAssigner`
 (`segmentation/mmseg_custom/models/utils/assigner.py:41`), batched over
-leading dimensions. `hungarian_assign` solves the assignment on the device
-with the epsilon auction of the JAX package's `auction_pallas` (Bertsekas;
-the gts bid for the queries, one round of eps = span / 2000): the Hopper
-kernel `csrc/auction.cu` for CUDA tensors, `auction_assign_plain` for CPU
-tensors. Both make the Pallas kernel's fp32 additions in its order and break
-ties as it does, so they give the same matches on the same costs; the total
-matched cost is within n_valid * eps of scipy's optimum.
+leading dimensions. `hungarian_assign` solves the assignment by default on
+the device with the epsilon auction of the JAX package's `auction_pallas`
+(Bertsekas; the gts bid for the queries, one round of eps = span / 2000):
+the Hopper kernel `csrc/auction.cu` for CUDA tensors, `auction_assign_plain`
+for CPU tensors. Both make the Pallas kernel's fp32 additions in its order
+and break ties as it does, so they give the same matches on the same costs;
+the total matched cost is within n_valid * eps of scipy's optimum. Its
+`impl` argument also offers the JAX package's host solvers: scipy's exact
+solve (`"callback"`) and the native LAPJV (`"native"`, `ops/native.py`).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vitadapter_torch.ops import cuda_ext
+from vitadapter_torch.ops import cuda_ext, native
 
 EPS_DIV = 2000.0
 MAX_ITERS = 5000
@@ -118,14 +121,55 @@ def _kernel_auction(cost: torch.Tensor, n_valid: torch.Tensor
     return owner, iters
 
 
-def hungarian_assign(cost: torch.Tensor, n_valid: torch.Tensor
-                     ) -> torch.Tensor:
-    """Batched assignment by auction. cost (B, Q, G) fp32, n_valid (B,): the
-    first n_valid[b] gt columns of matrix b are real. Returns (B, Q) int64 on
-    the cost's device: the matched gt index of each query, or -1. CPU
-    tensors take `auction_assign_plain`; CUDA tensors the kernel, or raise
-    if it cannot take them."""
-    if cost.device.type == "cpu":
+def solve_batch(cost: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
+    """scipy's exact solve (a copy of the JAX package's `_solve_batch`):
+    cost (B, Q, G), n_valid (B,) -> the assigned gt of each query (B, Q)
+    int32, -1 for unassigned."""
+    from scipy.optimize import linear_sum_assignment
+
+    B, Q, G = cost.shape
+    out = np.full((B, Q), -1, np.int32)
+    for b in range(B):
+        n = int(n_valid[b])
+        if n <= 0:
+            continue
+        c = np.nan_to_num(np.asarray(cost[b, :, :n], np.float64),
+                          nan=1e8, posinf=1e8, neginf=-1e8)
+        rows, cols = linear_sum_assignment(c)
+        out[b, rows] = cols
+    return out
+
+
+HOST_SOLVERS = {"callback": solve_batch, "native": native.lap_solve_batch}
+IMPLS = ("auto", "auction", "auction_kernel", *HOST_SOLVERS)
+
+
+def hungarian_assign(cost: torch.Tensor, n_valid: torch.Tensor,
+                     impl: str = "auto") -> torch.Tensor:
+    """Batched assignment. cost (B, Q, G) fp32, n_valid (B,): the first
+    n_valid[b] gt columns of matrix b are real. Returns (B, Q) int64 on the
+    cost's device: the matched gt index of each query, or -1.
+
+    impl (the JAX package's, with `auction_kernel` for its `auction_pallas`):
+      'auto'           — `auction_assign_plain` on CPU tensors, the kernel on
+                         CUDA tensors (or raise if it cannot take them).
+      'auction'        — `auction_assign_plain` on the cost's device.
+      'auction_kernel' — `csrc/auction.cu`; CUDA tensors only.
+      'callback'       — scipy's exact solve on the host (`solve_batch`).
+      'native'         — the native LAPJV on the host (`ops/native.py`).
+    The host solvers copy the cost to the host and the result back, as the
+    JAX package's `pure_callback` does. On one CPU device JAX's 'auto' is
+    'callback'; here it stays the auction (ROADMAP.md §3)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r}: one of {IMPLS}")
+    if impl == "auto":
+        impl = "auction" if cost.device.type == "cpu" else "auction_kernel"
+    if impl in HOST_SOLVERS:
+        host = HOST_SOLVERS[impl](
+            cost.detach().float().cpu().numpy(),
+            n_valid.detach().to(torch.int32).cpu().numpy())
+        return torch.from_numpy(np.asarray(host, np.int64)).to(cost.device)
+    if impl == "auction":
         return auction_assign_plain(cost, n_valid)[0]
     B, Q, G = cost.shape
     if G == 0 or Q == 0:

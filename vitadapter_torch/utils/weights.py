@@ -88,8 +88,22 @@ def msda_from_flax(p: Tree) -> StateDict:
     return sd
 
 
+def residual_from_flax(p: Tree) -> StateDict:
+    """`ResBottleneckBlock`: flax `conv{1,2,3}`, `norm{1,2}` and the zero-
+    initialised `norm3_weight`/`norm3_bias` -> `convN.weight`,
+    `normN.weight`/`.bias`."""
+    sd: StateDict = {}
+    for j in (1, 2, 3):
+        sd.update(_prefixed(f"conv{j}", _conv(p[f"conv{j}"])))
+    for j in (1, 2):
+        sd.update(_prefixed(f"norm{j}", _ln2d(p[f"norm{j}"])))
+    sd["norm3.weight"] = _t(p["norm3_weight"])
+    sd["norm3.bias"] = _t(p["norm3_bias"])
+    return sd
+
+
 def block_from_flax(p: Tree) -> StateDict:
-    """ViT `Block`."""
+    """ViT `Block`, with its `ResBottleneckBlock` where it has one."""
     sd = {**_prefixed("norm1", _norm(p["norm1"])),
           **_prefixed("norm2", _norm(p["norm2"])),
           **_prefixed("attn.qkv", _linear(p["attn"]["qkv"])),
@@ -99,6 +113,8 @@ def block_from_flax(p: Tree) -> StateDict:
     for g in ("gamma1", "gamma2"):
         if g in p:
             sd[g] = _t(p[g])
+    if "residual" in p:
+        sd.update(_prefixed("residual", residual_from_flax(p["residual"])))
     return sd
 
 
@@ -163,8 +179,9 @@ def _vit_trunk(vit: Tree) -> StateDict:
 
 
 def beit_block_from_flax(p: Tree) -> StateDict:
-    """`BEiTBlock`: the qkv kernel without bias, q/v biases, the
-    relative-position table and the `gamma_1`/`gamma_2` layer scale."""
+    """`BEiTBlock`: the qkv kernel without bias, the q/v biases and the
+    relative-position table where the block has them, and the
+    `gamma_1`/`gamma_2` layer scale."""
     attn = p["attn"]
     return {**_prefixed("norm1", _norm(p["norm1"])),
             **_prefixed("norm2", _norm(p["norm2"])),
@@ -173,16 +190,26 @@ def beit_block_from_flax(p: Tree) -> StateDict:
             **_prefixed("mlp.fc1", _linear(p["mlp"]["fc1"])),
             **_prefixed("mlp.fc2", _linear(p["mlp"]["fc2"])),
             **{f"attn.{k}": _t(attn[k]) for k in (
-                "q_bias", "v_bias", "relative_position_bias_table")},
+                "q_bias", "v_bias", "relative_position_bias_table")
+               if k in attn},
             "gamma_1": _t(p["gamma_1"]), "gamma_2": _t(p["gamma_2"])}
 
 
 def _beit_trunk(beit: Tree) -> StateDict:
-    """The flax `beit` subtree, flattened as in the reference."""
-    return {"cls_token": _t(beit["cls_token"]),
-            **_prefixed("patch_embed.proj",
-                        _conv(beit["patch_embed"]["proj"])),
-            **_blocks(beit, beit_block_from_flax)}
+    """The flax `beit` subtree, flattened as in the reference: the
+    `pos_embed` where there is one, and `patch_embed.proj` as the patchify
+    conv or as `HybridEmbed`'s projection (a Dense kernel). A hybrid
+    stem's own parameters (flax `hybrid_backbone`, the reference's
+    `patch_embed.backbone`) are any module's and are not carried over
+    here."""
+    proj = beit["patch_embed"]["proj"]
+    sd = {"cls_token": _t(beit["cls_token"]),
+          **_prefixed("patch_embed.proj", _linear(proj)
+                      if np.ndim(proj["kernel"]) == 2 else _conv(proj)),
+          **_blocks(beit, beit_block_from_flax)}
+    if "pos_embed" in beit:
+        sd["pos_embed"] = _t(beit["pos_embed"])
+    return sd
 
 
 def _adapter_from_flax(p: Tree, s: Tree) -> StateDict:
@@ -777,7 +804,8 @@ def state_dict_from_flax(params: Tree,
     `BEiTBaseline`, `DinoTransformer`,
     `Mask2FormerHead`, `MaskFormerHead`, `UPerHead`, `FCNHead`, the `SimpleFeaturePyramid`,
     the pixel decoder, an `InteractionBlock`, the `SpatialPriorModule`, a
-    ViT `Block`, a `BEiTBlock`, an `MSDeformAttn` or a `PatchMerging`."""
+    ViT `Block`, a `ResBottleneckBlock`, a `BEiTBlock`, an `MSDeformAttn`
+    or a `PatchMerging`."""
     s = batch_stats or {}
     if "backbone" in params and "transformer" in params:
         return grounding_dino_from_flax(params, s)
@@ -813,6 +841,8 @@ def state_dict_from_flax(params: Tree,
         return interaction_from_flax(params)
     if "stem1_conv" in params:
         return spm_from_flax(params, s)
+    if "norm3_weight" in params:
+        return residual_from_flax(params)
     if "gamma_1" in params:
         return beit_block_from_flax(params)
     if "mlp" in params:
