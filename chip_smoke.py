@@ -355,6 +355,9 @@ ATTN_PATH_CASES = {
     # phase 26's Sparse R-CNN step: the DeiT-S trunk of "det_bf16" in fp32
     "sparse_window": (50, 6, 196, F32, "sparse", 8, 8),
     "sparse_global": (2, 6, 4096, F32, "sparse", 4, 4),
+    # phase 30 (a)'s full-width flagship step on a model group of 2: each
+    # rank attends with 8 of the 16 heads, one image
+    "tp": (1, 8, 1024, BF16, "tp", 24, 24),
 }
 # the head dim of an `ATTN_PATH_CASES` case (64 elsewhere)
 ATTN_PATH_D = {"htc_extra": 128}
@@ -578,6 +581,9 @@ MSDA_PATH_CASES = {
     # "det_bf16" (batch 2, 6 heads, D 64) in fp32
     "sparse_injector": (SPM1024, 4096, 6, (64, 64), "sparse", 4, True),
     "sparse_extractor": (((64, 64),), 21504, 6, SPM1024, "sparse", 6, True),
+    # phase 30 (c): the flagship pixel decoder's call with its 5376
+    # queries split over 2 ranks (a rank's 2688, fp32)
+    "sp": (SPM512[::-1], 2688, 32, None, "sp", 1, True),
 }
 # the batch, dtype and head dim of each path's MSDA calls in
 # `MSDA_PATH_CASES` (1, fp32 and 32 elsewhere)
@@ -658,6 +664,12 @@ CLI_STEPS = 4
 CLI_OPTIONS = ["log_config.interval=1", "checkpoint_config.interval=2",
                "evaluation.interval=4", "evaluation.max_images=2"]
 CLI_IMAGES = ((512, 683), (683, 512))
+# phases 11, 23 and 24 cut the configs' BEiT-L trunk from 24 blocks to 8,
+# two an interaction (full width; BEiT's attention is plain PyTorch, so
+# the kernels' launches are those of the configs as shipped), to make room
+# for phase 30 inside the script's time limit
+BEIT_CUT = ["model.backbone.depth=8",
+            "model.backbone.interaction_indexes=[[0,1],[2,3],[4,5],[6,7]]"]
 # `--aug-test` at ratios of at least 1: below 1 the slide crops of these
 # images are smaller than img_size, whose grid the BEiT relative-position
 # tables span (ROADMAP.md §3); the default ratios must raise that error
@@ -3134,7 +3146,8 @@ def run_config_cli(name, config, options, step_launches, never, aug_options,
 
 def config_cli():
     """Phase 11: the config entry points on the 640 px BEiT-Adapter-L +
-    Mask2Former config (fp32, batch 1, 100 queries, 150 classes): 4 steps
+    Mask2Former config (fp32, batch 1, 100 queries, 150 classes; the trunk
+    cut to 8 blocks, `BEIT_CUT`): 4 steps
     (checkpoints every 2 steps, the eval hook at the last), a resumed
     fifth, the test CLI with `--aug-test` at ratios 1.0-1.75 and the
     default ratios refused (`run_config_cli`). No attention kernel runs
@@ -3142,8 +3155,9 @@ def config_cli():
     Returns the train steps' launches and, for phase 29 (d), what
     `keep_release` kept of the checkpoint."""
     counts, _, kept = run_config_cli(
-        "config CLI", CLI_CONFIG, CLI_OPTIONS, CLI_STEP_LAUNCHES, CLI_NEVER,
-        [CLI_AUG_RATIOS], refuse_small_crops=True, after=keep_release)
+        "config CLI", CLI_CONFIG, CLI_OPTIONS + BEIT_CUT, CLI_STEP_LAUNCHES,
+        CLI_NEVER, [CLI_AUG_RATIOS], refuse_small_crops=True,
+        model_options=BEIT_CUT, after=keep_release)
     return counts, kept
 
 
@@ -3290,7 +3304,7 @@ def upernet_card_vs_cpu():
     on the same batch (batch 2, block labels with ignored pixels),
     compared by loss and gradient norm (TRAIN_RTOL). The gradient norm
     compared is each side's float64 norm of the step's gradients: the
-    step's own (`clip_grad_norm_` in fp32) sums 250 million squares, and
+    step's own (the optimizer's, in fp32) sums 250 million squares, and
     on the CPU that fp32 sum was 1.6e-3 below the float64 norm of the same
     gradients (the card's 1e-7 from it), so it is logged beside."""
     from vitadapter_torch.builder import build_model
@@ -4778,7 +4792,8 @@ BBOX_EVAL_ARGS = ["--eval", "bbox"]
 def maskformer_cli():
     """Phase 23: the shipped MaskFormer config's first forward raises
     `memory dim mismatch` (one model call of the shipped build); then
-    `run_config_cli` with the encoder pixel decoder: 4 steps (checkpoints
+    `run_config_cli` with the encoder pixel decoder and the trunk cut to 8
+    blocks (`BEIT_CUT`): 4 steps (checkpoints
     every 2, the eval hook at the last), a resumed fifth, the test CLI
     `--eval mIoU` on two ADE-layout images and with `--aug-test` at
     ratios 1.0-1.75. Returns the launches of the first run's train steps
@@ -4804,10 +4819,10 @@ def maskformer_cli():
         raise SystemExit("FAIL: the shipped MaskFormer config did not "
                          "raise JAX's memory dim mismatch")
     return run_config_cli("MaskFormer CLI", MF_CONFIG,
-                          CLI_OPTIONS + [MF_ENCODER], MF_STEP_LAUNCHES,
-                          CLI_NEVER, [CLI_AUG_RATIOS],
+                          CLI_OPTIONS + [MF_ENCODER] + BEIT_CUT,
+                          MF_STEP_LAUNCHES, CLI_NEVER, [CLI_AUG_RATIOS],
                           forward_launches=MF_FORWARD_LAUNCHES,
-                          model_options=[MF_ENCODER])[:2]
+                          model_options=[MF_ENCODER] + BEIT_CUT)[:2]
 
 
 def write_coco_panoptic(root, sizes, seed):
@@ -4871,7 +4886,8 @@ def panoptic_eval(cfg, model, aug_test):
 
 
 def panoptic_cli():
-    """Phase 24: `run_cli` on the COCO-panoptic config as shipped: 2 steps
+    """Phase 24: `run_cli` on the COCO-panoptic config, its trunk cut to 8
+    blocks (`BEIT_CUT`): 2 steps
     on synthetic data, a resumed third, then `tools.test --eval PQ` on
     `PAN_IMAGES` (a COCO-panoptic set it writes), its metrics equal to
     `run_panoptic_eval` called directly on the same weights. Returns the
@@ -4883,8 +4899,8 @@ def panoptic_cli():
     def prepare(tmp):
         root = os.path.join(tmp, "coco")
         write_coco_panoptic(root, PAN_IMAGES, 24)
-        return (["--synthetic-data", "--cfg-options", *PAN_OPTIONS],
-                [f"data.data_root={root}"])
+        return (["--synthetic-data", "--cfg-options", *PAN_OPTIONS,
+                 *BEIT_CUT], [f"data.data_root={root}", *BEIT_CUT])
 
     train_counts, test_counts, _, _ = run_cli(
         "panoptic", EncoderDecoderMask2Former, PAN_CONFIG, PAN_STEPS,
@@ -5241,9 +5257,9 @@ def sparse_shipped_init():
 # and memory there are of two processes sharing a card over gloo, not a
 # data-parallel training rate.
 DDP_WORLD = 2
-DDP_TIMEOUT = 420           # seconds the ranks may take in all
+DDP_TIMEOUT = 720           # seconds the ranks may take (with phase 30)
 DDP_STEPS = 2               # steps of each reduced model (a)
-DDP_FLAGSHIP_STEPS = 4      # flagship steps on each rank (b)
+DDP_FLAGSHIP_STEPS = 2      # flagship steps on each rank (b)
 # the largest number of elements of a tensor that (a) compares: larger
 # tensors are compared at evenly spaced elements
 DDP_SAMPLE = 16384
@@ -5340,8 +5356,9 @@ def ddp_sample(t):
     return flat.cpu()
 
 
-def ddp_reduced(name, rank=None, recorded=None, nudge=False):
-    """`DDP_STEPS` train steps of phase 28 (a)'s model `name` on the card:
+def ddp_reduced(name, rank=None, recorded=None, nudge=False, mesh=None):
+    """`DDP_STEPS` train steps of phase 28 (a)'s model `name` (or phase 30
+    (a)'s, `TP_MODELS`) on the card:
     in one process on the batch of 2 (`rank` None), recording its sampler
     draws, the Mask2Former assignments and uncertainty-selected points and
     the Mask R-CNN proposals, or replaying a `recorded` one; or as rank
@@ -5349,13 +5366,19 @@ def ddp_reduced(name, rank=None, recorded=None, nudge=False):
     rounding that differs between a batch of 1 and 2 could change a
     near-tied match, proposal or bf16-rounded uncertainty, and the
     comparison would then see another step). With `nudge`, every input
-    pixel is moved by one ulp (a witness of float noise). Returns (the
+    pixel is moved by one ulp (a witness of float noise). With `mesh`, a
+    (data, model) grid of `parallel.tp.make_tp_mesh`, the model is split
+    over its model group (`shard_model`) and `rank` is the data rank
+    (None: one data rank); the parameters and gradients are then the
+    gathered logical ones. Returns (the
     logs of each step; the parameters before the steps and after each,
     the running statistics and the clipped gradients of each step, as
     `ddp_sample` takes them; the recording)."""
+    from vitadapter_torch import zoo
     from vitadapter_torch.builder import build_model
     from vitadapter_torch.det import rpn
     from vitadapter_torch.heads import mask2former_loss as loss_mod
+    from vitadapter_torch.parallel import tp
     from vitadapter_torch.train.optim import make_optimizer
     from vitadapter_torch.train.trainer import (TrainState,
                                                 make_det_train_step,
@@ -5363,13 +5386,38 @@ def ddp_reduced(name, rank=None, recorded=None, nudge=False):
                                                 make_seg_train_step)
     from vitadapter_torch.utils.config import Config
 
-    config, options, kind = DDP_MODELS[name]
-    cfg = Config.fromfile(config)
-    cfg.merge_from_options(options)
-    model = build_model(dict(cfg.model), device="cuda",
-                        generator=torch.Generator("cuda").manual_seed(28))
+    config, options, kind = {**DDP_MODELS, **TP_MODELS}[name]
+    if config is None:
+        model = zoo.mask2former_vit_adapter(
+            "large", generator=torch.Generator("cuda").manual_seed(28),
+            **options)
+        opt_kw = {}
+    else:
+        cfg = Config.fromfile(config)
+        cfg.merge_from_options(options)
+        model = build_model(dict(cfg.model), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(28))
+        opt_kw = dict(base_lr=cfg.optimizer["lr"],
+                      weight_decay=cfg.optimizer["weight_decay"],
+                      layer_decay_rate=cfg.optimizer["layer_decay_rate"])
     gen = torch.Generator().manual_seed(28)
     randomize(model, gen)
+    names = [n for n, _ in model.named_parameters()]
+    if mesh is not None:
+        tp.shard_model(model, mesh)
+
+    def named_params():
+        if mesh is None:
+            return dict(model.named_parameters())
+        full = tp.gather_state_dict(model, mesh)
+        return {n: full[n] for n in names}
+
+    def named_grads():
+        if mesh is None:
+            return {n: p.grad for n, p in model.named_parameters()
+                    if p.grad is not None}
+        return tp.gather_grads(model, mesh)
+
     batch = ddp_batch(kind, gen)
     if rank is not None:
         batch = {k: v[rank:rank + 1] for k, v in batch.items()}
@@ -5377,11 +5425,8 @@ def ddp_reduced(name, rank=None, recorded=None, nudge=False):
         batch["image"] = torch.nextafter(batch["image"],
                                          torch.tensor(float("inf")))
     batch = {k: v.cuda() for k, v in batch.items()}
-    opt, _ = make_optimizer(
-        model, base_lr=cfg.optimizer["lr"],
-        weight_decay=cfg.optimizer["weight_decay"],
-        layer_decay_rate=cfg.optimizer["layer_decay_rate"], depth=4,
-        total_steps=1000, warmup_steps=0)
+    opt, _ = make_optimizer(model, depth=4, total_steps=1000,
+                            warmup_steps=0, **opt_kw)
     state = TrainState.create(model, opt)
     if kind == "m2f":
         step = make_m2f_train_step(model, num_classes=150, num_points=1024)
@@ -5450,7 +5495,7 @@ def ddp_reduced(name, rank=None, recorded=None, nudge=False):
             return coords.pop(0).to(mask_logits.device)
 
     logs, grads, stats = [], [], []
-    params = [{n: ddp_sample(p) for n, p in model.named_parameters()}]
+    params = [{n: ddp_sample(p) for n, p in named_params().items()}]
     loss_mod.hungarian_assign, rpn.get_proposals = hungarian, proposals
     loss_mod.get_uncertain_point_coords = points
     try:
@@ -5459,11 +5504,10 @@ def ddp_reduced(name, rank=None, recorded=None, nudge=False):
             state, out = step(state, batch, torch.Generator(
                 "cuda").manual_seed(30), *extra)
             logs.append({k: float(v) for k, v in out.items()})
-            grads.append({n: ddp_sample(p.grad)
-                          for n, p in model.named_parameters()
-                          if p.grad is not None})
+            grads.append({n: ddp_sample(g)
+                          for n, g in named_grads().items()})
             params.append({n: ddp_sample(p)
-                           for n, p in model.named_parameters()})
+                           for n, p in named_params().items()})
             stats.append({n: b.detach().cpu().clone()
                           for n, b in model.named_buffers()
                           if n.endswith(("running_mean", "running_var"))})
@@ -5587,28 +5631,33 @@ def ddp_fault(fault):
     if fault == "no_allreduce":
         from vitadapter_torch.train import optim
 
-        optim.allreduce_grads = lambda params: None
+        optim.allreduce_grads = lambda params, group=None: None
     elif fault == "local_bn":
         from vitadapter_torch.layers import norm
 
-        norm.world_size = lambda: 1
+        norm.world_size = lambda group=None: 1
 
 
-def ddp_rank(tmp, rank, fault=None):
-    """A rank of phase 28 (a spawned process): joins the gloo group of
-    `DDP_WORLD` ranks through a file in `tmp`, on card 0 (LOCAL_RANK 0 on
-    every rank: they share it), runs (a), (b) and (c), or (a) alone with
-    `fault` put in (`ddp_controls`), and saves what it computed to
-    `tmp/rank<r>.pt`. Any error is written beside it and ends the process
-    with exit code 1."""
+def ddp_rank(tmp, rank, world, fault=None, backend="gloo"):
+    """A rank of phases 28 and 30 (a spawned process): joins the
+    `backend` group of `world` ranks through a file in `tmp`, on card 0
+    over gloo (LOCAL_RANK 0 on every rank: they share it) or on card
+    `rank` over NCCL. Where `recorded` holds phase 28's models it runs
+    phase 28's (a), or (a) alone with `fault` put in (`ddp_controls`),
+    and without a fault (b) and (c); where it holds phase 30's recording,
+    and without a fault, phase 30. Saves what it computed to
+    `tmp/rank<r>.pt`. Any error is written beside it and ends the
+    process with exit code 1."""
     import traceback
 
     import torch.distributed as dist
 
     try:
-        os.environ["LOCAL_RANK"] = "0"
-        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
-                                rank=rank, world_size=DDP_WORLD)
+        card = rank if backend == "nccl" else 0
+        os.environ["LOCAL_RANK"] = str(card)
+        torch.cuda.set_device(card)
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rdzv",
+                                rank=rank, world_size=world)
         from vitadapter_torch.parallel import init_distributed
 
         init_distributed("cuda")
@@ -5616,11 +5665,18 @@ def ddp_rank(tmp, rank, fault=None):
         torch.backends.cudnn.allow_tf32 = False
         ddp_fault(fault)
         recorded = torch.load(os.path.join(tmp, "recorded.pt"))
-        out = {"reduced": {name: ddp_reduced(name, rank, recorded[name])[:4]
-                           for name in DDP_MODELS}}
-        if fault is None:
-            out["flagship"] = ddp_flagship(rank)
-            out["eval"] = ddp_eval()
+        out = {}
+        if all(name in recorded for name in DDP_MODELS):
+            out["reduced"] = {name: ddp_reduced(name, rank,
+                                                recorded[name])[:4]
+                              for name in DDP_MODELS}
+            if fault is None:
+                out["flagship"] = ddp_flagship(rank)
+                out["eval"] = ddp_eval()
+        if fault is None and "flagship" in recorded:
+            t0 = time.perf_counter()
+            out["parallel"] = parallel_rank(recorded["flagship"])
+            out["parallel_secs"] = time.perf_counter() - t0
         dist.destroy_process_group()
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     except BaseException:
@@ -5846,22 +5902,25 @@ def ddp_nccl():
         raise SystemExit(f"FAIL: phase 28 (d) on NCCL over {n} cards")
 
 
-def spawn_ddp_ranks(recorded, fault=None):
-    """`DDP_WORLD` spawned processes running `ddp_rank`, joined within
-    `DDP_TIMEOUT`; returns what each rank saved and the seconds they took.
-    A rank that fails or hangs fails the phase."""
+def spawn_ddp_ranks(recorded, fault=None, world=DDP_WORLD, backend="gloo",
+                    timeout=DDP_TIMEOUT):
+    """`world` spawned processes running `ddp_rank(tmp, rank, world,
+    fault, backend)`, joined within `timeout`; returns what each rank
+    saved and the seconds they took. A rank that fails or hangs fails the
+    phase."""
     import multiprocessing
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
         torch.save(recorded, os.path.join(tmp, "recorded.pt"))
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=ddp_rank, args=(tmp, r, fault))
-                 for r in range(DDP_WORLD)]
+        procs = [ctx.Process(target=ddp_rank,
+                             args=(tmp, r, world, fault, backend))
+                 for r in range(world)]
         t0 = time.perf_counter()
         for p in procs:
             p.start()
-        deadline = time.monotonic() + DDP_TIMEOUT
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.join(max(deadline - time.monotonic(), 0))
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -5871,15 +5930,15 @@ def spawn_ddp_ranks(recorded, fault=None):
                 p.join()
         secs = time.perf_counter() - t0
         errors = [open(os.path.join(tmp, f"rank{r}.err")).read()
-                  for r in range(DDP_WORLD)
+                  for r in range(world)
                   if os.path.exists(os.path.join(tmp, f"rank{r}.err"))]
         if hung or errors or any(p.exitcode for p in procs):
             for e in errors:
                 log(e)
-            raise SystemExit(f"FAIL: phase 28 ranks (hung {hung}, exit codes "
-                             f"{[p.exitcode for p in procs]})")
+            raise SystemExit(f"FAIL: phase 28/30 ranks (hung {hung}, exit "
+                             f"codes {[p.exitcode for p in procs]})")
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-                for r in range(DDP_WORLD)], secs
+                for r in range(world)], secs
 
 
 def ddp_references():
@@ -5895,21 +5954,30 @@ def ddp_references():
 
 
 def data_parallel():
-    """Phase 28: one process's steps (a) and evaluation (c) on the card,
-    then two gloo ranks sharing the card (spawned, joined with a timeout)
-    run (a), (b) and (c); the comparisons; then (d). Returns rank 0's
-    kernel launches a flagship step (b)."""
+    """Phases 28 and 30: one process's steps (a) and evaluation (c) of
+    phase 28 and phase 30's references on the card, then two gloo ranks
+    sharing the card (spawned once, joined with a timeout) run phase 28's
+    (a), (b) and (c) and phase 30; the comparisons; then phase 28's (d).
+    Returns rank 0's kernel launches a flagship step (phase 28 (b)), and
+    phase 30's (`check_parallel`)."""
     t0 = time.perf_counter()
     refs, recorded = ddp_references()
     ref_cm = ddp_eval()
     t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    par_refs, recorded["flagship"] = parallel_references(DDP_WORLD)
+    t_par = time.perf_counter() - t0
     ranks, t_ranks = spawn_ddp_ranks(recorded)
-    log(f"phase 28: one process's (a) and (c) {t_ref:.1f} s, the 2 ranks' "
-        f"(a), (b) and (c) {t_ranks:.1f} s (host clock, gloo, one card "
-        f"shared)")
+    t_rank30 = max(r["parallel_secs"] for r in ranks)
+    log(f"phases 28 and 30: one process's phase 28 (a) and (c) "
+        f"{t_ref:.1f} s and phase 30 references {t_par:.1f} s, the 2 "
+        f"ranks' phase 28 (a), (b), (c) and phase 30 {t_ranks:.1f} s, of "
+        f"it phase 30 {t_rank30:.1f} s (host clock, gloo, one card shared)")
     per_step = check_ddp(refs, ref_cm, ranks)
+    parallel = check_parallel(
+        par_refs, ranks, TRAIN_LAUNCHES, pp_launches(DDP_WORLD), SP_LAUNCHES)
     torchrun_cli()
-    return per_step
+    return per_step, parallel
 
 
 def ddp_controls():
@@ -5998,6 +6066,475 @@ def check_ddp(refs, ref_cm, ranks):
     return per_step[0]
 
 
+# phase 30: tensor, pipeline and sequence parallelism (`parallel/{tp,pp,
+# sp}.py`) on phase 28's two gloo ranks sharing the card, each path held
+# against one process on the same card: (a) a train step on a (data 1,
+# model 2) grid, (b) GPipe over 2 stages, (c) MSDA's queries split over
+# the 2 ranks. As in phase 28, times and memory are of two processes
+# sharing one card over gloo, not a rate.
+# (a) the flagship reduced as phase 7 reduces it (depth 4, one block an
+# interaction, full width, fp32, TF32 off, drop path 0) at phase 28 (a)'s
+# batch, its steps and gates (`ddp_readings`), phase 6's optimizer at depth
+# 4 without the clip, as phase 28 (a): clipped to 0.01 from a norm in the
+# hundreds, many gradients come near Adam's eps (1e-8), where the update
+# g / (|g| + eps) follows the gradient's float noise (on an H100 one
+# first-step change read 3.1e-2 of its leaf's largest). The logged
+# gradient norm is the split one all the same, and the full-width step
+# below clips by it
+TP_MODELS = {"flagship": (None, dict(
+    depth=4, interaction_indexes=((0, 0), (1, 1), (2, 2), (3, 3)),
+    drop_path_rate=0.0), "m2f")}
+TP_SIZE = 2
+# then the full-width flagship as phase 6 trains it, one image of phase 6's
+# batch on both model ranks
+TP_FLAGSHIP_STEPS = 2
+# the planted fault (a)'s gates must fail: `copy_to_group`'s backward
+# without its all-reduce (each rank keeps its own partial input gradient)
+TP_FAULT = "copy_to_group_no_allreduce"
+# (b) 24 ViT-L blocks (dim 1024, 16 heads, MLP 4096, qkv bias) on a 32x32
+# token grid, 4 microbatches of one image, fp32 and bf16 compute; the loss
+# a fixed random weighting of the outputs, taken on every rank. Outputs and
+# every block's gradients against the sequential stack in one process,
+# relative to each tensor's scale: fp32 within PP_RTOL[F32] (the same
+# kernels on the same inputs: only the order of the gradients' sums over
+# microbatches could differ), bf16 within PP_RTOL[BF16], the error
+# predicted before the first run (every run on an H100, over 2 gloo
+# stages and 4 NCCL ones, read 0 in both dtypes: outputs and gradients
+# bitwise; largest logged)
+PP_DEPTH, PP_DIM, PP_HEADS, PP_HW, PP_MICRO = 24, 1024, 16, 32, 4
+PP_RTOL = {F32: 1e-4, BF16: 1e-3}
+# (c) the flagship pixel decoder's MSDA (the SPM512 levels coarse first,
+# 5376 queries, 32 heads of 32, 4 points; phase 3's "pixel_decoder") over
+# 2 ranks, fp32 and bf16: each rank's rows of the output, d loc and d attn
+# bitwise the one-rank kernel's, d value (summed over the ranks) within
+# `close_grad`. In bf16 each rank's d value is rounded to bf16 before the
+# sum, and the sum once more, so the relative term there is 2^-7 of |d
+# value| plus the ranks' partial d values' magnitudes (`sp_partials`: the
+# one-rank kernel on each rank's rows), which cancellation can make larger
+# than the sum (on an H100 a plain `close_grad` read 1.56e-2 where it
+# allowed less)
+SP_SHAPES, SP_LQ, SP_M, SP_D = SPM512[::-1], 5376, 32, 32
+# (c)'s launches a rank: one fused forward and backward
+SP_LAUNCHES = {"msda_fwd": 1, "msda_bwd": 1}
+# `parallel_nccl`: one rank a card, the world on NCCL
+NCCL_TIMEOUT = 600
+
+
+def pp_launches(stages):
+    """(b)'s launches a stage: its blocks' attention, once a microbatch
+    each way."""
+    n = PP_DEPTH // stages * PP_MICRO
+    return {"attention_fwd": n, "attention_bwd": n}
+
+
+def tp_fault():
+    """Put `TP_FAULT` into this process's port; returns the undo."""
+    from vitadapter_torch.parallel import collectives
+
+    fn = collectives._CopyToGroup
+    kept = fn.__dict__["backward"]
+    fn.backward = staticmethod(lambda ctx, g: (g, None))
+    return lambda: setattr(fn, "backward", kept)
+
+
+def whole_checksum(model):
+    """`param_checksum` of the parameters a model group does not split."""
+    return param_checksum(torch.nn.ParameterList(
+        [p for p in model.parameters() if not hasattr(p, "tp_dim")]))
+
+
+def tp_flagship(mesh, steps=TP_FLAGSHIP_STEPS):
+    """Phase 30 (a) on this rank: the full-width flagship (bf16 compute,
+    DropPath 0.4, phase 6's optimizer) split over `mesh`'s model group,
+    the data rank's image of phase 6's batch (the same on every rank of a
+    model group), `steps`
+    steps: the losses, gradient norms, whether the model ranks' whole
+    parameters were bitwise equal after each step, launches, seconds a
+    step and peak memory."""
+    from vitadapter_torch import zoo
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.parallel import (process_allgather, rank_generator,
+                                           tp)
+    from vitadapter_torch.train.optim import make_optimizer
+    from vitadapter_torch.train.trainer import TrainState, make_m2f_train_step
+
+    model = zoo.mask2former_vit_adapter(
+        "large", dtype=torch.bfloat16,
+        generator=torch.Generator("cuda").manual_seed(0))
+    tp.shard_model(model, mesh)
+    opt, _ = make_optimizer(model, depth=24, total_steps=1000,
+                            warmup_steps=10, grad_clip=0.01)
+    state = TrainState.create(model, opt)
+    step = make_m2f_train_step(model, num_classes=150, max_instances=60,
+                               num_points=12544)
+    gen = torch.Generator("cuda").manual_seed(3)
+    batch = {"image": torch.randn(2, 512, 512, 3, generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+             "label": torch.randint(0, 150, (2, 512, 512), generator=gen,
+                                    device="cuda")}
+    d = mesh.index("data")
+    batch = {k: v[d:d + 1] for k, v in batch.items()}
+    drop = rank_generator("cuda", 3)
+    shard = tuple(model.backbone.blocks[0].attn.qkv.weight.shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ext.launches.clear()
+    times, losses, norms, equal = [], [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, logs = step(state, batch, drop)
+        losses.append(float(logs["loss"]))
+        norms.append(float(logs["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        sums = process_allgather(whole_checksum(model))
+        equal.append(all(torch.equal(s, sums[0]) for s in sums))
+    out = {"losses": losses, "grad_norms": norms, "equal": equal,
+           "launches": dict(cuda_ext.launches), "times": times,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "step": state.step, "qkv_shard": shard}
+    del model, state, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_blocks(dtype, device="cuda"):
+    """(b)'s 24 ViT-L blocks, weights drawn from seed 30 on the card (the
+    same in every process), and its inputs and loss weights."""
+    from vitadapter_torch.models.vit import Block
+
+    gen = torch.Generator(device).manual_seed(30)
+    blocks = [Block(PP_DIM, PP_HEADS, qkv_bias=True, dtype=dtype,
+                    device=device) for _ in range(PP_DEPTH)]
+    with torch.no_grad():
+        for b in blocks:
+            for n, p in b.named_parameters():
+                r = torch.randn(p.shape, generator=gen, device=device)
+                p.copy_(1 + 0.1 * r if n.startswith("norm") and
+                        n.endswith("weight") else 0.02 * r)
+    shape = (PP_MICRO, 1, PP_HW * PP_HW, PP_DIM)
+    xs = torch.randn(shape, generator=gen, device=device)
+    w = torch.randn(shape, generator=gen, device=device)
+    return blocks, xs, w
+
+
+def pp_grads(blocks, first=0):
+    """Each block's parameter gradients as `ddp_sample` takes them, by
+    (global block index, name)."""
+    return {(first + i, n): ddp_sample(p.grad) for i, b in enumerate(blocks)
+            for n, p in b.named_parameters()}
+
+
+def pp_reference(dtype):
+    """(b) in one process: every microbatch through the 24 blocks in
+    order, one backward of the weighted sum."""
+    blocks, xs, w = pp_blocks(dtype)
+    outs = []
+    for i in range(PP_MICRO):
+        y = xs[i]
+        for b in blocks:
+            y = b(y, PP_HW, PP_HW)
+        outs.append(y)
+    out = torch.stack(outs)
+    (out * w).sum().backward()
+    ref = {"out": out.detach().cpu(), "grads": pp_grads(blocks)}
+    del blocks, xs, w, out, outs
+    torch.cuda.empty_cache()
+    return ref
+
+
+def pp_rank(mesh, dtype):
+    """(b) on this rank: its stage of `split_stages` through
+    `pipeline_apply`, the weighted sum's backward; the outputs (every
+    rank's), this stage's blocks' gradients, the launches."""
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.parallel import pp
+
+    blocks, xs, w = pp_blocks(dtype)
+    mine = pp.split_stages(blocks, mesh)
+
+    def stage(x):
+        for b in mine:
+            x = b(x, PP_HW, PP_HW)
+        return x
+
+    torch.cuda.synchronize()
+    cuda_ext.launches.clear()
+    t0 = time.perf_counter()
+    out = pp.pipeline_apply(stage, xs, mesh, params=list(mine.parameters()))
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    res = {"out": out.detach().cpu(), "launches": dict(cuda_ext.launches),
+           "grads": pp_grads(mine, mesh.index("stage") * len(mine)),
+           "secs": secs}
+    del blocks, xs, w, out, mine
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_inputs(dtype):
+    """(c)'s value, locations, weights and output gradient, drawn on the
+    card from seed 33 (the same in every process)."""
+    gen = torch.Generator("cuda").manual_seed(33)
+    return msda_inputs(SP_SHAPES, SP_LQ, SP_M, dtype, gen, B=1, D=SP_D)
+
+
+def sp_run(value, loc, attn, g, fn):
+    """`fn(value, loc, attn)`'s output and its gradients for `g`."""
+    value, loc, attn = (t.detach().clone().requires_grad_()
+                        for t in (value, loc, attn))
+    out = fn(value, loc, attn)
+    out.backward(g)
+    return {"out": out.detach().cpu(), "dvalue": value.grad.cpu(),
+            "dloc": loc.grad.cpu(), "dattn": attn.grad.cpu()}
+
+
+def sp_reference(dtype, ranks):
+    """(c) in one process: the MSDA kernels on all the queries, and the
+    sum of the magnitudes of the partial d values of `ranks` ranks (the
+    kernels on each one's rows; `close_split_grad`)."""
+    from vitadapter_torch.ops.msda import ms_deform_attn
+
+    value, loc, attn, g = sp_inputs(dtype)
+
+    def run(lo, a, gg):
+        return sp_run(value, lo, a, gg,
+                      lambda v, lo, a: ms_deform_attn(v, SP_SHAPES, lo, a))
+
+    ref = run(loc, attn, g)
+    s = SP_LQ // ranks
+    rows = [slice(i * s, (i + 1) * s) for i in range(ranks)]
+    ref["parts_abs"] = sum(
+        run(loc[:, r], attn[:, r], g[:, r])["dvalue"].float().abs()
+        for r in rows)
+    return ref
+
+
+def close_split_grad(got, ref, parts_abs):
+    """d value summed over ranks against the one-rank kernel's: in fp32
+    `close_grad`; in bf16 each element within 1e-5 of the largest |d
+    value| plus 2^-7 of |d value| and of the ranks' partials' magnitudes
+    `parts_abs` (each partial is rounded before the sum)."""
+    if got.dtype == torch.float32:
+        return close_grad(got, ref)
+    r = ref.float()
+    err = (got.float() - r).abs()
+    ok = bool((err <= GRAD_TOL * float(r.abs().max())
+               + 2.0 ** -7 * (r.abs() + parts_abs)).all())
+    return ok and got.dtype == ref.dtype, float(err.max())
+
+
+def sp_rank(mesh, dtype, axis):
+    """(c) on this rank: its rows of the queries through
+    `msda_token_sharded`; the output, gradients, rows and launches, and
+    whether a query count the ranks do not divide was refused."""
+    from vitadapter_torch.ops import cuda_ext
+    from vitadapter_torch.parallel import sp
+
+    value, loc, attn, g = sp_inputs(dtype)
+    rows = sp.query_rows(SP_LQ, mesh, axis)
+    cuda_ext.launches.clear()
+    res = sp_run(value, loc[:, rows].contiguous(), attn[:, rows].contiguous(),
+                 g[:, rows], lambda v, lo, a: sp.msda_token_sharded(
+                     v, SP_SHAPES, lo, a, mesh, axis))
+    torch.cuda.synchronize()
+    res["launches"] = dict(cuda_ext.launches)
+    res["rows"] = (rows.start, rows.stop)
+    try:
+        sp.query_rows(SP_LQ + 1, mesh, axis)
+        res["refused"] = None
+    except ValueError as e:
+        res["refused"] = str(e)
+    return res
+
+
+def parallel_rank(recorded):
+    """Phase 30 on this rank of the world (2 gloo ranks on one card, or
+    `parallel_nccl`'s 4 on NCCL): (a) the reduced flagship on the (data,
+    model) grid of `TP_SIZE` model ranks, sound and with `TP_FAULT`, then
+    the full-width flagship; (b) GPipe over every rank; (c) MSDA's queries
+    over every rank."""
+    from vitadapter_torch.parallel import pp, tp, use_grid
+
+    out = {}
+    mesh = tp.make_tp_mesh(TP_SIZE)
+    # the data rank's share of the batch where the grid has several
+    d = mesh.index("data") if mesh.size("data") > 1 else None
+    out["tp_reduced"] = ddp_reduced("flagship", d, recorded, mesh=mesh)[:4]
+    undo = tp_fault()
+    try:
+        out["tp_fault"] = ddp_reduced("flagship", d, recorded,
+                                      mesh=mesh)[:4]
+    finally:
+        undo()
+    out["tp_flagship"] = tp_flagship(mesh)
+    use_grid(None)
+    stages = pp.make_pp_mesh()
+    queries = pp.make_pp_mesh(axis="model")
+    for dtype in (F32, BF16):
+        out[f"pp_{dtype}"] = pp_rank(stages, dtype)
+        out[f"sp_{dtype}"] = sp_rank(queries, dtype, "model")
+    return out
+
+
+def parallel_references(ranks):
+    """Phase 30's one-process runs on the card for `ranks` ranks: (a)'s
+    reduced flagship (and its recording), (b)'s sequential stack and (c)'s
+    one-rank MSDA, fp32 and bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    *tp_ref, recorded = ddp_reduced("flagship")
+    refs = {"tp_reduced": tp_ref}
+    for dtype in (F32, BF16):
+        refs[f"pp_{dtype}"] = pp_reference(dtype)
+        refs[f"sp_{dtype}"] = sp_reference(dtype, ranks)
+    torch.cuda.empty_cache()
+    return refs, recorded
+
+
+def parallel_nccl():
+    """Phase 30 on NCCL over every card of the host, one rank a card:
+    `python3 -c "import chip_smoke; chip_smoke.parallel_nccl()"` on a host
+    of 4 cards. The references on card 0, then (a) the reduced flagship
+    on a (2 data, 2 model) grid against one process, with the fault
+    control, and the full-width flagship, (b) GPipe over 4 stages, (c)
+    MSDA's queries over 4 ranks (`ddp_rank` on NCCL); phase 30's gates.
+    `main` does not call it. Returns `check_parallel`'s launches."""
+    from vitadapter_torch.ops import cuda_ext
+
+    n = torch.cuda.device_count()
+    if n < 2 * TP_SIZE:
+        raise SystemExit(f"FAIL: parallel_nccl needs {2 * TP_SIZE} cards, "
+                         f"the host has {n}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    cuda_ext.build()
+    t0 = time.perf_counter()
+    refs, recorded = parallel_references(n)
+    t_ref = time.perf_counter() - t0
+    ranks, secs = spawn_ddp_ranks({"flagship": recorded}, world=n,
+                                  backend="nccl", timeout=NCCL_TIMEOUT)
+    log(f"phase 30 on NCCL: references {t_ref:.1f} s on card 0, {n} "
+        f"ranks {secs:.1f} s, of it phase 30 "
+        f"{max(r['parallel_secs'] for r in ranks):.1f} s (host clock)")
+    counts = check_parallel(refs, ranks, TRAIN_LAUNCHES, pp_launches(n),
+                            SP_LAUNCHES, f"{n} ranks on NCCL, one card each")
+    log(f"phase 30 on {n} NCCL ranks ok: launches a rank, (a) a step "
+        f"{counts[0]}, (b) {counts[1]}, (c) {counts[2]}")
+    return counts
+
+
+def check_parallel(refs, ranks, tp_want, pp_want, sp_want,
+                   where="2 gloo ranks sharing one card: not a rate"):
+    """Phase 30's gates over what the ranks saved (`where` they ran, for
+    the log); returns rank 0's
+    launches of (a)'s full-width step, a stage's of (b)'s fp32 run and
+    a rank's of (c)'s fp32 run."""
+    n = len(ranks)
+    failed = []
+    got = [r["parallel"] for r in ranks]
+    # (a)
+    readings = [ddp_readings(refs["tp_reduced"], g["tp_reduced"])
+                for g in got]
+    worst = max(readings, key=lambda r: (not r["ok"],
+                                         r["steps"][0]["grads"]))
+    equal = ranks_equal([g["tp_reduced"] for g in got])
+    sound = equal and all(r["ok"] for r in readings)
+    log(f"phase 30 (a) the flagship reduced (depth 4, full width, 256 px, "
+        f"fp32) on a ({n // TP_SIZE} data, {TP_SIZE} model) grid against "
+        f"one process: {format_readings(worst)}; the ranks' parameters "
+        f"bitwise equal after each step {equal}; one process's losses "
+        f"{[round(x['loss'], 6) for x in refs['tp_reduced'][0]]}, rank 0's "
+        f"{[round(x['loss'], 6) for x in got[0]['tp_reduced'][0]]}")
+    faults = [ddp_readings(refs["tp_reduced"], g["tp_fault"]) for g in got]
+    caught = not (ranks_equal([g["tp_fault"] for g in got])
+                  and all(r["ok"] for r in faults))
+    worst = max(faults, key=lambda r: (not r["ok"], r["steps"][0]["grads"]))
+    log(f"phase 30 (a) control, {TP_FAULT}: {format_readings(worst)}; the "
+        f"gates fail it: {caught}")
+    if not (sound and caught):
+        failed.append("(a) reduced")
+    fl = [g["tp_flagship"] for g in got]
+    steps = TP_FLAGSHIP_STEPS
+    finite = all(x == x and abs(x) != float("inf")
+                 for f in fl for x in f["losses"] + f["grad_norms"])
+    per_step = [{k: v // steps for k, v in f["launches"].items()}
+                for f in fl]
+    ok = (finite and all(all(f["equal"]) for f in fl)
+          and all(f["step"] == steps for f in fl)
+          and all(f["launches"] == {k: v * steps for k, v in tp_want.items()}
+                  for f in fl)
+          and len({tuple(f["losses"]) for f in fl}) == 1)
+    for r, f in enumerate(fl):
+        log(f"phase 30 (a) rank {r}: the flagship bf16 full width, qkv "
+            f"shard {f['qkv_shard']}, 1 image a data rank, {steps} steps: "
+            f"losses {f['losses']} grad norms {f['grad_norms']}; whole "
+            f"parameters bitwise equal across the ranks after each step "
+            f"{f['equal']}; launches a step {per_step[r]} (want {tp_want}); "
+            f"{f['times'][-1]:.3f} s the last step, first "
+            f"{f['times'][0]:.3f} s (host clock to a synchronize), peak "
+            f"memory {f['peak_gib']:.2f} GiB ({where})")
+    if not ok:
+        failed.append("(a) full width")
+    # (b)
+    for dtype in (F32, BF16):
+        ref = refs[f"pp_{dtype}"]
+        runs = [g[f"pp_{dtype}"] for g in got]
+        out_err = max(rel_to_scale(r["out"], ref["out"]) for r in runs)
+        held = {k: v for r in runs for k, v in r["grads"].items()}
+        grad_err = max((rel_to_scale(held[k], v), k)
+                       for k, v in ref["grads"].items()) \
+            if set(held) == set(ref["grads"]) else (float("inf"), "missing")
+        same = all(torch.equal(r["out"], runs[0]["out"]) for r in runs)
+        launches = [r["launches"] for r in runs]
+        ok = (out_err <= PP_RTOL[dtype] and grad_err[0] <= PP_RTOL[dtype]
+              and same and all(x == pp_want for x in launches))
+        log(f"phase 30 (b) GPipe, {PP_DEPTH} ViT-L blocks over {n} stages, "
+            f"{PP_MICRO} microbatches of 1x{PP_HW * PP_HW} tokens, {dtype}: "
+            f"outputs {out_err:.3e} of scale, every block's gradients "
+            f"{grad_err[0]:.3e} ({grad_err[1]}) (tol {PP_RTOL[dtype]}), the "
+            f"ranks' outputs bitwise equal {same}; launches a stage "
+            f"{launches} (want {pp_want}); "
+            f"{[round(r['secs'], 3) for r in runs]} s forward and backward "
+            f"(host clock) ok={ok}")
+        if not ok:
+            failed.append(f"(b) {dtype}")
+    # (c)
+    for dtype in (F32, BF16):
+        ref = refs[f"sp_{dtype}"]
+        runs = [g[f"sp_{dtype}"] for g in got]
+        bitwise = all(torch.equal(r[k], ref[k][:, a:b])
+                      for r in runs for (a, b) in [r["rows"]]
+                      for k in ("out", "dloc", "dattn"))
+        dv = [close_split_grad(r["dvalue"], ref["dvalue"], ref["parts_abs"])
+              for r in runs]
+        rows = sorted(r["rows"] for r in runs)
+        covered = rows == [(i * SP_LQ // n, (i + 1) * SP_LQ // n)
+                           for i in range(n)]
+        refused = all(r["refused"] == f"{SP_LQ + 1} queries do not split "
+                      f"over {n} ranks" for r in runs)
+        launches = [r["launches"] for r in runs]
+        ok = (bitwise and all(c[0] for c in dv) and covered and refused
+              and all(x == sp_want for x in launches))
+        log(f"phase 30 (c) MSDA over {n} ranks ({SP_LQ} queries, levels "
+            f"{SP_SHAPES}, {SP_M} heads of {SP_D}), {dtype}: each rank's "
+            f"output, d loc and d attn bitwise the one-rank kernel's "
+            f"{bitwise}; d value summed over the ranks max_abs_err "
+            f"{[f'{c[1]:.3e}' for c in dv]} (`close_split_grad`); "
+            f"{SP_LQ + 1} "
+            f"queries refused {refused}; launches a rank {launches} (want "
+            f"{sp_want}) ok={ok}")
+        if not ok:
+            failed.append(f"(c) {dtype}")
+    if failed:
+        raise SystemExit(f"FAIL: phase 30 {failed}")
+    return per_step[0], got[0][f"pp_{F32}"]["launches"], \
+        got[0][f"sp_{F32}"]["launches"]
+
+
 # phase 29: the host tools on the card. (a) a reference-style checkpoint of
 # `CLI_CONFIG` whose tables span the 512 px grid, converted to the config's
 # 640 px grid, then the image demo on a square image (BEiT's tables span
@@ -6054,6 +6591,7 @@ def keep_release(ckpt, test_args, results):
     except SystemExit as e:
         ema_refused = "no EMA" in str(e)
     return {"dir": keep, "released": out, "release_s": release_s,
+            "options": args[args.index("--cfg-options") + 2:],
             "hook_s": time.perf_counter() - start,
             "bytes": os.path.getsize(out), "ema_refused": ema_refused,
             "confusion": results["slide"]["confusion"]}
@@ -6414,8 +6952,8 @@ def demo_release(kept):
     t0 = time.perf_counter()
     got = test_cli.main([CLI_CONFIG, kept["released"], "--eval", "mIoU",
                          "--cfg-options",
-                         f"data.data_root={os.path.join(kept['dir'], 'ade')}"],
-                        log_fn=lambda *_: None)
+                         f"data.data_root={os.path.join(kept['dir'], 'ade')}",
+                         *kept["options"]], log_fn=lambda *_: None)
     test_s = time.perf_counter() - t0
     same = bool((got["confusion"] == kept["confusion"]).all())
     log(f"phase 29 (d) release of phase 11's checkpoint: "
@@ -6584,12 +7122,19 @@ def host_tools(cli_kept, det_split):
 
 
 def main():
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        log(f"[phase {phase} starts at {time.perf_counter() - t_start:.1f} "
+            f"s, host clock]")
+
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from vitadapter_torch.ops import cuda_ext
 
     # phase 1: the card
+    stamp(1)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -6598,6 +7143,7 @@ def main():
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
 
     # phase 2: build
+    stamp(2)
     t0 = time.perf_counter()
     logs = cuda_ext.build()
     log(f"built {sorted(cuda_ext.SIGNATURES)} in "
@@ -6629,124 +7175,154 @@ def main():
                              "HGMMA")
 
     # phase 3: kernels against their plain versions
+    stamp(3)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = check_kernels(flush)
     del flush
 
     # phase 4: the flagship serving path
+    stamp(4)
     serve_counts = serve_flagship()
 
     # phase 5: end to end, kernels against plain versions
+    stamp(5)
     card_vs_cpu()
 
     # phase 6: the flagship train step
+    stamp(6)
     train_counts = train_flagship()
 
     # phase 7: a train step, kernels against plain versions
+    stamp(7)
     train_card_vs_cpu()
 
     # phase 8: whole-image evaluation, the per-level forward on its path
+    stamp(8)
     eval_counts = eval_flagship_whole()
 
     # phase 9: an over-line train step, all ten kernels
+    stamp(9)
     overline_counts = train_overline()
 
     # phase 10: run_eval, card against CPU
+    stamp(10)
     eval_card_vs_cpu()
 
     # phase 11: the config CLI on the 640 BEiT-Adapter-L + Mask2Former config
+    stamp(11)
     cli_counts, cli_kept = config_cli()
 
     # phase 12: BEiT-Adapter, card against CPU
+    stamp(12)
     beit_card_vs_cpu()
 
     # phase 13: the config CLI on the AugReg-L UperNet config
+    stamp(13)
     t0 = time.perf_counter()
     upernet_counts = upernet_cli()
     t13 = time.perf_counter() - t0
 
     # phase 14: UperNet, card against CPU
+    stamp(14)
     t0 = time.perf_counter()
     upernet_card_vs_cpu()
     log(f"phases 13 and 14 took {t13:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
     # phase 15: the config CLI on the AugReg-L Mask R-CNN config
+    stamp(15)
     t0 = time.perf_counter()
     det_counts, det_test_counts, det_split = det_cli()
     t15 = time.perf_counter() - t0
 
     # phase 16: Mask R-CNN, card against CPU
+    stamp(16)
     t0 = time.perf_counter()
     det_card_vs_cpu()
     log(f"phases 15 and 16 took {t15:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
     # phase 17: the config CLI on the AugReg-L HTC++ config, --aug-test
+    stamp(17)
     t0 = time.perf_counter()
     htc_counts, htc_test_counts = htc_cli()
     t17 = time.perf_counter() - t0
 
     # phase 18: one step each of the BEiTv2 HTC++ and the bf16 Cascade
+    stamp(18)
     t0 = time.perf_counter()
     one_det_steps()
     t18 = time.perf_counter() - t0
 
     # phase 19: HTC++, card against CPU
+    stamp(19)
     t0 = time.perf_counter()
     htc_card_vs_cpu()
     log(f"phases 17, 18 and 19 took {t17:.1f}, {t18:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
     # phase 20: the grounding CLIs on the large WSDM2023 config
+    stamp(20)
     t0 = time.perf_counter()
     grounding_counts, grounding_test_counts = grounding_cli()
     t20 = time.perf_counter() - t0
 
     # phase 21: one step of the base GQA config
+    stamp(21)
     t0 = time.perf_counter()
     gqa_step()
     t21 = time.perf_counter() - t0
 
     # phase 22: GroundingDINO, card against CPU
+    stamp(22)
     t0 = time.perf_counter()
     grounding_card_vs_cpu()
     log(f"phases 20, 21 and 22 took {t20:.1f}, {t21:.1f} and "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
 
     # phase 23: the MaskFormer config's CLIs
+    stamp(23)
     t0 = time.perf_counter()
     mf_counts, mf_test_counts = maskformer_cli()
     t23 = time.perf_counter() - t0
 
     # phase 24: the COCO-panoptic config's CLIs, --eval PQ
+    stamp(24)
     t0 = time.perf_counter()
     pan_counts, pan_test_counts = panoptic_cli()
     t24 = time.perf_counter() - t0
 
     # phase 25: the ATSS config's CLIs, one GFL step and test image
+    stamp(25)
     t0 = time.perf_counter()
     atss_counts, atss_test_counts, gfl_counts, gfl_test_counts = atss_cli()
     t25 = time.perf_counter() - t0
 
     # phase 26: the Sparse R-CNN config's CLIs
+    stamp(26)
     t0 = time.perf_counter()
     sparse_counts, sparse_test_counts = sparse_cli()
     t26 = time.perf_counter() - t0
 
     # phase 27: the five families reduced, card against CPU
+    stamp(27)
     t0 = time.perf_counter()
     families_card_vs_cpu()
     log(f"phases 23, 24, 25, 26 and 27 took {t23:.1f}, {t24:.1f}, "
         f"{t25:.1f}, {t26:.1f} and {time.perf_counter() - t0:.1f} s (host "
         f"clock)")
 
-    # phase 28: data parallelism, two gloo ranks on the shared card
+    # phases 28 and 30: data parallelism, then tensor, pipeline and
+    stamp(28)
+    # sequence parallelism, on two gloo ranks spawned once on the shared
+    # card
     t0 = time.perf_counter()
-    ddp_counts = data_parallel()
-    log(f"phase 28 took {time.perf_counter() - t0:.1f} s (host clock)")
+    ddp_counts, (tp_counts, pp_counts, sp_counts) = data_parallel()
+    log(f"phases 28 and 30 took {time.perf_counter() - t0:.1f} s (host "
+        f"clock)")
 
     # phase 29: the host tools: convert, demos, release, native runtime
+    stamp(29)
     t0 = time.perf_counter()
     demo_counts, demo_det_counts = host_tools(cli_kept, det_split)
     log(f"phase 29 took {time.perf_counter() - t0:.1f} s (host clock)")
@@ -6763,7 +7339,8 @@ def main():
              "gfl": gfl_counts, "gfl_test": gfl_test_counts,
              "sparse": sparse_counts, "sparse_test": sparse_test_counts,
              "ddp": ddp_counts, "demo": demo_counts,
-             "demo_det": demo_det_counts}
+             "demo_det": demo_det_counts, "tp": tp_counts, "pp": pp_counts,
+             "sp": sp_counts}
     kernels = []
     for name in sorted(rows):
         r = rows[name]
@@ -6818,6 +7395,13 @@ def main():
         if name in ddp_counts:
             per += ("; launches_ddp: per flagship train step on each of "
                     "phase 28's 2 ranks (1 image a rank)")
+        if name in tp_counts or name in pp_counts or name in sp_counts:
+            per += ("; launches_tp, launches_pp, launches_sp: phase 30 on "
+                    "each of 2 ranks: a full-width flagship bf16 train step "
+                    "on a model group of 2 (8 heads a rank, one image), "
+                    "GPipe's stage of 12 ViT-L blocks over 4 microbatches "
+                    "(fp32 run), MSDA on 2688 of the pixel decoder's 5376 "
+                    "queries (fp32 run)")
         if name in demo_counts or name in demo_det_counts:
             per += ("; launches_demo, launches_demo_det: phase 29's "
                     "tools.image_demo call on the 640 BEiT-Adapter-L "
@@ -6839,6 +7423,8 @@ def main():
                                        "us_per_round", "expanded")
                if key in r},
             "per": per + f"; launches over the {path} phase"})
+    log(f"[phases done at {time.perf_counter() - t_start:.1f} s, host "
+        f"clock]")
     # the card again near the end, where a tail of the output shows it
     log(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

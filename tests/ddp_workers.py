@@ -445,13 +445,23 @@ def load(path: Path):
         return pickle.load(f)
 
 
+def _body(body: str):
+    """`BODIES[body]`, or the function `module:name` names."""
+    if ":" in body:
+        import importlib
+
+        module, name = body.split(":")
+        return getattr(importlib.import_module(module), name)
+    return BODIES[body]
+
+
 def _rank_main(body: str, work: str, rank: int, world: int) -> None:
     work = Path(work)
     torch.set_num_threads(1)
     try:
         dist.init_process_group("gloo", init_method=f"file://{work}/rdzv",
                                 rank=rank, world_size=world)
-        out = BODIES[body](rank, work)
+        out = _body(body)(rank, work)
         dist.destroy_process_group()
         out["loaded"] = sorted({m.split(".")[0] for m in sys.modules}
                                & {"jax", "jaxlib", "flax", "vitadapter"})
@@ -463,7 +473,8 @@ def _rank_main(body: str, work: str, rank: int, world: int) -> None:
 
 def spawn_ranks(body: str, work: Path, world: int = WORLD,
                 timeout: float = JOIN_TIMEOUT):
-    """Start `BODIES[body](rank, work)` on `world` gloo ranks; returns a
+    """Start `BODIES[body](rank, work)` (or `module:function`'s) on
+    `world` gloo ranks; returns a
     function that joins them and returns each rank's result. It raises
     with the failing rank's traceback, or when a rank has not ended
     `timeout` seconds after the start."""

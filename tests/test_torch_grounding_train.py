@@ -190,7 +190,7 @@ def test_grounding_train_losses_and_grad_norm_match_jax(trained):
 
 
 def clip_coef(trained) -> float:
-    """The factor `clip_grad_norm_` scaled the step's gradients by."""
+    """The factor the optimizer's clip scaled the step's gradients by."""
     norm = float(trained["logs"]["grad_norm"])
     return min(1.0, OPT["grad_clip"] / (norm + 1e-6))
 

@@ -46,6 +46,7 @@ from vitadapter_torch.layers.positional import sine_positional_encoding
 from vitadapter_torch.ops.matching import hungarian_assign
 from vitadapter_torch.ops.msda import MSDeformAttn
 from vitadapter_torch.parallel.collectives import global_normalizer
+from vitadapter_torch.parallel.mesh import data_group
 
 Assigner = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -359,7 +360,7 @@ def dino_matching_loss(cls_logits, pred_boxes, gt_labels, gt_boxes_n,
     safe = assign.clamp(min=0)
     labels = torch.where(pos, gt_labels.long().gather(1, safe),
                          torch.full_like(safe, num_classes))
-    num_pos = global_normalizer(pos.sum().float())
+    num_pos = global_normalizer(pos.sum().float(), group=data_group())
     loss_cls = sigmoid_focal_loss(cls_logits.float(), one_hot(
         labels, num_classes)).sum() / num_pos * w_cls
     tgt = gt_boxes_n.float().gather(1, safe[..., None].expand(-1, -1, 4))
@@ -377,7 +378,8 @@ def dino_dn_loss(cls_logits, pred_boxes, dn: DnQueries, num_classes: int,
                  ) -> Dict[str, torch.Tensor]:
     """Denoising losses on the fixed assignment: each dn query reconstructs
     its gt (positives) or is background (negatives)."""
-    num_pos = global_normalizer(dn.is_pos.sum().float())
+    num_pos = global_normalizer(dn.is_pos.sum().float(),
+                                group=data_group())
     oh = one_hot(torch.where(dn.valid, dn.labels,
                              torch.full_like(dn.labels, num_classes)),
                  num_classes)

@@ -18,6 +18,7 @@ from vitadapter_torch.det.boxes import (RPN_STDS, bbox2delta, delta2bbox,
                                         nms, stable_top_k)
 from vitadapter_torch.layers.linear import Conv2d, conv_nhwc
 from vitadapter_torch.parallel.collectives import global_normalizer
+from vitadapter_torch.parallel.mesh import data_group
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
 
@@ -78,7 +79,8 @@ def rpn_loss(cls_out, reg_out, anchors: torch.Tensor, gt_boxes, gt_valid,
         cls_sum = cls_sum + (ce * w).sum()
         reg_sum = reg_sum + torch.where(s.is_pos, l1, 0.0).sum()
         count = count + w.sum()
-    denom = global_normalizer(torch.as_tensor(count))
+    denom = global_normalizer(torch.as_tensor(count),
+                              group=data_group())
     return {"loss_rpn_cls": cls_sum / denom, "loss_rpn_bbox": reg_sum / denom}
 
 

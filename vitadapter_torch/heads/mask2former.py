@@ -28,9 +28,11 @@ from vitadapter_torch.utils.resize import resize_2d, resize_hw
 NEG_INF = -1e9  # masked attention logit (fp32- and bf16-safe)
 
 
-class _Projections(nn.Module):
+class Projections(nn.Module):
     """`nn.MultiheadAttention`'s parameter layout: packed q/k/v rows in
-    `in_proj_weight`/`in_proj_bias`, and `out_proj`."""
+    `in_proj_weight`/`in_proj_bias`, and `out_proj`. Each block may hold
+    only some heads' rows (`parallel.tp.shard_model`): its size is read
+    from the weight."""
 
     def __init__(self, dim: int, dtype: torch.dtype, device=None):
         super().__init__()
@@ -48,7 +50,9 @@ class _Projections(nn.Module):
         self.in_proj_bias.zero_()
 
     def project(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        C, dt = self.dim, self.compute_dtype
+        """The q (0), k (1) or v (2) projection of `x`: its block of
+        `in_proj_weight`'s rows."""
+        C, dt = self.in_proj_weight.shape[0] // 3, self.compute_dtype
         return F.linear(x.to(dt), self.in_proj_weight[i * C:(i + 1) * C].to(dt),
                         self.in_proj_bias[i * C:(i + 1) * C].to(dt))
 
@@ -56,18 +60,21 @@ class _Projections(nn.Module):
 class MultiheadAttention(nn.Module):
     """torch-style MHA with separate q/k/v inputs and an optional boolean
     mask (True = disallowed), as plain tensor ops: fp32 logits, rounded to
-    the compute dtype, fp32 softmax (mirrors the JAX module)."""
+    the compute dtype, fp32 softmax (mirrors the JAX module). The heads
+    span the projections' width (this rank's `num_heads` of a model group,
+    `Projections`)."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
-        self.attn = _Projections(dim, dtype, device)
+        self.attn = Projections(dim, dtype, device)
 
     def forward(self, q, k, v, attn_mask: Optional[torch.Tensor] = None):
-        B, Nq, C = q.shape
+        B, Nq, _ = q.shape
         Nk = k.shape[1]
         h = self.num_heads
+        C = self.attn.in_proj_weight.shape[0] // 3
         Dh = C // h
         qp = self.attn.project(q, 0).reshape(B, Nq, h, Dh).transpose(1, 2)
         kp = self.attn.project(k, 1).reshape(B, Nk, h, Dh).transpose(1, 2)

@@ -25,6 +25,7 @@ from vitadapter_torch.ops.point_sample import (Sampler,
                                                get_uncertain_point_coords,
                                                point_sample, sort_points_by_y)
 from vitadapter_torch.parallel.collectives import global_normalizer
+from vitadapter_torch.parallel.mesh import data_group
 
 
 def present_classes(label_map: torch.Tensor, num_classes: int,
@@ -132,11 +133,11 @@ def loss_single_layer(
     logp = F.log_softmax(cls_pred.float(), dim=-1)
     nll = -logp.gather(-1, labels[..., None])[..., 0]
     wgt = class_weight[labels]
-    avg_factor = global_normalizer(wgt.sum())
+    avg_factor = global_normalizer(wgt.sum(), group=data_group())
     loss_cls = (nll * wgt).sum() / avg_factor * loss_cls_weight
 
     # mask losses on the matched queries, at uncertainty-sampled points
-    num_total_masks = global_normalizer(pos.sum().float())
+    num_total_masks = global_normalizer(pos.sum().float(), group=data_group())
     with torch.no_grad():
         coords = get_uncertain_point_coords(
             sampler, mask_pred.detach().to(torch.bfloat16).reshape(

@@ -35,7 +35,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class Attention(nn.Module):
-    """Global MHSA over tokens (B, N, C)."""
+    """Global MHSA over tokens (B, N, C). The width the heads span is the
+    projection's, `qkv.out_features // 3`: C, or this rank's share of it
+    where `parallel.tp.shard_model` has split the heads over a model
+    group (`num_heads` is then the rank's heads)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -46,7 +49,8 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-        B, N, C = x.shape
+        B, N, _ = x.shape
+        C = self.qkv.out_features // 3
         Dh = C // self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, Dh)
         q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
@@ -68,9 +72,10 @@ class WindowedAttention(Attention):
         self.window_size = window_size
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-        B, N, C = x.shape
+        B, N, _ = x.shape
         if N != H * W:
             raise ValueError(f"{N} tokens for a {H}x{W} grid")
+        C = self.qkv.out_features // 3
         ws, heads = self.window_size, self.num_heads
         Dh = C // heads
         Hp, Wp = math.ceil(H / ws) * ws, math.ceil(W / ws) * ws

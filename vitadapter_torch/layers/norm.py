@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vitadapter_torch.parallel.collectives import all_reduce_sum, world_size
+from vitadapter_torch.parallel.mesh import data_group
 
 
 class LayerNorm(nn.LayerNorm):
@@ -58,8 +59,10 @@ class BatchNorm(nn.BatchNorm2d):
     and the unbiased batch variance.
 
     Under a process group of several ranks it is SyncBN: each rank's sums
-    of x and x^2 go through one differentiable fp32 all-reduce, and the
-    count is the world size times the rank's (the ranks' shards are equal,
+    of x and x^2 go through one differentiable fp32 all-reduce over the
+    data group (the world without a (data, model) grid: the ranks of a
+    model group hold the same images), and the count is the data group's
+    size times the rank's (the ranks' shards are equal,
     as JAX's sharding requires), so the statistics are those of the global
     batch (JAX's plain mean under `jit` over a sharded batch,
     `vitadapter/layers/norm.py:1-9`) and the backward sums the statistics'
@@ -72,10 +75,11 @@ class BatchNorm(nn.BatchNorm2d):
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
             n = x.numel() // x.shape[1]
-            if world_size() > 1:
-                n *= world_size()
+            group = data_group()
+            if world_size(group) > 1:
+                n *= world_size(group)
                 s1, s2 = all_reduce_sum(torch.cat([
-                    xf.sum(axes), xf.square().sum(axes)])).chunk(2)
+                    xf.sum(axes), xf.square().sum(axes)]), group).chunk(2)
                 mean = s1 / n
                 var = s2 / n - mean.square()
             else:

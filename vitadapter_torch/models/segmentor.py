@@ -15,6 +15,7 @@ from torch import nn
 
 from vitadapter_torch.models.seg_protocol import slide_grid, variant_plan
 from vitadapter_torch.parallel.collectives import global_normalizer
+from vitadapter_torch.parallel.mesh import data_group
 from vitadapter_torch.utils.resize import resize_2d
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
@@ -155,7 +156,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if class_weight is not None:
         nll = nll * class_weight[safe]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / global_normalizer(valid.sum())
+    return nll.sum() / global_normalizer(valid.sum(), group=data_group())
 
 
 def segmentation_loss(logits: torch.Tensor, aux_logits: torch.Tensor,

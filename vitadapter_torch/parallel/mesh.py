@@ -9,12 +9,21 @@ of the model on its own card (`cuda:LOCAL_RANK`), runs its share of the
 global batch and takes part in explicit collectives
 (`parallel/collectives.py`). Without a process group, or with one rank,
 every path runs as on one card.
+
+A `Mesh` lays the ranks out on named axes, as JAX's `Mesh` lays out
+devices: rank r sits at the row-major coordinates of r, and each axis has
+one process group per line of ranks along it. `parallel/tp.py` trains on
+a (data, model) grid and makes it the process's grid (`use_grid`): the
+batch, the loss normalizers, SyncBN, the averaged logs and the gradient
+average then run over the data group, and ranks of one model group draw
+alike. Without a grid the data group is the world.
 """
 
 import contextlib
 import datetime
+import math
 import os
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,11 +103,83 @@ def device_type(device) -> str:
     return "cuda" if device is None else torch.device(device).type
 
 
+class Mesh:
+    """The world's ranks on named axes of `shape` (their product is the
+    world size; rank r = the row-major index of its coordinates, so the
+    last axis holds consecutive ranks). Every rank must build the same
+    meshes in the same order: each builds one process group for every
+    line of ranks along every axis (`dist.new_group` is collective), on
+    the world's backend."""
+
+    def __init__(self, names: Sequence[str], shape: Sequence[int]):
+        self.names, self.shape = tuple(names), tuple(int(n) for n in shape)
+        rank, size, _ = world()
+        if math.prod(self.shape) != size:
+            raise ValueError(f"a {dict(zip(self.names, self.shape))} mesh "
+                             f"over {size} ranks")
+        grid = np.arange(size).reshape(self.shape)
+        self.coords = tuple(int(c) for c in np.unravel_index(rank,
+                                                             self.shape))
+        self._ranks, self._groups = {}, {}
+        for a, name in enumerate(self.names):
+            lines = np.moveaxis(grid, a, -1).reshape(-1, self.shape[a])
+            for line in lines:
+                ranks = [int(r) for r in line]
+                group = (dist.new_group(ranks) if dist.is_initialized()
+                         else None)
+                if rank in ranks:
+                    self._ranks[name], self._groups[name] = ranks, group
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.names.index(axis)]
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along `axis`."""
+        return self.coords[self.names.index(axis)]
+
+    def group(self, axis: str):
+        """The process group of this rank's line along `axis`."""
+        return self._groups[axis]
+
+    def ranks(self, axis: str) -> Sequence[int]:
+        """The global ranks of this rank's line along `axis`, in order."""
+        return self._ranks[axis]
+
+
+_GRID: Optional[Mesh] = None
+
+
+def use_grid(mesh: Optional[Mesh]) -> None:
+    """Make `mesh`, a mesh with a `data` and a `model` axis, the grid the
+    process trains on (None: none, the world is the data group)."""
+    global _GRID
+    _GRID = mesh
+
+
+def grid() -> Optional[Mesh]:
+    return _GRID
+
+
+def data_group():
+    """The data group: this rank's line along the grid's `data` axis, or
+    the world (None) without a grid."""
+    return None if _GRID is None else _GRID.group("data")
+
+
+def data_rank() -> Tuple[int, int]:
+    """(this rank's index in the data group, the data group's size)."""
+    if _GRID is None:
+        rank, size, _ = world()
+        return rank, size
+    return _GRID.index("data"), _GRID.size("data")
+
+
 def rank_rows(batch_size: int) -> range:
     """This rank's rows `[r*s, (r+1)*s)` of a global batch of `batch_size`
-    rows (s = batch_size / world size; the shards are equal, as JAX's
-    sharding requires)."""
-    rank, size, _ = world()
+    rows, r its index in the data group (s = batch_size / the data
+    group's size; the shards are equal, as JAX's sharding requires):
+    ranks of one model group take the same rows."""
+    rank, size = data_rank()
     if batch_size % size:
         raise ValueError(f"a global batch of {batch_size} does not split "
                          f"over {size} ranks")
@@ -113,16 +194,23 @@ def shard_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 def replicate(model: torch.nn.Module) -> torch.nn.Module:
-    """Give every rank rank 0's parameters and buffers (in place)."""
+    """Give every rank the parameters and buffers of data rank 0 of its
+    data group (in place): rank 0's without a grid; under a grid each
+    model rank takes its own shard from its column's first rank."""
+    group = data_group()
     if world()[1] > 1:
+        src = 0 if _GRID is None else _GRID.ranks("data")[0]
         with torch.no_grad():
-            broadcast_tensors([*model.parameters(), *model.buffers()])
+            broadcast_tensors([*model.parameters(), *model.buffers()], src,
+                              group)
     return model
 
 
 def rank_generator(device, seed: int) -> torch.Generator:
-    """A generator on `device` seeded from (seed, rank): `seed` itself on
-    rank 0, so one process draws as it always did, and independent
-    streams on the other ranks, as the images of JAX's global batch draw
-    independent DropPath masks."""
-    return torch.Generator(device).manual_seed(seed + (world()[0] << 32))
+    """A generator on `device` seeded from (seed, data rank): `seed` itself
+    on data rank 0, so one process draws as it always did, and independent
+    streams on the other data ranks, as the images of JAX's global batch
+    draw independent DropPath masks; the ranks of one model group, which
+    hold the same images, draw the same (JAX's masks do not depend on how
+    the model is split)."""
+    return torch.Generator(device).manual_seed(seed + (data_rank()[0] << 32))

@@ -11,8 +11,8 @@ The update is the JAX package's optax chain, in its order: clip by the
 global norm, Adam (eps 1e-8 outside the square root, bias-corrected),
 decoupled weight decay on the masked parameters, the layer-decay scale,
 then the scheduled learning rate (the schedule reads the number of updates
-made before this one); `LayerDecayAdamW` builds it from PyTorch's clip,
-AdamW and LambdaLR.
+made before this one); `LayerDecayAdamW` builds it from a clip by the global
+norm, PyTorch's AdamW and LambdaLR.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
+from vitadapter_torch.parallel import collectives
 from vitadapter_torch.parallel.collectives import allreduce_grads
+from vitadapter_torch.parallel.mesh import data_group, grid
 
 Schedule = Callable[[int], float]
 STACKED = "pixel_decoder.encoder.layers."
@@ -118,9 +120,10 @@ def cosine_schedule_with_warmup(base_lr: float, total_steps: int,
 
 @dataclasses.dataclass
 class LayerDecayAdamW:
-    """The JAX package's optax chain from PyTorch's parts: `clip_grad_norm_`
-    (it scales by max_norm / (norm + 1e-6) where optax scales by max_norm /
-    norm), `torch.optim.AdamW` with one param group per (lr scale, weight
+    """The JAX package's optax chain from PyTorch's parts: a clip by the
+    global norm (it scales by max_norm / (norm + 1e-6), as PyTorch's
+    `clip_grad_norm_`, where optax scales by max_norm / norm),
+    `torch.optim.AdamW` with one param group per (lr scale, weight
     decay) whose lr is the scale, and a `LambdaLR` multiplying it by the
     schedule. AdamW's decay p *= 1 - lr * wd before the Adam step equals
     optax's lr * (adam + wd * p), since the Adam term does not read p. A
@@ -133,18 +136,56 @@ class LayerDecayAdamW:
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> torch.Tensor:
-        """Average the gradients over the ranks (`parallel.allreduce_grads`,
-        under a process group of several ranks), clip them in place,
-        update, advance the schedule; returns the global norm of the
-        gradients before clipping, the same on every rank."""
+        """Average the gradients over the data group
+        (`parallel.allreduce_grads`, under a process group of several
+        ranks), clip them in place, update, advance the schedule; returns
+        the global norm of the gradients before clipping, the same on
+        every rank.
+
+        Under a model group (`parallel/tp.py`) the parameters split over
+        it (those with a `tp_dim`) are averaged over the data group; the
+        whole ones, whose gradients agree across the model group up to
+        the order of float atomics, over the world, which leaves every
+        copy bitwise equal at the price of the data group's average. The
+        global norm is JAX's norm of the logical arrays: the whole
+        parameters' squares once, the split ones' summed over the model
+        group. AdamW's moments are then the shards' size. Without a grid
+        nothing is split and the world is the data group."""
         params = [p for g in self.adamw.param_groups for p in g["params"]]
-        allreduce_grads(params)
-        params = [p for p in params if p.grad is not None]
         clip = math.inf if self.grad_clip is None else self.grad_clip
-        norm = torch.nn.utils.clip_grad_norm_(params, clip)
+        mesh = grid()
+        split = [p for p in params if hasattr(p, "tp_dim")]
+        whole = [p for p in params if not hasattr(p, "tp_dim")]
+        allreduce_grads(split, data_group())
+        allreduce_grads(whole)
+        grads = [p.grad for p in params if p.grad is not None]
+        norm = split_grad_norm(
+            [p.grad for p in whole if p.grad is not None],
+            [p.grad for p in split if p.grad is not None],
+            None if mesh is None else mesh.group("model"),
+            params[0].device)
+        coef = (clip / (norm + 1e-6)).clamp(max=1.0)
+        torch._foreach_mul_(grads, coef)
         self.adamw.step()
         self.scheduler.step()
         return norm
+
+
+def split_grad_norm(whole, split, group, device) -> torch.Tensor:
+    """The global L2 norm (fp32, on `device`) of gradients of which `whole`
+    are the same on every rank of `group` and `split` are each rank's
+    shards (summed over `group` where there are any: under a grid every
+    rank has some, without one none does)."""
+    def squares(gs):
+        if not gs:
+            return torch.zeros((), device=device)
+        return torch.stack(torch._foreach_norm(
+            [g.float() for g in gs])).square().sum()
+
+    sq = squares(whole)
+    if split:
+        sq = sq + collectives.all_reduce_sum(squares(split), group)
+    return sq.sqrt()
 
 
 def make_optimizer(

@@ -17,7 +17,10 @@ the ranks' mean, so that W ranks take the step JAX takes on a W-device
 mesh. The `generator` a step is given on rank r is seeded from (seed,
 rank) by the loop (`parallel.rank_generator`): DropPath, dropout, the
 loss's point draws and DINO's denoising draws are independent across the
-ranks, as across the images of JAX's global batch.
+ranks, as across the images of JAX's global batch. Under a (data, model)
+grid (`parallel/tp.py`) the same step runs on a split model: "the ranks"
+above are then the data group's, and the ranks of a model group hold
+the same images and draws.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from vitadapter_torch.heads.mask2former_loss import mask2former_loss
 from vitadapter_torch.models.segmentor import segmentation_loss
 from vitadapter_torch.ops.point_sample import Sampler, uniform_sampler
 from vitadapter_torch.parallel.collectives import all_reduce_dict
+from vitadapter_torch.parallel.mesh import data_group
 from vitadapter_torch.train.optim import LayerDecayAdamW
 
 
@@ -95,7 +99,7 @@ def make_m2f_train_step(model: nn.Module, num_classes: int,
         state.update_ema()
         logs = all_reduce_dict({**{k: v.detach() for k, v in logs.items()
                                    if not k.startswith("d")},
-                                "loss": loss.detach()})
+                                "loss": loss.detach()}, data_group())
         logs["grad_norm"] = grad_norm
         return state, logs
 
@@ -125,7 +129,7 @@ def make_seg_train_step(model: nn.Module, aux_weight: float = 0.4,
         state.step += 1
         state.update_ema()
         logs = all_reduce_dict({**{k: v.detach() for k, v in logs.items()},
-                                "loss": loss.detach()})
+                                "loss": loss.detach()}, data_group())
         logs["grad_norm"] = grad_norm
         return state, logs
 
@@ -187,7 +191,8 @@ def make_det_train_step(model: nn.Module) -> Callable:
         grad_norm = state.optimizer.step()
         state.step += 1
         state.update_ema()
-        logs = all_reduce_dict({k: v.detach() for k, v in losses.items()})
+        logs = all_reduce_dict({k: v.detach() for k, v in losses.items()},
+                               data_group())
         logs["grad_norm"] = grad_norm
         return state, logs
 
